@@ -1,0 +1,11 @@
+"""h2o-danube-1.8b [dense] — 24L d_model=2560 32H (GQA kv=8) d_ff=6912
+vocab=32000, llama+mistral mix with sliding-window attention (4096)
+[arXiv:2401.16818; hf]."""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="h2o-danube-1.8b", family="dense",
+    n_layers=24, d_model=2560, n_heads=32, n_kv_heads=8, head_dim=80,
+    d_ff=6912, vocab=32000, window=4096, mlp_type="swiglu",
+)

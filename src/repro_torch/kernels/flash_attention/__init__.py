@@ -1,0 +1,2 @@
+"""Flash-attention forward: the CUDA kernel's wrapper (kernel.py) and its
+plain PyTorch version (ref.py)."""
