@@ -1,5 +1,7 @@
-"""Chip smoke of the PyTorch/CUDA port: build every kernel, hold each against
-its plain version, serve qwen3-1.7b at full width through the paged
+"""Chip smoke of the PyTorch/CUDA port: build every emitted kernel, hold each
+against its plain version at its default schedule and at seeded random legal
+orders, run the SIP loop on the card (smoke tune, verify, a wall-clock tune
+of each kernel), serve qwen3-1.7b at full width through the paged
 continuous engine, and print one JSON line per phase.
 
     python3 chip_smoke.py
@@ -12,9 +14,13 @@ there is no card or any phase fails.  The last line is the contract line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
+import io
 import itertools
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -25,22 +31,39 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import configs, obs  # noqa: E402
+from repro_torch import configs, kernels, obs  # noqa: E402
+from repro_torch.core import (Schedule, ScheduleCache, SipKernel,  # noqa: E402
+                              TuneConfig, registry, schedule_cache)
+from repro_torch.core.energy import (UnassemblableSchedule,  # noqa: E402
+                                     device_seconds)
+from repro_torch.core.testing import InputSpec, probabilistic_test  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels._emit import random_legal_order  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.gemm_fused import kernel as gf  # noqa: E402
+from repro_torch.kernels.gemm_fused import ops as gf_ops  # noqa: E402
+from repro_torch.kernels.gemm_fused import ref as gf_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as pg  # noqa: E402
+from repro_torch.kernels.paged_attention import ops as pg_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pg_ref  # noqa: E402
+from repro_torch.launch import tune as tune_cli  # noqa: E402
+from repro_torch.launch import verify as verify_cli  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serve.engine import (ContinuousEngine, Engine,  # noqa: E402
                                       ServeConfig)
 
 #: the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
-PEAK_BF16_FLOPS = 989e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
-#: the repo's oracle tolerances: fp32 kernels vs their plain version, and
-#: bf16 (TuneConfig.rtol/atol, repro/core/jit.py:43-44)
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: (rtol, atol) of a kernel against its plain version: fp32 to 1e-4 (sums
+#: in another order), bf16 to the repo's oracle tolerance
+#: (TuneConfig.rtol/atol = 2e-2, repro/core/jit.py:43-44)
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+#: the random legal orders each kernel phase runs beside the default
+ORDER_SEEDS = (1, 2, 3, 4)
+BF16, F32 = torch.bfloat16, torch.float32
 
 
 def emit(phase: str, **fields) -> None:
@@ -48,21 +71,12 @@ def emit(phase: str, **fields) -> None:
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn`` in ms: CUDA events around ``iters``
-    back-to-back calls, enqueued while a sleep kernel holds the stream, so
-    the host's enqueue time does not open gaps between the launches."""
+    """Mean device time of ``fn`` in ms over ``iters`` back-to-back calls,
+    timed as the wall-clock energy times a schedule."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)     # ~25 ms at 2 GHz, longer than the enqueue
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    return device_seconds(fn, calls=iters) * 1e3
 
 
 def host_us(fn, iters: int = 200) -> float:
@@ -78,6 +92,104 @@ def host_us(fn, iters: int = 200) -> float:
     return elapsed / iters * 1e6
 
 
+def compare(got: torch.Tensor, want: torch.Tensor, dtype, what: str) -> float:
+    """Max abs error of ``got``; raises unless every element is within the
+    dtype's (rtol, atol) of ``want``."""
+    torch.cuda.synchronize()
+    rtol, atol = TOL[dtype]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if got.shape != want.shape or not torch.isfinite(g).all() \
+            or bool((err > atol + rtol * w.abs()).any()):
+        raise AssertionError(f"{what}: differs from its plain version "
+                             f"(max abs err {err.max().item()})")
+    return err.max().item()
+
+
+def _randn(shape, dtype, gen) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _dt(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+# ------------------------------------------------------- kernel schedules
+def gemm_kernel(m, n, k, dtype, order=None):
+    return registry.spec(gf_ops.NAME).build(Schedule(order=order), m=m, n=n,
+                                            k=k, dtype=_dt(dtype))
+
+
+def flash_static(b, hq, hkv, sq, skv, d, causal, window, dtype) -> dict:
+    return dict(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d, causal=causal,
+                window=window, dtype=_dt(dtype))
+
+
+def flash_kernel(static, order=None):
+    return fa_ops.build(Schedule(order=order), **static)
+
+
+def gather_static(p, ps, h, d, b, n, dtype) -> dict:
+    return dict(p=p, ps=ps, h=h, d=d, b=b, n=n, dtype=_dt(dtype))
+
+
+def gather_kernel(static, knobs=None, order=None):
+    return registry.spec(pg_ops.NAME).build(
+        Schedule(knobs=knobs or {}, order=order), **static)
+
+
+def with_orders(make, seeds=ORDER_SEEDS):
+    """The default schedule of ``make(order)`` and one per seed."""
+    base = make(None)
+    return [(None, base)] + [
+        (s, make(random_legal_order(base.program, s))) for s in seeds]
+
+
+GEMM_SHAPES = [(16, 16, 32), (64, 64, 128), (128, 128, 256), (512, 512, 2048)]
+#: (b, hq, hkv, s_q, s_kv, d, causal, window); the first three run at the
+#: random orders too: the smoke and deploy workloads and a serve prefill
+FLASH_CASES = [(1, 2, 2, 16, 16, 8, True, None),
+               (1, 4, 2, 128, 128, 32, True, None),
+               (4, 16, 8, 128, 128, 128, True, None)] + [
+    (2, 16, 8, s, s, 128, True, None) for s in (16, 37, 384, 500)] + [
+    (2, 16, 8, 100, 100, 128, False, None),
+    (2, 16, 8, 300, 300, 128, True, 64),
+    (2, 16, 8, 37, 100, 128, True, None),
+    (8, 16, 8, 100, 100, 128, True, None),
+    (3, 16, 8, 45, 45, 32, True, None),
+    (1, 16, 8, 70, 70, 64, True, None)]
+#: (p, ps, h, d, b, n): smoke, deploy and the serve phase's store and table
+GATHER_SHAPES = [(8, 8, 2, 8, 2, 4), (64, 16, 4, 32, 8, 8),
+                 (257, 16, 8, 128, 8, 32)]
+
+
+def gather_tiled(static) -> dict:
+    """The finest tiling of the reference's knob space: the most tiles, so
+    the most orders."""
+    sp = pg_ops.space(**static)
+    return {k.name: max(k.choices) for k in sp.knobs}
+
+
+def all_schedules():
+    """Every (function name, kernel) the kernel phases run."""
+    for (m, n, k), dt in itertools.product(GEMM_SHAPES, (F32, BF16)):
+        for _, kern in with_orders(lambda o: gemm_kernel(m, n, k, dt, o)):
+            yield gf.FUNCTION, kern
+    for i, case in enumerate(FLASH_CASES):
+        for dt in (F32, BF16):
+            st = flash_static(*case, dt)
+            seeds = ORDER_SEEDS if i < 3 else ()
+            for _, kern in with_orders(lambda o: flash_kernel(st, o), seeds):
+                yield fa.FUNCTION, kern
+    for shape, dt in itertools.product(GATHER_SHAPES, (F32, BF16)):
+        st = gather_static(*shape, dt)
+        yield pg.FUNCTION, gather_kernel(st)
+        for _, kern in with_orders(
+                lambda o: gather_kernel(st, gather_tiled(st), o)):
+            yield pg.FUNCTION, kern
+
+
+# ------------------------------------------------------------------ phases
 def phase_device() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -94,20 +206,86 @@ def phase_device() -> dict:
     return info
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Emit every schedule the kernel phases run and compile them all in
+    parallel, one nvcc per text."""
     t0 = time.perf_counter()
-    fa_lib = _build.load("flash_attention")
-    pg_lib = _build.load("paged_gather")
+    texts, rejected = [], 0
+    for fn, kern in all_schedules():
+        try:
+            texts.append((fn, kern.source()[0]))
+        except UnassemblableSchedule:
+            rejected += 1
+    emit_s = time.perf_counter() - t0
+    _build.STATS.reset()
+    t0 = time.perf_counter()
+    _build.compile_many(texts)
     wall = time.perf_counter() - t0
-    del fa_lib, pg_lib
-    ptxas = [line.strip() for stem in ("flash_attention", "paged_gather")
-             for line in _build.build_log(stem).splitlines()
-             if "registers" in line or "spill" in line]
-    emit("build", wall_s=wall, ptxas=ptxas)
+    main = [(gf.FUNCTION, gemm_kernel(512, 512, 2048, BF16)),
+            (fa.FUNCTION, flash_kernel(flash_static(*FLASH_CASES[2], BF16))),
+            (pg.FUNCTION, gather_kernel(gather_static(*GATHER_SHAPES[2],
+                                                      BF16)))]
+    ptxas = {fn: [ln.strip() for ln in _build.build_log(
+        fn, kern.source()[0]).splitlines() if "registers" in ln or "spill" in ln]
+        for fn, kern in main}
+    out = {"texts": len(texts), "distinct_texts": len(set(texts)),
+           "smem_rejected": rejected, "emit_s": emit_s, "wall_s": wall,
+           **_build.STATS.snapshot(), "ptxas_main_shapes": ptxas}
+    emit("build", **out)
+    return out
 
 
-def _randn(shape, dtype, gen) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+def _run_orders(label, make, args, plain, dtype, seeds=ORDER_SEEDS,
+                time_it=False) -> dict:
+    want = plain(*args)
+    rows, worst = [], 0.0
+    for seed, kern in with_orders(make, seeds):
+        row = {"order_seed": seed}
+        try:
+            got = kern(*args)
+        except UnassemblableSchedule as e:
+            rows.append({**row, "rejected": str(e)[:120]})
+            continue
+        row["max_abs_err"] = compare(got, want, dtype, f"{label} seed {seed}")
+        worst = max(worst, row["max_abs_err"])
+        if time_it:
+            row["ms"] = cuda_ms(lambda: kern(*args))
+        rows.append(row)
+    return {"case": label, "dtype": _dt(dtype), "orders": rows,
+            "max_abs_err": worst}
+
+
+def phase_gemm(gen) -> dict:
+    results = []
+    for (m, n, k), dt in itertools.product(GEMM_SHAPES, (F32, BF16)):
+        x, w = _randn((m, k), dt, gen), _randn((k, n), dt, gen)
+        results.append(_run_orders(
+            f"gemm {m}x{n}x{k}", lambda o: gemm_kernel(m, n, k, dt, o),
+            (x, w), gf_ref.gemm_leaky_relu, dt,
+            time_it=(m, n, k) == (512, 512, 2048)))
+    timed = {}
+    for dt in (BF16, F32):      # the paper's shape (benchmarks/table3_gemm.py)
+        m = n = 512
+        k = 2048
+        x, w = _randn((m, k), dt, gen), _randn((k, n), dt, gen)
+        kern = gemm_kernel(m, n, k, dt)
+        esize = x.element_size()
+        t_ops = 2 * m * n * k / PEAK_FLOPS[dt]
+        t_bytes = (m * k + k * n + m * n) * esize / PEAK_BYTES
+        timed[_dt(dt)] = {
+            "ms": cuda_ms(lambda: kern(x, w)),
+            "plain_ms": cuda_ms(lambda: gf_ref.gemm_leaky_relu(x, w)),
+            "library_ms": cuda_ms(lambda: torch.nn.functional.leaky_relu(
+                x @ w, 0.01)),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+    worst = max(r["max_abs_err"] for r in results if r["dtype"] == "bfloat16")
+    out = {"cases": results, "timed_512x512x2048": timed,
+           "max_abs_err_bf16": worst,
+           "max_abs_err_f32": max(r["max_abs_err"] for r in results
+                                  if r["dtype"] == "float32")}
+    emit("gemm_fused", **out)
+    return {**out, **timed["bfloat16"], "max_abs_err": worst}
 
 
 def attention_bound_ms(b, hq, hkv, sq, skv, d, esize, causal, window,
@@ -127,89 +305,257 @@ def attention_bound_ms(b, hq, hkv, sq, skv, d, esize, causal, window,
 
 
 def phase_flash(gen) -> dict:
-    cases = [dict(b=2, sq=s, skv=s, causal=True, window=None, d=128)
-             for s in (16, 37, 128, 384, 500)]
-    cases += [dict(b=2, sq=100, skv=100, causal=False, window=None, d=128),
-              dict(b=2, sq=300, skv=300, causal=True, window=64, d=128),
-              dict(b=2, sq=37, skv=100, causal=True, window=None, d=128),
-              dict(b=3, sq=45, skv=45, causal=True, window=None, d=32),
-              dict(b=1, sq=70, skv=70, causal=True, window=None, d=64)]
-    results, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for c in cases:
-        for dtype in (torch.float32, torch.bfloat16):
-            q = _randn((c["b"], 16, c["sq"], c["d"]), dtype, gen)
-            k = _randn((c["b"], 8, c["skv"], c["d"]), dtype, gen)
-            v = _randn((c["b"], 8, c["skv"], c["d"]), dtype, gen)
-            got = fa.flash_attention(q, k, v, causal=c["causal"],
-                                     window=c["window"])
-            want = fa_ref.attention(q, k, v, causal=c["causal"],
-                                    window=c["window"])
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            if not np.isfinite(err) or err > TOL[dtype]:
-                raise AssertionError(f"flash_attention {c} {dtype}: max abs "
-                                     f"err {err} > {TOL[dtype]}")
-            worst[dtype] = max(worst[dtype], err)
-            results.append({**c, "dtype": str(dtype).split(".")[-1],
-                            "max_abs_err": err})
-    # timing at a prefill shape: B=4, S=384, qwen3 heads, bf16, causal
-    b, s, d = 4, 384, 128
-    q = _randn((b, 16, s, d), torch.bfloat16, gen)
-    k = _randn((b, 8, s, d), torch.bfloat16, gen)
-    v = _randn((b, 8, s, d), torch.bfloat16, gen)
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True))
-    wrapper_us = host_us(lambda: fa.flash_attention(q, k, v, causal=True))
-    plain_ms = cuda_ms(lambda: fa_ref.attention(q, k, v, causal=True))
-    # the library yardstick takes repeated kv heads; the repeat is made
-    # outside the timed region
+    results, worst = [], {F32: 0.0, BF16: 0.0}
+    for i, case in enumerate(FLASH_CASES):
+        b, hq, hkv, sq, skv, d, causal, window = case
+        for dt in (F32, BF16):
+            q = _randn((b, hq, sq, d), dt, gen)
+            k = _randn((b, hkv, skv, d), dt, gen)
+            v = _randn((b, hkv, skv, d), dt, gen)
+            st = flash_static(*case, dt)
+            res = _run_orders(
+                f"flash {case}", lambda o: flash_kernel(st, o), (q, k, v),
+                lambda q, k, v: fa_ref.attention(q, k, v, causal=causal,
+                                                 window=window), dt,
+                seeds=ORDER_SEEDS if i < 3 else (), time_it=i == 2)
+            worst[dt] = max(worst[dt], res["max_abs_err"])
+            results.append(res)
+    timed = {}
+    for b, s in ((4, 128), (4, 384)):   # a serve prefill and a longer one
+        q = _randn((b, 16, s, 128), BF16, gen)
+        k = _randn((b, 8, s, 128), BF16, gen)
+        v = _randn((b, 8, s, 128), BF16, gen)
+        # the library yardstick takes repeated kv heads, made outside the
+        # timed region
+        kr, vr = k.repeat_interleave(2, dim=1), v.repeat_interleave(2, dim=1)
+        bound_ms, bound_by = attention_bound_ms(b, 16, 8, s, s, 128, 2, True,
+                                                None, PEAK_FLOPS[BF16])
+        timed[f"b{b}_s{s}"] = {
+            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+            "plain_ms": cuda_ms(lambda: fa_ref.attention(q, k, v,
+                                                         causal=True)),
+            "library_ms": cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, kr, vr, is_causal=True)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "registry_call_host_us": host_us(
+                lambda: fa.flash_attention(q, k, v, causal=True))}
+    # a serve prefill at a length that is not a multiple of 8: the model's
+    # call pads it to 128 rows; the schedule at the exact length has 1-row
+    # query tiles
+    b, s = 8, 100
+    q = _randn((b, 16, s, 128), BF16, gen)
+    k = _randn((b, 8, s, 128), BF16, gen)
+    v = _randn((b, 8, s, 128), BF16, gen)
+    exact = flash_kernel(flash_static(b, 16, 8, s, s, 128, True, None, BF16))
+    padded = fa.flash_attention(q, k, v, causal=True)
+    compare(padded, fa_ref.attention(q, k, v, causal=True), BF16,
+            "flash padded b8 s100")
     kr, vr = k.repeat_interleave(2, dim=1), v.repeat_interleave(2, dim=1)
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, kr, vr, is_causal=True))
-    bound_ms, bound_by = attention_bound_ms(b, 16, 8, s, s, d, 2, True, None,
-                                            PEAK_BF16_FLOPS)
-    out = {"cases": results, "max_abs_err_f32": worst[torch.float32],
-           "max_abs_err_bf16": worst[torch.bfloat16],
-           "timed_shape": [b, 16, 8, s, d], "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "wrapper_host_us": wrapper_us}
+    bound_ms, bound_by = attention_bound_ms(b, 16, 8, s, s, 128, 2, True,
+                                            None, PEAK_FLOPS[BF16])
+    timed["b8_s100"] = {
+        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+        "exact_length_ms": cuda_ms(lambda: exact(q, k, v)),
+        "exact_length_tiles": [exact.bq, exact.bk],
+        "padded_length": -(-s // fa.SEQ_TILE) * fa.SEQ_TILE,
+        "plain_ms": cuda_ms(lambda: fa_ref.attention(q, k, v, causal=True)),
+        "library_ms": cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, kr, vr, is_causal=True)),
+        "bound_ms": bound_ms, "bound_by": bound_by}
+    if timed["b8_s100"]["ms"] >= timed["b8_s100"]["exact_length_ms"]:
+        raise AssertionError(f"flash at b8 s100: the padded call is no "
+                             f"faster than 1-row tiles: {timed['b8_s100']}")
+    out = {"cases": results, "max_abs_err_f32": worst[F32],
+           "max_abs_err_bf16": worst[BF16], "timed_bf16_causal": timed}
     emit("flash_attention", **out)
-    return out
+    return {**out, **timed["b4_s128"], "max_abs_err": worst[BF16]}
 
 
 def phase_gather(gen) -> dict:
-    store = _randn((257, 16, 8, 128), torch.bfloat16, gen)
+    results = []
+    for shape, dt in itertools.product(GATHER_SHAPES, (F32, BF16)):
+        p, ps, h, d, b, n = shape
+        store = _randn((p, ps, h, d), dt, gen)
+        pt = torch.randint(-p, p, (b, n), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        pt[0, 0], pt[0, 1], pt[-1, -1] = -1, -p, 0      # wrap to p-1 and 0
+        st = gather_static(*shape, dt)
+        want = pg_ref.paged_gather(store, pt)
+        for knobs in ({}, gather_tiled(st)):
+            for seed, kern in with_orders(
+                    lambda o: gather_kernel(st, knobs, o),
+                    ORDER_SEEDS if knobs else ()):
+                if not torch.equal(kern(store, pt), want):
+                    raise AssertionError(f"paged_gather {shape} {dt} "
+                                         f"{knobs} seed {seed}: differs "
+                                         f"from store[page_table]")
+                results.append({"shape": list(shape), "dtype": _dt(dt),
+                                "knobs": knobs, "order_seed": seed,
+                                "bitwise_equal": True})
+    # the serve phase's exact shapes, bf16
+    store = _randn((257, 16, 8, 128), BF16, gen)
     pt = torch.randint(0, 257, (8, 32), generator=gen, device="cuda",
                        dtype=torch.int32)
     pt[0, 0] = 0                    # the trash page
-    pt[1, 5] = 0
     pt[3, :4] = pt[2, :4]           # pages shared between slots
-    pt[4, 7] = pt[4, 6]             # a page repeated within one row
-    got = pg.paged_gather(store, pt)
-    want = pg_ref.paged_gather(store, pt)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("paged_gather differs from store[page_table]")
     flat = pt.reshape(-1)
     # the decode step gathers each layer's store after other work, so time
     # with cold L2: 8 stores (67 MB in all) taken in turn
-    stores = _randn((8,) + tuple(store.shape), torch.bfloat16, gen)
+    stores = _randn((8,) + tuple(store.shape), BF16, gen)
     turn = itertools.count()
 
     def cold() -> torch.Tensor:
         return stores[next(turn) % len(stores)]
 
-    ms = cuda_ms(lambda: pg.paged_gather(cold(), pt))
-    wrapper_us = host_us(lambda: pg.paged_gather(store, pt))
-    plain_ms = cuda_ms(lambda: pg_ref.paged_gather(cold(), pt))
-    library_ms = cuda_ms(lambda: torch.index_select(cold(), 0, flat))
+    direct = gather_kernel(gather_static(257, 16, 8, 128, 8, 32, BF16))
     nbytes = pt.numel() * store[0].numel() * store.element_size()
-    out = {"store": list(store.shape), "table": list(pt.shape),
-           "bitwise_equal": True, "max_abs_err": 0.0, "l2": "cold", "ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
+    out = {"cases": results, "negative_ids_bitwise_equal": True,
+           "store": list(store.shape), "table": list(pt.shape),
+           "max_abs_err": 0.0, "l2": "cold",
+           "ms": cuda_ms(lambda: pg.paged_gather(cold(), pt)),
+           "plain_ms": cuda_ms(lambda: pg_ref.paged_gather(cold(), pt)),
+           "library_ms": cuda_ms(lambda: torch.index_select(cold(), 0, flat)),
            "bound_ms": 2 * nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
-           "wrapper_host_us": wrapper_us}
+           "registry_call_host_us": host_us(lambda: pg.paged_gather(store,
+                                                                    pt)),
+           "kernel_call_host_us": host_us(lambda: direct(store, pt))}
     emit("paged_gather", **out)
     return out
+
+
+def _sass_hash(cubin: Path) -> str | None:
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(cubin)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    code = [ln.split("/*")[1] if ln.strip().startswith("/*") else ln
+            for ln in sass.splitlines() if ";" in ln]
+    return hashlib.sha256("\n".join(code).encode()).hexdigest()
+
+
+def distinct_cubins() -> dict:
+    """Do 16 random legal orders of each kernel survive nvcc/ptxas as 16
+    different binaries?"""
+    makers = {
+        "gemm_fused_leaky_relu 512x512x2048 bf16":
+            lambda o: gemm_kernel(512, 512, 2048, BF16, o),
+        "flash_attention_causal b4 s128 d128 bf16":
+            lambda o: flash_kernel(flash_static(*FLASH_CASES[2], BF16), o),
+        "paged_gather serve store, rows 8 n_chunks 4, bf16":
+            lambda o: gather_kernel(
+                gather_static(*GATHER_SHAPES[2], BF16),
+                gather_tiled(gather_static(*GATHER_SHAPES[2], BF16)), o)}
+    out = {}
+    for label, make in makers.items():
+        base = make(None)
+        orders = {random_legal_order(base.program, s) for s in range(16)}
+        texts, rejected = [], 0
+        fn = {gf.GemmKernel: gf.FUNCTION, fa.FlashKernel: fa.FUNCTION,
+              pg.GatherKernel: pg.FUNCTION}[type(base)]
+        for order in orders:
+            try:
+                texts.append((fn, make(order).source()[0]))
+            except UnassemblableSchedule:
+                rejected += 1
+        paths = _build.compile_many(texts)
+        cubins = {hashlib.sha256(p.read_bytes()).hexdigest() for p in paths}
+        sass = {_sass_hash(p) for p in paths}
+        out[label] = {"random_orders": 16, "distinct_orders": len(orders),
+                      "smem_rejected": rejected,
+                      "distinct_texts": len({t for _, t in texts}),
+                      "distinct_cubins": len(cubins),
+                      "distinct_sass": None if None in sass else len(sass)}
+    return out
+
+
+def phase_sip(workdir: Path) -> dict:
+    """The SIP main path on the card: smoke tune, verify on its store, a
+    wall-clock tune of each kernel at its main-path shape, and the
+    distinct-cubin count."""
+    cache = workdir / "sip_smoke.json"
+    for mod in (fa, pg, gf):
+        mod.launches = 0
+    _build.STATS.reset()
+    t0 = time.perf_counter()
+    if tune_cli.main(["--smoke", "--cache", str(cache)]) != 0:
+        raise AssertionError("tune --smoke failed on the card")
+    tune_s = time.perf_counter() - t0
+    smoke_builds = _build.STATS.snapshot()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = verify_cli.main(["--suite", "smoke", "--cache", str(cache)])
+    print(buf.getvalue(), end="", flush=True)
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("[verify] ") and "workload(s)" not in ln]
+    if rc != 0 or len(lines) != 3 or not all(
+            ln.startswith("[verify] PASS") and "tuned schedule" in ln
+            for ln in lines):
+        raise AssertionError(f"verify on the card's smoke store: rc {rc}")
+
+    # one wall-clock tune per kernel at its main-path shape: the paper's
+    # gemm (benchmarks/table3_gemm.py), a serve prefill, the serve gather
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    pt = torch.randint(0, 257, (8, 32), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    wall_tunes = {
+        "gemm_fused_leaky_relu 512x512x2048 bf16": (gf_ops.NAME, [
+            _randn((512, 2048), BF16, gen), _randn((2048, 512), BF16, gen)]),
+        "flash_attention_causal b4 s128 d128 bf16": (
+            fa_ops.variant_name(True, None), [
+                _randn((4, 16, 128, 128), BF16, gen),
+                _randn((4, 8, 128, 128), BF16, gen),
+                _randn((4, 8, 128, 128), BF16, gen)]),
+        "paged_gather serve store bf16": (pg_ops.NAME, [
+            _randn((257, 16, 8, 128), BF16, gen), pt])}
+    wall_tune = {}
+    for label, (name, args) in wall_tunes.items():
+        _build.STATS.reset()
+        kern = registry.spec(name).instantiate(cache=ScheduleCache())
+        t0 = time.perf_counter()
+        (res,) = kern.tune(args, TuneConfig(energy="wallclock", rounds=1,
+                                            cooling=1.3))
+        wall_s = time.perf_counter() - t0
+        static = kern.static_of(*args)
+        (entry,) = kern.cache.entries(name, kern.sig_str(static))
+        # the default and the best schedule timed in turns (ABBA), 50
+        # launches each, outside the search
+        spec = registry.spec(name)
+        pair = {"default": spec.build(Schedule(), **static),
+                "best": spec.build(res.best, **static)}
+        paired = {"default": [], "best": []}
+        for which in ("default", "best", "best", "default"):
+            paired[which].append(cuda_ms(lambda: pair[which](*args)))
+        wall_tune[label] = {
+            "wall_s": wall_s,
+            "paired_default_ms": float(np.mean(paired["default"])),
+            "paired_best_ms": float(np.mean(paired["best"])),
+            "default_us": res.initial_raw * 1e6,
+            "best_us": res.best_raw * 1e6, "improvement": res.improvement,
+            "evals": res.evals, "best_order_is_default":
+                res.best.order is None or res.best.order == tuple(
+                    range(len(res.best.order))),
+            "tests_passed": entry.tests_passed, **_build.STATS.snapshot()}
+    launches = {"gemm_fused_leaky_relu": gf.launches,
+                "flash_attention_causal": fa.launches,
+                "paged_gather": pg.launches}
+    cubins = distinct_cubins()
+    failures = smoke_builds["compile_failures"] \
+        + sum(t["compile_failures"] for t in wall_tune.values()) \
+        + _build.STATS.compile_failures
+    if failures:
+        raise AssertionError(f"{failures} legal orders failed to compile")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel never launched on the SIP path: "
+                             f"{launches}")
+    out = {"tune_smoke_s": tune_s, "tune_smoke_builds": smoke_builds,
+           "verify": lines, "wallclock_tune": wall_tune,
+           "distinct_cubins": cubins, "compile_failures": failures,
+           "launches": launches}
+    emit("sip", **out)
+    return {**out, "cache": str(cache)}
 
 
 def _serve_requests(vocab: int):
@@ -235,25 +581,32 @@ def phase_serve(params, cfg) -> dict:
     scfg = ServeConfig(max_len=512, capacity=8, paged=True, page_size=16,
                        prefill_chunk=128, prefix_cache=True)
     prompts, budgets = _serve_requests(cfg.vocab)
-    # warm-up on a throwaway engine (cuBLAS handles, allocator), not counted
+    # warm-up, not counted: the same prompts with 2 new tokens each, so
+    # every prefill shape of the run (prompt lengths padded to a multiple of
+    # fa.SEQ_TILE) builds its flash schedule here; it also warms cuBLAS and
+    # the allocator
     warm = ContinuousEngine(params, cfg, scfg)
-    for n in (40, 150):
-        warm.submit(prompts[1][:n], 2)
-    warm.run(max_steps=100)
+    for p in prompts:
+        warm.submit(p, 2)
+    warm.run(max_steps=10_000)
     del warm
     torch.cuda.synchronize()
 
     eng = ContinuousEngine(params, cfg, scfg)
     tracer = obs.Tracer()
+    compiles_before = _build.STATS.compiles
     fa.launches = 0
     pg.launches = 0
+    gf.launches = 0
     t0 = time.perf_counter()
     with obs.tracing(tracer):
         handles = [eng.submit(p, b) for p, b in zip(prompts, budgets)]
         eng.run(max_steps=10_000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": fa.launches, "paged_gather": pg.launches}
+    launches = {"flash_attention_causal": fa.launches,
+                "paged_gather": pg.launches,
+                "gemm_fused_leaky_relu": gf.launches}
 
     events = tracer.events()
     n_prefill = sum(e["name"] == "serve.prefill" for e in events)
@@ -270,7 +623,8 @@ def phase_serve(params, cfg) -> dict:
                              f"{s['chunk_steps']}: the path was not covered")
     want_pg = 2 * cfg.n_layers * (s["decode_steps"] + s["chunk_steps"])
     want_fa = cfg.n_layers * n_prefill
-    if launches != {"flash_attention": want_fa, "paged_gather": want_pg}:
+    if launches != {"flash_attention_causal": want_fa, "paged_gather": want_pg,
+                    "gemm_fused_leaky_relu": 0}:
         raise AssertionError(f"launches {launches}, expected flash "
                              f"{want_fa} and gather {want_pg}")
     if n_prefill < 1:
@@ -291,6 +645,8 @@ def phase_serve(params, cfg) -> dict:
            "prefix_hits": s["prefix_hits"],
            "prefix_tokens_saved": s["prefix_tokens_saved"],
            "prefill_compiles": s["prefill_compiles"], "launches": launches,
+           "kernel_builds_in_timed_window":
+               _build.STATS.compiles - compiles_before,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit("serve", **out)
     return out
@@ -303,8 +659,14 @@ def phase_profile(params, cfg) -> dict:
     eng = ContinuousEngine(params, cfg, ServeConfig(
         max_len=512, capacity=8, paged=True, page_size=16, prefill_chunk=128))
     rng = np.random.default_rng(1)
-    for _ in range(8):
-        eng.submit(rng.integers(0, cfg.vocab, 100).astype(np.int32), 16)
+    prompts = [rng.integers(0, cfg.vocab, 100).astype(np.int32)
+               for _ in range(8)]
+    warm = ContinuousEngine(params, cfg, eng.scfg)    # builds, not profiled
+    warm.submit(prompts[0], 2)
+    warm.run(max_steps=100)
+    del warm
+    for p in prompts:
+        eng.submit(p, 16)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -337,10 +699,65 @@ def phase_profile(params, cfg) -> dict:
     return out
 
 
-def phase_differential() -> dict:
+#: the kernels the serving engine dispatches through the registry
+SERVED = (fa_ops.variant_name(True, None), pg_ops.NAME)
+
+
+def _input_specs(name: str, static: dict) -> list[InputSpec]:
+    if name == pg_ops.NAME:
+        return [InputSpec((static["p"], static["ps"], static["h"],
+                           static["d"]), static["dtype"]),
+                InputSpec((static["b"], static["n"]), "int32")]
+    kv = InputSpec((static["b"], static["hkv"], static["skv"], static["d"]),
+                   static["dtype"])
+    return [InputSpec((static["b"], static["hq"], static["sq"], static["d"]),
+                      static["dtype"]), kv, kv]
+
+
+def put_served_schedules(path: Path, served: dict[str, list]) -> dict:
+    """Persist into the store at ``path``, at every signature the engine
+    served, a schedule that is not the default: a random legal order (the
+    gather at its finest tiling; at its default tiling it has no legal
+    move) that assembles on the card and passes 8 probabilistic tests
+    against the kernel's oracle."""
+    cache = ScheduleCache(str(path))
+    rng = np.random.default_rng(3)
+    for name, sigs in served.items():
+        spec = registry.spec(name)
+        for static in sigs:
+            knobs = gather_tiled(static) if name == pg_ops.NAME else {}
+            prog = spec.program_for(Schedule(knobs=knobs), **static)
+            for seed in range(1, 65):
+                order = random_legal_order(prog, seed)
+                kern = spec.build(Schedule(knobs=knobs, order=order), **static)
+                try:
+                    kern.source()
+                except UnassemblableSchedule:
+                    continue
+                if order != prog.default_order():
+                    break
+            else:
+                raise AssertionError(f"{name} {static}: no assemblable "
+                                     f"order besides the default")
+            rep = probabilistic_test(kern, spec.oracle,
+                                     _input_specs(name, static), 8, rng,
+                                     device="cuda")
+            if not rep.passed:
+                raise AssertionError(f"{name} {static} order seed {seed}: "
+                                     f"fails its oracle ({rep})")
+            cache.put(name, SipKernel.sig_str(static),
+                      Schedule(knobs=knobs, order=order), energy=0.0,
+                      tests_passed=True, test_samples=rep.samples_run,
+                      origin="random legal order")
+    return {name: len(sigs) for name, sigs in served.items()}
+
+
+def phase_differential(sip_cache: str, workdir: Path) -> dict:
     """Full width, 4 layers, float32: the paged continuous engine is
     token-identical to single-request Engine.generate, in fifo and reversed
-    arrival."""
+    arrival, and under a tuned store: the card's smoke store plus a
+    non-default schedule at every signature the fifo run served, each of
+    which the tuned run must resolve."""
     cfg = dataclasses.replace(configs.get("qwen3-1.7b"), n_layers=4,
                               dtype="float32")
     params = M.init_lm(cfg, seed=1, device="cuda")
@@ -355,11 +772,16 @@ def phase_differential() -> dict:
     scfg = ServeConfig(max_len=128, capacity=3, paged=True, page_size=16,
                        prefill_chunk=32, prefix_cache=True)
     stats = {}
-    for order in ("fifo", "reversed"):
+
+    def run(order: str, cache: ScheduleCache | str) -> dict[str, list]:
         idxs = list(range(len(prompts)))[::-1 if order == "reversed" else 1]
-        eng = ContinuousEngine(params, cfg, scfg)
-        uids = {eng.submit(prompts[i], budgets[i]).uid: i for i in idxs}
-        got = eng.run(max_steps=1000)
+        fa.launches = pg.launches = 0
+        with schedule_cache(cache) as store:
+            eng = ContinuousEngine(params, cfg, scfg)
+            uids = {eng.submit(prompts[i], budgets[i]).uid: i for i in idxs}
+            got = eng.run(max_steps=1000)
+            served = {name: registry.get(name, store).served_signatures()
+                      for name in SERVED}
         for uid, i in uids.items():
             if not np.array_equal(got[uid], want[i]):
                 raise AssertionError(f"differential ({order}): request {i} "
@@ -367,21 +789,49 @@ def phase_differential() -> dict:
                                      f"gave {want[i].tolist()}")
         stats[order] = {k: eng.stats[k] for k in (
             "prefix_hits", "chunk_steps", "decode_steps", "prefill_compiles")}
+        stats[order]["launches"] = {SERVED[0]: fa.launches,
+                                    SERVED[1]: pg.launches}
+        return served
+
+    served = run("fifo", ScheduleCache())
+    if not all(served.values()):
+        raise AssertionError(f"the engine served no signature of a kernel: "
+                             f"{ {k: len(v) for k, v in served.items()} }")
+    run("reversed", ScheduleCache())
+    tuned = workdir / "sip_served.json"
+    shutil.copy(sip_cache, tuned)
+    put = put_served_schedules(tuned, served)
+    served_tuned = run("tuned_cache", str(tuned))
+    store = ScheduleCache(str(tuned))
+    resolved = {}
+    for name, sigs in served_tuned.items():
+        for static in sigs:
+            best = store.best(name, SipKernel.sig_str(static))
+            if best is None or best.order is None:
+                raise AssertionError(f"tuned run: {name} {static} resolved "
+                                     f"the default schedule")
+        resolved[name] = len(sigs)
+    if min(stats["tuned_cache"]["launches"].values()) < 1:
+        raise AssertionError(f"tuned run launched no kernel: {stats}")
+    stats["tuned_cache"].update(schedules_put=put,
+                                non_default_resolved=resolved)
     out = {"n_layers": cfg.n_layers, "dtype": cfg.dtype,
            "requests": len(prompts), "token_identical": True, **stats}
     emit("differential", **out)
     return out
 
 
-def kernels_line(flash: dict, gather: dict, serve: dict) -> dict:
+def kernels_line(gemm: dict, flash: dict, gather: dict, sip: dict,
+                 serve: dict) -> dict:
     rows = []
-    for mod, name, res in ((fa, "flash_attention", flash),
-                           (pg, "paged_gather", gather)):
+    for mod, name, res, path in (
+            (gf, "gemm_fused_leaky_relu", gemm, sip),
+            (fa, "flash_attention_causal", flash, serve),
+            (pg, "paged_gather", gather, serve)):
         rows.append({"name": name, "route": "cuda", "source": mod.SOURCE,
                      "replaces": mod.REPLACES,
-                     "launches": serve["launches"][name],
-                     "max_abs_err": res.get("max_abs_err_bf16",
-                                            res.get("max_abs_err")),
+                     "launches": path["launches"][name],
+                     "max_abs_err": res["max_abs_err"],
                      "ms": res["ms"], "plain_ms": res["plain_ms"],
                      "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
                      "library_ms": res["library_ms"]})
@@ -394,18 +844,25 @@ def main() -> int:
               file=sys.stderr)
         return 1
     info = phase_device()
+    kernels.load_all()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    gemm = phase_gemm(gen)
     flash = phase_flash(gen)
     gather = phase_gather(gen)
+    workdir = _build.BUILD_DIR.parent / "chip_smoke"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    sip = phase_sip(workdir)
     cfg = configs.get("qwen3-1.7b")
     params = M.init_lm(cfg, seed=0, device="cuda")
     serve = phase_serve(params, cfg)
     phase_profile(params, cfg)
     del params
     torch.cuda.empty_cache()
-    phase_differential()
-    print(json.dumps(kernels_line(flash, gather, serve)), flush=True)
+    phase_differential(sip["cache"], workdir)
+    print(json.dumps(kernels_line(gemm, flash, gather, sip, serve)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}))
     return 0

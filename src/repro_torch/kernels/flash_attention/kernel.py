@@ -1,73 +1,392 @@
-"""Wrapper of the flash-attention CUDA kernel (``csrc/flash_attention.cu``).
+"""Schedule-parameterized flash attention (fwd): the program and its kernel.
 
-:func:`flash_attention` keeps the JAX package's layout: q (B, Hq, Sq, D),
-k and v (B, Hkv, Skv, D).  On CPU tensors it runs the plain version
-(``ref.attention``); on CUDA tensors it launches the kernel or raises.
-``launches`` counts the kernel launches.
+:func:`make_program` is the JAX package's instruction stream for one
+(query tile, kv block) step (``repro/kernels/flash_attention/kernel.py:38``)
+with two faces per instruction: a torch ``fn`` (the CPU face, run by
+``Program.execute`` over the grid with the running statistics carried
+across kv blocks, as Pallas interpret mode runs the reference off-TPU) and a
+CUDA ``src`` snippet that ``Program.emit`` lays out in schedule order inside
+the kv loop of ``csrc/flash_attention.cu``.  MEM instructions (the q load,
+per-chunk K and V loads, the output store) are SIP's movable set.
+
+:class:`FlashKernel` is one schedule of the kernel: on CPU tensors it runs
+the CPU face, on CUDA tensors it emits, builds (once per text) and launches
+the CUDA kernel, counting ``launches``.  :func:`flash_attention` is the
+model's entry point: the plain version on CPU tensors, the registry's shared
+instance (``ops.kernel(causal, window)``, which serves the schedule of the
+active schedule cache) on CUDA tensors, with causal lengths padded to a
+multiple of :data:`SEQ_TILE`.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import Sequence
+
 import torch
 
+from repro_torch.core.ir import Instr, Kind, Program
+from repro_torch.core.testing import dtype_name
 from repro_torch.kernels import _build
+from repro_torch.kernels._emit import (SyncPlanner, buffer_decls, cfloat,
+                                       divisor_at_most, emit_kernel,
+                                       plan_shared)
 from repro_torch.kernels.flash_attention import ref
 
 SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention/kernel.py:179"
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+FUNCTION = "flash_attention"
+CTYPES = {"float32": "float", "bfloat16": "bf16_t"}
+NEG_INF = -1e30
 
 launches = 0
+#: the model's causal calls reach the kernel at lengths padded to a multiple
+#: of this (:func:`padded`): the knob space gives a length that is not a
+#: multiple of 8 one-row query tiles, and most multiples of 8 eight-row
+#: tiles; a multiple of 64 gets tiles of 64 or 128 rows
+SEQ_TILE = 64
+
+
+def make_program(*, bq: int, bk: int, n_chunks: int, d: int, sq: int,
+                 skv: int, causal: bool, window: int | None,
+                 dtype="float32", batch_heads: int = 1) -> Program:
+    if bk % n_chunks:
+        raise ValueError(f"n_chunks {n_chunks} must divide bk {bk}")
+    ck = bk // n_chunks
+    replications = batch_heads * (sq // bq) * (skv // bk)
+    dtype = getattr(torch, dtype_name(dtype))
+    esize = torch.empty((), dtype=dtype).element_size()
+    scale = d ** -0.5
+    instrs: list[Instr] = []
+
+    # ---- loads -------------------------------------------------------------
+    instrs.append(Instr(
+        name="ld_q", kind=Kind.MEM, inputs=(), outputs=("q",),
+        fn=lambda env: {"q": env["q_ref"][0].float()},
+        buffer="q", bytes=bq * d * esize,
+        src="if (first) load_rows<BQ, LDQ>(qp, Q, q0, sq);"))
+
+    def ld_k(env, c):
+        return {f"k{c}": env["k_ref"][0, c * ck:(c + 1) * ck, :].float()}
+
+    def ld_v(env, c):
+        return {f"v{c}": env["v_ref"][0, c * ck:(c + 1) * ck, :].float()}
+
+    def qk(env, c):
+        return {f"s{c}": (env["q"] @ env[f"k{c}"].T) * scale}
+
+    def mk_mask(env, c):
+        i, j = env["i"], env["j"]
+        rows = i * bq + torch.arange(bq)[:, None] + (skv - sq)
+        cols = j * bk + c * ck + torch.arange(ck)[None, :]
+        m = torch.ones((bq, ck), dtype=torch.bool)
+        if causal:
+            m &= cols <= rows
+        if window is not None:
+            m &= cols > rows - window
+        return {f"mask{c}": m,
+                f"sm{c}": torch.where(m, env[f"s{c}"], NEG_INF)}
+
+    for c in range(n_chunks):
+        instrs.append(Instr(name=f"ld_k{c}", kind=Kind.MEM, inputs=(),
+                            outputs=(f"k{c}",), fn=functools.partial(ld_k, c=c),
+                            buffer="k", bytes=ck * d * esize,
+                            src=f"load_rows<CK, LDK>(kp, K{c}, "
+                                f"kb + {c * ck}, skv);"))
+        instrs.append(Instr(name=f"qk{c}", kind=Kind.COMPUTE,
+                            inputs=("q", f"k{c}"), outputs=(f"s{c}",),
+                            fn=functools.partial(qk, c=c),
+                            flops=2 * bq * ck * d,
+                            src=f"qk_tile(Q, K{c}, S{c});"))
+        instrs.append(Instr(name=f"mask{c}", kind=Kind.COMPUTE,
+                            inputs=(f"s{c}",), outputs=(f"sm{c}", f"mask{c}"),
+                            fn=functools.partial(mk_mask, c=c),
+                            flops=bq * ck,
+                            src=f"mask_tile(S{c}, kb + {c * ck}, q0, off, sq, "
+                                f"skv);"))
+
+    # ---- read running stats (carried across kv blocks) -----------------------
+    def ld_stats(env):
+        if env["j"] == 0:
+            return {"m_prev": torch.full((bq, 1), NEG_INF),
+                    "l_prev": torch.zeros((bq, 1)),
+                    "acc_prev": torch.zeros((bq, d))}
+        return {"m_prev": env["m_ref"].clone(), "l_prev": env["l_ref"].clone(),
+                "acc_prev": env["acc_ref"].clone()}
+
+    instrs.append(Instr(name="ld_stats", kind=Kind.COMPUTE, inputs=(),
+                        outputs=("m_prev", "l_prev", "acc_prev"),
+                        fn=ld_stats, buffer="stats", flops=0))
+
+    # ---- online softmax ------------------------------------------------------
+    def softmax_update(env):
+        m_cur = env["m_prev"]
+        for c in range(n_chunks):
+            m_cur = torch.maximum(m_cur, env[f"sm{c}"].amax(dim=1, keepdim=True))
+        corr = torch.exp(env["m_prev"] - m_cur)
+        l_new = corr * env["l_prev"]
+        out = {"m_new": m_cur, "corr": corr}
+        for c in range(n_chunks):
+            p = torch.exp(env[f"sm{c}"] - m_cur) * env[f"mask{c}"]
+            out[f"p{c}"] = p
+            l_new = l_new + p.sum(dim=1, keepdim=True)
+        out["l_new"] = l_new
+        return out
+
+    chunks = ", ".join(f"S{c}" for c in range(n_chunks))
+    instrs.append(Instr(
+        name="softmax", kind=Kind.COMPUTE,
+        inputs=("m_prev", "l_prev") + tuple(f"sm{c}" for c in range(n_chunks))
+               + tuple(f"mask{c}" for c in range(n_chunks)),
+        outputs=("m_new", "l_new", "corr") + tuple(f"p{c}" for c in range(n_chunks)),
+        fn=softmax_update, flops=6 * bq * bk,
+        src=f"{{ float* const sc[NCH] = {{{chunks}}}; softmax_rows(sc, m_s, "
+            f"l_s, c_s, kb, q0, off, sq, skv, acc); }}"))
+
+    # ---- PV and accumulator ---------------------------------------------------
+    def pv(env, c):
+        return {f"pv{c}": env[f"p{c}"] @ env[f"v{c}"]}
+
+    for c in range(n_chunks):
+        instrs.append(Instr(name=f"ld_v{c}", kind=Kind.MEM, inputs=(),
+                            outputs=(f"v{c}",), fn=functools.partial(ld_v, c=c),
+                            buffer="v", bytes=ck * d * esize,
+                            src=f"load_rows<CK, D>(vp, V{c}, kb + {c * ck}, "
+                                f"skv);"))
+        instrs.append(Instr(name=f"pv{c}", kind=Kind.COMPUTE,
+                            inputs=(f"p{c}", f"v{c}"), outputs=(f"pv{c}",),
+                            fn=functools.partial(pv, c=c),
+                            flops=2 * bq * ck * d,
+                            src=f"pv_tile(S{c}, V{c}, acc);"))
+
+    def accumulate(env):
+        acc = env["corr"] * env["acc_prev"]
+        for c in range(n_chunks):
+            acc = acc + env[f"pv{c}"]
+        return {"acc_new": acc}
+
+    instrs.append(Instr(
+        name="accum", kind=Kind.COMPUTE,
+        inputs=("corr", "acc_prev") + tuple(f"pv{c}" for c in range(n_chunks)),
+        outputs=("acc_new",), fn=accumulate, flops=2 * bq * d * n_chunks))
+
+    # ---- write-back -----------------------------------------------------------
+    def st_stats(env):
+        env["m_ref"][...] = env["m_new"]
+        env["l_ref"][...] = env["l_new"]
+        env["acc_ref"][...] = env["acc_new"]
+        return {}
+
+    instrs.append(Instr(name="st_stats", kind=Kind.COMPUTE,
+                        inputs=("m_new", "l_new", "acc_new"), outputs=(),
+                        fn=st_stats, buffer="stats", is_store=True, flops=0))
+
+    def st_o(env):
+        if env["j"] == env["nkv"] - 1:
+            l_safe = env["l_new"].clamp_min(1e-30)
+            env["o_ref"][0] = (env["acc_new"] / l_safe).to(dtype)
+        return {}
+
+    instrs.append(Instr(name="st_o", kind=Kind.MEM,
+                        inputs=("acc_new", "l_new"), outputs=(),
+                        fn=st_o, buffer="o", is_store=True,
+                        bytes=bq * d * esize,
+                        src="if (last) store_o(op, acc, l_s, q0, sq);"))
+    return Program(instrs, replications=replications)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: int | None) -> None:
+           dtype: str, d: int) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on "
                              f"{q.device}; all must be on one CUDA device")
-        if t.dtype != q.dtype or t.dtype not in DTYPES:
-            raise ValueError(f"flash_attention: {name} is {t.dtype}; q, k, v "
-                             f"must share one of {list(DTYPES)}")
-        if t.dim() != 4 or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} must be a contiguous, "
-                             f"16-byte aligned 4-D tensor, got "
-                             f"{tuple(t.shape)} strides {t.stride()}")
-    b, hq, _, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        if dtype_name(t.dtype) != dtype:
+            raise ValueError(f"flash_attention: {name} is {t.dtype}; this "
+                             f"schedule takes {dtype}")
+        if t.dim() != 4 or not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be a contiguous "
+                             f"4-D tensor, got {tuple(t.shape)} strides "
+                             f"{t.stride()}")
+    b, hq, _, qd = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != qd or qd != d:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k "
-                         f"{tuple(k.shape)} v {tuple(v.shape)} do not agree")
+                         f"{tuple(k.shape)} v {tuple(v.shape)} do not agree "
+                         f"with each other or head_dim {d}")
     if k.shape[1] == 0 or hq % k.shape[1]:
         raise ValueError(f"flash_attention: {hq} query heads are not a "
                          f"multiple of {k.shape[1]} kv heads")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
-    if window is not None and window < 1:
-        raise ValueError(f"flash_attention: window must be >= 1, got {window}")
+
+
+class FlashKernel:
+    """One schedule (tiles and order) of flash attention, both faces."""
+
+    def __init__(self, *, bq: int, bk: int, n_chunks: int, d: int, sq: int,
+                 skv: int, causal: bool, window: int | None, dtype="float32",
+                 batch_heads: int = 1, order: Sequence[int] | None = None):
+        if window is not None and window < 1:
+            raise ValueError(f"flash_attention: window must be >= 1, got "
+                             f"{window}")
+        self.bq, self.bk, self.n_chunks, self.d = bq, bk, n_chunks, d
+        self.causal, self.window = causal, window
+        self.dtype = dtype_name(dtype)
+        if self.dtype not in CTYPES:
+            raise ValueError(f"flash_attention: dtype {self.dtype} is not one of "
+                             f"{list(CTYPES)}")
+        self.program = make_program(bq=bq, bk=bk, n_chunks=n_chunks, d=d,
+                                    sq=sq, skv=skv, causal=causal,
+                                    window=window, dtype=self.dtype,
+                                    batch_heads=batch_heads)
+        self.order = tuple(order) if order is not None \
+            else self.program.default_order()
+        if not self.program.is_legal(self.order):
+            raise ValueError("illegal schedule order")
+        self._text: tuple[str, int] | None = None
+        self._kernels: dict[int, _build.Kernel] = {}
+
+    @property
+    def threads(self) -> int:
+        return 256 if self.bq >= 16 else 128
+
+    # ------------------------------------------------------------ CUDA face
+    def source(self) -> tuple[str, int]:
+        """The emitted CUDA text of this schedule and its shared memory in
+        bytes; raises ``UnassemblableSchedule`` when that exceeds a block."""
+        if self._text is None:
+            bq, d, nch = self.bq, self.d, self.n_chunks
+            ck = self.bk // nch
+            esize = 4 if self.dtype == "float32" else 2
+            pad = 4 // esize          # one 32-bit word per row: no conflicts
+            ldq = ldk = d + pad
+            lds = ck + 1
+            buffer_of = {"q": "Q"}
+            for c in range(nch):
+                buffer_of.update({f"k{c}": f"K{c}", f"v{c}": f"V{c}"})
+                for v in ("s", "sm", "mask", "p"):
+                    buffer_of[f"{v}{c}"] = f"S{c}"
+            for v in ("m_prev", "l_prev", "m_new", "l_new", "corr"):
+                buffer_of[v] = "STATS"
+            sizes = {"Q": bq * ldq * esize, "STATS": 3 * bq * 4}
+            for c in range(nch):
+                sizes.update({f"K{c}": ck * ldk * esize,
+                              f"V{c}": ck * d * esize, f"S{c}": bq * lds * 4})
+            plan = plan_shared(self.program, self.order, buffer_of, sizes,
+                               pinned=("Q", "STATS"))
+            _build.check_smem(FUNCTION, plan.total)
+            body = self.program.emit(self.order,
+                                     before=SyncPlanner(plan, buffer_of))
+            nt = self.threads
+            # thread grids: (QK_TR x QK_TC) over a score chunk's (rows,
+            # keys), tiled only when it fills the block; (TR x TC) over the
+            # output's (rows, columns), which owns the acc registers
+            qk_tc = divisor_at_most(ck, 16)
+            qk_tr = divisor_at_most(bq, nt // qk_tc)
+            tc = divisor_at_most(d, 32)
+            tr = divisor_at_most(bq, nt // tc)
+            defines = {"T": CTYPES[self.dtype], "BQ": bq, "BK": self.bk,
+                       "CK": ck, "NCH": nch, "D": d, "NT": nt,
+                       "QK_TILED": int(qk_tr * qk_tc == nt), "QK_TR": qk_tr,
+                       "QK_TC": qk_tc, "QK_TM": bq // qk_tr,
+                       "QK_TN": ck // qk_tc, "TR": tr, "TC": tc,
+                       "TM": bq // tr, "TN": d // tc, "LDQ": ldq, "LDK": ldk,
+                       "LDS": lds, "CAUSAL": int(self.causal),
+                       "WINDOW": self.window or 0,
+                       "SCALE": cfloat(float(torch.tensor(d ** -0.5)))}
+            ctype = {b: "float" if b.startswith(("S", "STATS")) else "T"
+                     for b in sizes}
+            text = emit_kernel(
+                _build.template("sip_common.cuh")
+                + _build.template("flash_attention.cu"), defines,
+                buffer_decls(plan, ctype), body)
+            self._text = (text, plan.total)
+        return self._text
+
+    def _launch(self, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+        global launches
+        _check(q, k, v, self.dtype, self.d)
+        b, hq, sq, d = q.shape
+        _, hkv, skv, _ = k.shape
+        dev = q.device.index if q.device.index is not None \
+            else torch.cuda.current_device()
+        kern = self._kernels.get(dev)
+        if kern is None:
+            text, smem = self.source()
+            kern = self._kernels[dev] = _build.load(FUNCTION, text, smem, dev)
+        out = torch.empty_like(q)
+        if out.numel():
+            with torch.cuda.device(q.device):
+                kern.launch((b * hq, -(-sq // self.bq), 1), self.threads,
+                            [ctypes.c_void_p(q.data_ptr()),
+                             ctypes.c_void_p(k.data_ptr()),
+                             ctypes.c_void_p(v.data_ptr()),
+                             ctypes.c_void_p(out.data_ptr()),
+                             ctypes.c_int(hq), ctypes.c_int(hkv),
+                             ctypes.c_int(sq), ctypes.c_int(skv)])
+            launches += 1
+        return out
+
+    # ------------------------------------------------------------- CPU face
+    def _execute(self, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+        b, hq, sq, d = q.shape
+        _, hkv, skv, _ = k.shape
+        bq, bk = self.bq, self.bk
+        if hq % hkv or sq % bq or skv % bk:
+            raise ValueError(f"tiles ({bq}, {bk}) must divide ({sq}, {skv}) "
+                             f"and kv heads {hkv} must divide {hq}")
+        group = hq // hkv
+        qf = q.reshape(b * hq, sq, d)
+        kf = k.reshape(b * hkv, skv, d)
+        vf = v.reshape(b * hkv, skv, d)
+        out = torch.empty((b * hq, sq, d), dtype=q.dtype)
+        nkv = skv // bk
+        for bh in range(b * hq):
+            kvh = (bh // hq) * hkv + (bh % hq) // group
+            for i in range(sq // bq):
+                scratch = {"m_ref": torch.empty((bq, 1)),
+                           "l_ref": torch.empty((bq, 1)),
+                           "acc_ref": torch.empty((bq, d))}
+                for j in range(nkv):
+                    self.program.execute(
+                        {"q_ref": qf[bh:bh + 1, i * bq:(i + 1) * bq],
+                         "k_ref": kf[kvh:kvh + 1, j * bk:(j + 1) * bk],
+                         "v_ref": vf[kvh:kvh + 1, j * bk:(j + 1) * bk],
+                         "o_ref": out[bh:bh + 1, i * bq:(i + 1) * bq],
+                         "i": i, "j": j, "nkv": nkv, **scratch}, self.order)
+        return out.reshape(b, hq, sq, d)
+
+    def __call__(self, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+        if all(t.device.type == "cpu" for t in (q, k, v)):
+            return self._execute(q, k, v)
+        return self._launch(q, k, v)
+
+
+def padded(kern, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool) -> torch.Tensor:
+    """``kern(q, k, v)``, a causal call's sequences padded at the end to a
+    multiple of :data:`SEQ_TILE` and the padded query rows dropped.  Both
+    lengths grow by the same amount, so every real query row keeps its
+    diagonal and the padded keys, which lie after it, stay masked."""
+    pad = -q.shape[2] % SEQ_TILE if causal else 0
+    if not pad or not all(t.is_contiguous() for t in (q, k, v)):
+        return kern(q, k, v)     # as given: the kernel rejects a strided view
+    q2, k2, v2 = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                  for t in (q, k, v))
+    return kern(q2, k2, v2)[:, :, :q.shape[2]]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D)."""
-    global launches
-    if q.device.type == "cpu" and k.device.type == "cpu" \
-            and v.device.type == "cpu":
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D).
+
+    CPU tensors take the plain version; otherwise the registry's shared
+    kernel for (causal, window) serves the active cache's schedule, on
+    :func:`padded` lengths."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
         return ref.attention(q, k, v, causal=causal, window=window)
-    _check(q, k, v, window)
-    b, hq, sq, d = q.shape
-    _, hkv, skv, _ = k.shape
-    out = torch.empty_like(q)
-    lib = _build.load("flash_attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-            hkv, sq, skv, d, DTYPES[q.dtype], int(causal), window or 0, stream)
-    if err:
-        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
-                           f"error {err} (q {tuple(q.shape)}, k "
-                           f"{tuple(k.shape)}, {q.dtype})")
-    launches += 1
-    return out
+    from repro_torch.kernels.flash_attention import ops
+    return padded(ops.kernel(causal, window), q, k, v, causal=causal)

@@ -20,7 +20,10 @@ metrics-registry snapshot, and ``--static`` runs the same stream through
 the static-batch baseline engine.  ``--paged`` serves from the paged KV
 cache: ``--page-size``/``--num-pages`` set the pool, ``--prefill-chunk N``
 interleaves long-prompt prefill with decode, ``--no-prefix-cache`` /
-``--admission`` set sharing and overload policy.
+``--admission`` set sharing and overload policy.  ``--sip-cache PATH``
+serves inside ``schedule_cache(PATH)``, so the kernels run the schedules
+``repro_torch.launch.tune`` persisted there (the default schedule for any
+shape the store lacks).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import time
 import numpy as np
 
 from repro_torch import configs, obs
+from repro_torch.core.registry import schedule_cache
 from repro_torch.models import model as M
 from repro_torch.serve.engine import (ContinuousEngine, Engine, ServeConfig,
                                       static_batches)
@@ -162,6 +166,9 @@ def main(argv: list[str] | None = None) -> None:
                     default="queue",
                     help="paged admission policy when pages/slots are "
                          "unavailable at submit time")
+    ap.add_argument("--sip-cache", default=None,
+                    help="serve the SIP-tuned schedules of this schedule "
+                         "cache (repro_torch.launch.tune --cache)")
     args = ap.parse_args(argv)
 
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
@@ -187,6 +194,8 @@ def main(argv: list[str] | None = None) -> None:
     with contextlib.ExitStack() as stack:
         if tracer is not None:
             stack.enter_context(obs.tracing(tracer))
+        if args.sip_cache:
+            stack.enter_context(schedule_cache(args.sip_cache))
         if args.static:
             report = drive_static(Engine(params, cfg, scfg), traffic, prompts,
                                   args.capacity)

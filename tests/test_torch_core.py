@@ -1,0 +1,210 @@
+"""The port's SIP core against the JAX package's: the three kernels'
+programs at every knob point of their smoke and deploy spaces, ``emit``,
+the annealers' trajectories under the v5e cost model, probabilistic testing
+with a fault injector, and the schedule cache's JSON read across packages.
+Trajectories are compared exactly (best_raw to rel 1e-12)."""
+
+import itertools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+from repro import core as jcore  # noqa: E402
+from repro import kernels as jkernels  # noqa: E402
+from repro.core.registry import registry as jregistry  # noqa: E402
+from repro_torch import core as tcore  # noqa: E402
+from repro_torch import kernels as tkernels  # noqa: E402
+from repro_torch.core.energy import UnassemblableSchedule  # noqa: E402
+from repro_torch.core.ir import Instr, Kind, Program  # noqa: E402
+from repro_torch.core.registry import registry as tregistry  # noqa: E402
+from repro_torch.kernels import _emit  # noqa: E402
+from repro_torch.kernels.gemm_fused import kernel as tgemm  # noqa: E402
+
+jkernels.load_all()
+tkernels.load_all()
+
+KERNELS = ("flash_attention_causal", "gemm_fused_leaky_relu", "paged_gather")
+CASES = [(k, w.name) for k in KERNELS
+         for w in jregistry.spec(k).workloads]
+
+
+def _static(name, workload):
+    spec = jregistry.spec(name)
+    wl = next(w for w in spec.workloads if w.name == workload)
+    return spec.signature_fn(*wl.make_args(np.random.default_rng(0)))
+
+
+def _fields(prog):
+    return ([(i.name, i.kind.value, i.inputs, i.outputs, i.buffer,
+              i.is_store, i.bytes, i.flops) for i in prog.instrs],
+            prog.replications, [sorted(d) for d in prog.deps])
+
+
+@pytest.mark.parametrize("name,workload", CASES)
+def test_programs_equal_reference_at_every_knob_point(name, workload):
+    static = _static(name, workload)
+    jspec, tspec = jregistry.spec(name), tregistry.spec(name)
+    jspace, tspace = jspec.space_for(**static), tspec.space_for(**static)
+    assert [(k.name, k.choices) for k in jspace.knobs] == \
+        [(k.name, k.choices) for k in tspace.knobs]
+    names = [k.name for k in jspace.knobs]
+    points = list(itertools.product(*[k.choices for k in jspace.knobs]))
+    for point in points:
+        knobs = dict(zip(names, point))
+        jprog = jspec.program_for(jcore.Schedule(knobs=knobs), **static)
+        tprog = tspec.program_for(tcore.Schedule(knobs=knobs), **static)
+        assert _fields(tprog) == _fields(jprog), knobs
+        assert all(i.src or i.kind is Kind.COMPUTE for i in tprog.instrs)
+
+
+@pytest.mark.parametrize("name,workload", CASES)
+def test_signatures_equal_reference(name, workload):
+    spec = jregistry.spec(name)
+    wl = next(w for w in spec.workloads if w.name == workload)
+    args = wl.make_args(np.random.default_rng(0))
+    tensors = [torch.from_numpy(a) for a in args]
+    assert tregistry.spec(name).signature_fn(*tensors) == \
+        spec.signature_fn(*args)
+
+
+def _toy():
+    def fn(env):
+        return {}
+    return Program([
+        Instr("ld_a", Kind.MEM, (), ("a",), fn, buffer="a", src="LA;"),
+        Instr("ld_b", Kind.MEM, (), ("b",), fn, buffer="b", src="LB;"),
+        Instr("add", Kind.COMPUTE, ("a", "b"), ("c",), fn, src="ADD;"),
+        Instr("st_c", Kind.MEM, ("c",), (), fn, buffer="o", is_store=True,
+              src="ST;")])
+
+
+def test_emit_lays_snippets_out_in_order_and_rejects_illegal_orders():
+    prog = _toy()
+    text = prog.emit((1, 0, 2, 3))
+    assert [ln for ln in text.splitlines() if not ln.startswith("//")] == \
+        ["LB;", "LA;", "ADD;", "ST;"]
+    assert prog.emit().index("LA;") < prog.emit().index("LB;")
+    hooked = prog.emit(before=lambda ins: f"/*{ins.name}*/")
+    assert hooked.index("/*add*/") < hooked.index("ADD;")
+    for bad in [(0, 2, 1, 3), (0, 1, 3, 2), (0, 1, 2)]:
+        with pytest.raises(ValueError, match="illegal"):
+            prog.emit(bad)
+
+
+def test_hoisted_order_needs_more_shared_memory_and_is_rejected_past_227kb():
+    kw = dict(m=512, n=512, k=2048, bm=128, bn=128, bk=128, dtype="bfloat16")
+    default = tgemm.GemmKernel(**kw)
+    text, smem = default.source()
+    assert smem <= 232_448 and text.count("__syncthreads();") == 31
+    prog = default.program
+    # hoist ld_x1 and ld_w1 above dot0: step 0 and step 1 tiles live at once
+    order = list(prog.default_order())
+    order.remove(4)
+    order.remove(5)
+    order[3:3] = [4, 5]
+    assert prog.is_legal(order)
+    _, smem2 = tgemm.GemmKernel(**kw, order=order).source()
+    assert smem2 > smem
+    # hoist every load of steps 0..3 ahead of dot0
+    order = [0] + [i for s in range(4) for i in (1 + 3 * s, 2 + 3 * s)]
+    order += [i for i in prog.default_order() if i not in order]
+    assert prog.is_legal(order)
+    with pytest.raises(UnassemblableSchedule, match="232448"):
+        tgemm.GemmKernel(**kw, order=order).source()
+
+
+def test_random_legal_orders_are_legal_and_seeded():
+    prog = tregistry.spec("flash_attention_causal").program_for(
+        tcore.Schedule(), **_static("flash_attention_causal",
+                                    "smoke_b1_h2kv2_s16_d8"))
+    orders = [_emit.random_legal_order(prog, s) for s in range(5)]
+    assert all(prog.is_legal(o) for o in orders)
+    assert orders == [_emit.random_legal_order(prog, s) for s in range(5)]
+    assert len(set(orders)) > 1
+
+
+def _search(pkg, name, static, chains, seed):
+    reg = jregistry if pkg is jcore else tregistry
+    spec = reg.spec(name)
+    space = spec.space_for(**static)
+
+    def program_for(s):
+        return spec.program_for(s, **static)
+    x0 = pkg.Schedule(knobs=space.default_knobs())
+    energy = pkg.CostModelEnergy(program_for)
+    policy = pkg.MutationPolicy(space=space, program_for=program_for)
+    if chains == 0:
+        res = pkg.anneal(x0, energy, policy.propose, cooling=1.1, seed=seed)
+        return res.best.signature(), res.evals, res.best_raw
+    pop = pkg.population_anneal(x0, energy, policy.propose, chains=chains,
+                                cooling=1.1, exchange_every=4, seed=seed)
+    return pop.best.signature(), pop.evals, pop.best_raw, pop.exchanges
+
+
+@pytest.mark.parametrize("chains", [0, 1, 4])
+@pytest.mark.parametrize("name,workload", [
+    ("flash_attention_causal", "deploy_b1_h4kv2_s128_d32"),
+    ("gemm_fused_leaky_relu", "deploy_64x64x128"),
+    ("paged_gather", "deploy_p64_ps16_h4_d32_b8_n8")])
+def test_annealers_follow_the_reference_trajectory(name, workload, chains):
+    static = _static(name, workload)
+    got = _search(tcore, name, static, chains, seed=3)
+    want = _search(jcore, name, static, chains, seed=3)
+    assert got[0] == want[0] and got[1] == want[1] and got[3:] == want[3:]
+    assert got[2] == pytest.approx(want[2], rel=1e-12)
+
+
+def test_probabilistic_test_with_fault_injector_matches_reference():
+    for threshold, batch in [(2.6, 16), (3.2, 4), (99.0, 8)]:
+        reports = []
+        for mod in (jcore.testing, tcore.testing):
+            cand = mod.FaultInjector(fn=lambda x: x * 2.0, threshold=threshold)
+            specs = [mod.InputSpec((16,), np.float32)]
+            reports.append(mod.probabilistic_test(
+                cand, lambda x: x * 2.0, specs, 40,
+                np.random.default_rng(7), batch=batch))
+        j, t = reports
+        assert (t.passed, t.samples_run, t.first_failure) == \
+            (j.passed, j.samples_run, j.first_failure)
+        assert t.max_err == pytest.approx(j.max_err, rel=1e-6)
+    assert not reports[0].passed or threshold == 99.0
+
+
+def test_schedule_cache_json_reads_across_packages(tmp_path):
+    sched = {"knobs": {"bm": 16, "bn": 16, "bk": 32}, "order": [0, 2, 1, 3]}
+    for writer, reader in ((jcore, tcore), (tcore, jcore)):
+        path = str(tmp_path / f"{writer.__name__}.json")
+        w = writer.ScheduleCache(path)
+        w.put("gemm_fused_leaky_relu", '{"m": 16}',
+              writer.Schedule(knobs=sched["knobs"],
+                              order=tuple(sched["order"])),
+              energy=1.5e-7, tests_passed=True, test_samples=4, round_id=0,
+              evals=6)
+        w.put("gemm_fused_leaky_relu", '{"m": 16}', writer.Schedule(),
+              energy=1e-7, tests_passed=False)
+        r = reader.ScheduleCache(path)
+        best = r.best("gemm_fused_leaky_relu", '{"m": 16}')
+        assert dict(best.knobs) == sched["knobs"]
+        assert list(best.order) == sched["order"]
+        assert [e.to_dict() for e in r.entries("gemm_fused_leaky_relu",
+                                               '{"m": 16}')] == \
+            [e.to_dict() for e in w.entries("gemm_fused_leaky_relu",
+                                            '{"m": 16}')]
+
+
+def test_unported_kernels_raise_not_implemented():
+    for name in ("rmsnorm_fused", "ssd_intra_chunk"):
+        assert name in jregistry and name not in tregistry
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tkernels.check_ported(name)
+
+
+def test_wallclock_energy_needs_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    energy = tcore.WallClockEnergy(build=lambda s: None, make_args=list)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        energy(tcore.Schedule())

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels and engine on the card: each kernel against its
-plain version, and a paged engine run on the card token-identical to the
-same run on the CPU.  Marked ``cuda``: they skip without a card.  On the GPU
+"""The port's CUDA kernels and engine on the card: each emitted kernel
+against its plain version at the default and at seeded random legal orders,
+the gather's wrap of negative page ids, and a paged engine run on the card
+token-identical to the same run on the CPU.  Marked ``cuda``: they skip without a card.  On the GPU
 machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -12,7 +13,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
+from repro_torch.kernels._emit import random_legal_order  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.gemm_fused import kernel as gf  # noqa: E402
+from repro_torch.kernels.gemm_fused import ref as gf_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as pg  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pg_ref  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -49,8 +53,8 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, sq, skv, causal,
 
 
 def test_flash_kernel_rejects_what_it_cannot_take(cuda):
-    q = torch.zeros((1, 2, 8, 48), device=cuda)
-    with pytest.raises(ValueError, match="head_dim"):
+    q = torch.zeros((1, 2, 8, 32), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
         fa.flash_attention(q, q, q)
     q = torch.zeros((1, 2, 8, 32), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -65,6 +69,56 @@ def test_paged_gather_kernel_bitwise(cuda):
                           device=cuda)
         assert torch.equal(pg.paged_gather(store, pt),
                            pg_ref.paged_gather(store, pt))
+
+
+def test_paged_gather_wraps_negative_ids(cuda):
+    """Ids in [-P, 0) read page id + P, as the reference's jnp.take does;
+    the plain version (torch indexing) wraps the same way."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for dtype in (torch.float32, torch.bfloat16):
+        store = torch.randn((9, 8, 2, 32), generator=g, device=cuda).to(dtype)
+        pt = torch.tensor([[-1, -9, 3, -4], [8, 0, -1, -2]],
+                          dtype=torch.int32, device=cuda)
+        got = pg.paged_gather(store, pt)
+        assert torch.equal(got, pg_ref.paged_gather(store, pt))
+        assert torch.equal(got[0, 0], store[8]) and torch.equal(got[0, 1],
+                                                                store[0])
+
+
+@pytest.mark.parametrize("seed", [None, 1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_emitted_kernels_match_plain_at_legal_orders(cuda, seed, dtype):
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    g = torch.Generator(device=cuda).manual_seed(seed or 0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    def order(kern):
+        return None if seed is None else random_legal_order(kern.program,
+                                                            seed)
+    kw = dict(m=64, n=64, k=128, bm=32, bn=64, bk=32, dtype=dtype)
+    gk = gf.GemmKernel(**kw)
+    gk = gf.GemmKernel(**kw, order=order(gk))
+    x, w = randn(64, 128), randn(128, 64)
+    want = gf_ref.gemm_leaky_relu(x, w).float()
+    err = (gk(x, w).float() - want).abs().max().item()
+    assert err <= tol * max(1.0, want.abs().max().item() / 8)
+    kw = dict(bq=32, bk=32, n_chunks=2, d=64, sq=64, skv=64, causal=True,
+              window=None, dtype=dtype)
+    fk = fa.FlashKernel(**kw)
+    fk = fa.FlashKernel(**kw, order=order(fk))
+    q, k, v = randn(2, 4, 64, 64), randn(2, 2, 64, 64), randn(2, 2, 64, 64)
+    err = (fk(q, k, v).float()
+           - fa_ref.attention(q, k, v).float()).abs().max().item()
+    assert err <= tol
+    kw = dict(ps=8, h=2, d=32, rows=4, n_chunks=2, dtype=dtype)
+    pk = pg.GatherKernel(**kw)
+    pk = pg.GatherKernel(**kw, order=order(pk))
+    store = randn(11, 8, 2, 32)
+    pt = torch.tensor([[0, -1, 10, 3], [-11, 5, 5, 1]], dtype=torch.int32,
+                      device=cuda)
+    assert torch.equal(pk(store, pt), pg_ref.paged_gather(store, pt))
 
 
 def test_paged_engine_on_card_matches_cpu(cuda):

@@ -72,19 +72,24 @@ def test_serve_launcher_needs_the_card_unless_asked():
 
 
 def test_build_targets_hopper():
-    cmd = _build.nvcc_command("nvcc", Path("x.cu"), Path("x.so"))
+    cmd = _build.nvcc_command("nvcc", Path("x.cu"), Path("x.cubin"))
     assert "arch=compute_90a,code=sm_90a" in cmd
-    assert {"-O3", "-std=c++17", "-shared"} <= set(cmd)
-    assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.SIGNATURES)
+    assert {"-cubin", "-O3", "-std=c++17"} <= set(cmd)
+    templates = {p.name for p in _build.CSRC.glob("*.cu")}
+    assert templates == {"flash_attention.cu", "gemm_fused.cu",
+                         "paged_gather.cu"}
+    for name in templates:
+        text = _build.template(name)
+        assert "/*@BODY@*/" in text and "sm_90a" in text
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
-    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_kernels", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.load("paged_gather")
+        _build.compile_many([("paged_gather", "// text")])
     assert not list(tmp_path.iterdir())
 
 

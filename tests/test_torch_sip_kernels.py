@@ -1,0 +1,148 @@
+"""The CPU face of each kernel's ``build(schedule)`` — ``Program.execute``
+with torch ``fn``s over the grid — against the JAX package's
+interpret-mode Pallas kernel at the same knobs and order: at the smoke
+workloads, at the default order and 5 seeded legal orders, and at a second
+knob point.  Tolerance: the gather exactly (with negative page ids in the
+table), gemm and flash within rtol = atol = 1e-5 in float32.  The emitted
+CUDA text of every such schedule is checked for its template's marks."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro import core as jcore  # noqa: E402
+from repro import kernels as jkernels  # noqa: E402
+from repro.core.registry import registry as jregistry  # noqa: E402
+from repro_torch import core as tcore  # noqa: E402
+from repro_torch import kernels as tkernels  # noqa: E402
+from repro_torch.core.registry import registry as tregistry  # noqa: E402
+from repro_torch.kernels._emit import random_legal_order  # noqa: E402
+
+jkernels.load_all()
+tkernels.load_all()
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+SEEDS = (None, 1, 2, 3, 4, 5)
+
+
+def _smoke(name):
+    spec = jregistry.spec(name)
+    (wl,) = spec.workloads_in("smoke")
+    args = wl.make_args(np.random.default_rng(11))
+    return args, spec.signature_fn(*args)
+
+
+def _pair(name, static, knobs, seed):
+    """(port kernel, reference kernel) of one schedule."""
+    tspec, jspec = tregistry.spec(name), jregistry.spec(name)
+    prog = tspec.program_for(tcore.Schedule(knobs=knobs), **static)
+    order = prog.default_order() if seed is None \
+        else random_legal_order(prog, seed)
+    return (tspec.build(tcore.Schedule(knobs=knobs, order=order), **static),
+            jspec.build(jcore.Schedule(knobs=knobs, order=order), **static),
+            order)
+
+
+def _check_source(kern, marks):
+    text, smem = kern.source()
+    assert "/*@" not in text and smem <= 232_448
+    for mark in marks:
+        assert mark in text
+
+
+@pytest.mark.parametrize("knobs", [{}, {"bm": 8, "bn": 16, "bk": 8}])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gemm_cpu_face_matches_interpret_kernel(seed, knobs):
+    args, static = _smoke("gemm_fused_leaky_relu")
+    tk, jk, _ = _pair("gemm_fused_leaky_relu", static, knobs, seed)
+    got = tk(*[torch.from_numpy(a) for a in args])
+    want = jk(*[jnp.asarray(a) for a in args])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    _check_source(tk, ["dot_tile(X0, W0, acc);", "gemm_fused_leaky_relu("])
+
+
+@pytest.mark.parametrize("knobs", [{}, {"bq": 8, "bk": 8, "n_chunks": 4},
+                                   {"bq": 1, "bk": 16, "n_chunks": 1}])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_flash_cpu_face_matches_interpret_kernel(seed, knobs):
+    args, static = _smoke("flash_attention_causal")
+    tk, jk, _ = _pair("flash_attention_causal", static, knobs, seed)
+    got = tk(*[torch.from_numpy(a) for a in args])
+    want = jk(*[jnp.asarray(a) for a in args])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    _check_source(tk, ["softmax_rows(sc,", "store_o(op, acc"])
+
+
+@pytest.mark.parametrize("knobs", [{}, {"rows": 4, "n_chunks": 2}])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gather_cpu_face_matches_interpret_kernel(seed, knobs):
+    (store, _), static = _smoke("paged_gather")
+    # ids -1 and -8 (= -P) wrap to P-1 and 0 in the reference's gather
+    pt = np.array([[0, -1, 3, -8], [7, -3, 7, 2]], np.int32)
+    tk, jk, _ = _pair("paged_gather", static, knobs, seed)
+    got = tk(torch.from_numpy(store), torch.from_numpy(pt))
+    want = jk(jnp.asarray(store), jnp.asarray(pt))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy()[0, 1], store[7])
+    _check_source(tk, ["load_tile<0, 0>(src, t0_0, ok);"])
+
+
+def test_scheduled_kernels_count_no_launches_on_cpu():
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.gemm_fused import kernel as gf
+    from repro_torch.kernels.paged_attention import kernel as pg
+    before = (fa.launches, gf.launches, pg.launches)
+    for name in ("flash_attention_causal", "gemm_fused_leaky_relu",
+                 "paged_gather"):
+        args, _ = _smoke(name)
+        tregistry.get(name)(*[torch.from_numpy(a) for a in args])
+    assert (fa.launches, gf.launches, pg.launches) == before
+
+
+@pytest.mark.parametrize("sq,skv,window", [(37, 37, None), (20, 90, None),
+                                           (70, 70, 16)])
+def test_padded_causal_call_matches_plain(sq, skv, window):
+    """The model's causal calls reach the kernel padded to a multiple of
+    SEQ_TILE; the kernel's CPU face at the padded lengths, cut back to the
+    real rows, equals the plain attention at the real lengths."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    rng = np.random.default_rng(sq)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((1, 4, sq, 8), (1, 2, skv, 8), (1, 2, skv, 8)))
+    kern = fa_ops.kernel(True, window)
+    seen = []
+
+    def spy(*args):
+        seen.append(tuple(args[0].shape))
+        return kern(*args)
+
+    got = fa.padded(spy, q, k, v, causal=True)
+    want = fa_ref.attention(q, k, v, causal=True, window=window)
+    assert seen == [(1, 4, -(-sq // fa.SEQ_TILE) * fa.SEQ_TILE, 8)]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    # a bidirectional call is never padded: padded keys would be visible
+    assert fa.padded(lambda *a: a[0], q, k, v, causal=False) is q
+    # nor is a strided view, which the kernel rejects as it was given
+    qt = q.transpose(2, 3)
+    assert fa.padded(lambda *a: a[0], qt, k, v, causal=True) is qt
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [8, 32, 64, 128])
+def test_default_schedule_assembles_at_every_padded_length(dtype, d):
+    """Every length a causal model call reaches the kernel at has a default
+    schedule whose live shared memory fits one block: in particular the
+    multiples of 256, where the reference's default (256, 256) tile keeps
+    264 KB of scores."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    for s in range(fa.SEQ_TILE, 2049, fa.SEQ_TILE):
+        kern = fa_ops.build(tcore.Schedule(), b=1, hq=16, hkv=8, sq=s, skv=s,
+                            d=d, causal=True, window=None, dtype=dtype)
+        assert kern.bq >= fa.SEQ_TILE, s
+        assert kern.source()[1] <= 232_448, s

@@ -1,0 +1,122 @@
+"""The port's tuning drivers on the CPU: ``repro_torch.launch.tune --smoke
+--device cpu`` persists the same (kernel, signature, knobs, order, energy,
+tests_passed) as the JAX package's ``TuningSession`` over the same kernels;
+``verify`` passes on the tuned store; a ``--die-after 1`` run resumed with
+``--resume`` leaves a cache byte-identical to an uninterrupted run; ``--list``
+shows the registered kernels; serving reads the store with ``--sip-cache``;
+both drivers refuse CUDA without a card; and what is not ported raises."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+from repro import kernels as jkernels  # noqa: E402
+from repro.core.jit import TuneConfig  # noqa: E402
+from repro.tuning.session import TuningSession  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+NAMES = ["flash_attention", "flash_attention_causal", "gemm_fused_leaky_relu",
+         "paged_gather"]
+
+
+def _run(module, *args, check=True):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    res = subprocess.run([sys.executable, "-m", f"repro_torch.launch.{module}",
+                          *args], capture_output=True, text=True, env=env,
+                         timeout=240)
+    if check:
+        assert res.returncode == 0, res.stdout + res.stderr
+    return res
+
+
+def _entries(data):
+    return sorted((key, json.loads(e["schedule_json"]), e["energy"],
+                   e["tests_passed"]) for key, es in data.items() for e in es)
+
+
+@pytest.fixture(scope="module")
+def smoke_cache(tmp_path_factory):
+    path = tmp_path_factory.mktemp("tune") / "cache.json"
+    _run("tune", "--smoke", "--device", "cpu", "--cache", str(path))
+    return path
+
+
+def test_smoke_tune_persists_what_the_reference_session_does(smoke_cache):
+    jkernels.load_all()
+    # launch/tune.py --smoke's configuration
+    session = TuningSession(config=TuneConfig(
+        rounds=1, t_min=0.3, cooling=1.3, final_samples=4, step_samples=1))
+    session.run(kernels=NAMES, suite="smoke")
+    got = _entries(json.loads(smoke_cache.read_text()))
+    want = _entries(session.cache._data)
+    assert len(got) == len(want) == 3
+    for (gk, gs, ge, gp), (wk, ws, we, wp) in zip(got, want):
+        assert (gk, gs, gp) == (wk, ws, wp)
+        assert ge == pytest.approx(we, rel=1e-9)
+    assert all(p for *_, p in got)
+
+
+def test_verify_passes_on_the_tuned_store(smoke_cache):
+    res = _run("verify", "--suite", "smoke", "--device", "cpu", "--cache",
+               str(smoke_cache))
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("[verify] ")]
+    assert sum("PASS" in ln and "tuned schedule" in ln for ln in lines) == 3
+    assert lines[-1] == "[verify] 3 workload(s) passed the correctness gate"
+
+
+def test_die_after_then_resume_is_byte_identical(smoke_cache, tmp_path):
+    path = tmp_path / "chaos.json"
+    died = _run("tune", "--smoke", "--device", "cpu", "--cache", str(path),
+                "--die-after", "1", check=False)
+    assert died.returncode == 3, died.stdout + died.stderr
+    state = json.loads((tmp_path / "chaos.json.state.json").read_text())
+    assert state["in_progress"] is not None
+    _run("tune", "--smoke", "--device", "cpu", "--cache", str(path),
+         "--resume")
+    assert path.read_bytes() == smoke_cache.read_bytes()
+
+
+def test_list_shows_the_registered_kernels():
+    res = _run("tune", "--list")
+    listed = [ln.split()[0] for ln in res.stdout.splitlines()
+              if ln and not ln.startswith(" ")]
+    assert listed == NAMES
+
+
+def test_drivers_refuse_cuda_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default succeeds")
+    for module, args in (("tune", ["--smoke", "--cache",
+                                   str(tmp_path / "c.json")]),
+                         ("verify", ["--suite", "smoke"])):
+        res = _run(module, *args, check=False)
+        assert res.returncode != 0
+        assert "CUDA" in res.stderr and "PASS" not in res.stdout
+    res = _run("tune", "--kernel", "rmsnorm_fused", "--device", "cpu",
+               "--cache", str(tmp_path / "r.json"), check=False)
+    assert res.returncode != 0 and "NotImplementedError" in res.stderr
+
+
+def test_serve_runs_from_the_tuned_store(smoke_cache):
+    res = _run("serve", "--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+               "--paged", "--prefill-chunk", "16", "--requests", "3",
+               "--capacity", "2", "--new-tokens", "2", "--sip-cache",
+               str(smoke_cache))
+    (line,) = [ln for ln in res.stdout.splitlines()
+               if ln.startswith("[serve:continuous] ")]
+    assert json.loads(line.split(" ", 1)[1])["tokens"] == 6
+
+
+@pytest.mark.parametrize("module", ["train", "autotune"])
+def test_unported_launchers_point_at_the_roadmap(module):
+    res = _run(module, check=False)
+    assert res.returncode != 0
+    assert "NotImplementedError" in res.stderr and "ROADMAP" in res.stderr
