@@ -2,7 +2,8 @@
 against its plain version at its default schedule and at seeded random legal
 orders, run the SIP loop on the card (smoke tune, verify, a wall-clock tune
 of each kernel), serve qwen3-1.7b at full width through the paged
-continuous engine, and print one JSON line per phase.
+continuous engine and mamba2-2.7b at full width through the contiguous one,
+and print one JSON line per phase.
 
     python3 chip_smoke.py
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import io
 import itertools
@@ -48,6 +50,12 @@ from repro_torch.kernels.gemm_fused import ref as gf_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as pg  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pg_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pg_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm import kernel as rk  # noqa: E402
+from repro_torch.kernels.rmsnorm import ops as rk_ops  # noqa: E402
+from repro_torch.kernels.rmsnorm import ref as rk_ref  # noqa: E402
+from repro_torch.kernels.ssd import kernel as sk  # noqa: E402
+from repro_torch.kernels.ssd import ops as sk_ops  # noqa: E402
+from repro_torch.kernels.ssd import ref as sk_ref  # noqa: E402
 from repro_torch.launch import tune as tune_cli  # noqa: E402
 from repro_torch.launch import verify as verify_cli  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -64,10 +72,16 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 #: the random legal orders each kernel phase runs beside the default
 ORDER_SEEDS = (1, 2, 3, 4)
 BF16, F32 = torch.bfloat16, torch.float32
+#: every kernel module; each counts its launches
+KERNEL_MODULES = (gf, fa, pg, sk, rk)
+
+
+T0 = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - T0}), flush=True)
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -138,6 +152,30 @@ def gather_kernel(static, knobs=None, order=None):
         Schedule(knobs=knobs or {}, order=order), **static)
 
 
+def ssd_static(g, q, h, p, n, dtype=F32) -> dict:
+    return dict(g=g, q=q, h=h, p=p, n=n, dtype=_dt(dtype))
+
+
+def ssd_kernel(static, order=None):
+    return registry.spec(sk_ops.NAME).build(Schedule(order=order), **static)
+
+
+def rms_static(rows, d, dtype) -> dict:
+    return dict(rows=rows, d=d, dtype=_dt(dtype))
+
+
+def rms_kernel(static, knobs=None, order=None):
+    return registry.spec(rk_ops.NAME).build(
+        Schedule(knobs=knobs or {}, order=order), **static)
+
+
+def rms_knob_points(static) -> list[dict]:
+    """Every point of the reference's knob space at ``static``."""
+    sp = rk_ops.space(**static)
+    return [dict(zip([k.name for k in sp.knobs], point))
+            for point in itertools.product(*[k.choices for k in sp.knobs])]
+
+
 def with_orders(make, seeds=ORDER_SEEDS):
     """The default schedule of ``make(order)`` and one per seed."""
     base = make(None)
@@ -161,6 +199,13 @@ FLASH_CASES = [(1, 2, 2, 16, 16, 8, True, None),
 #: (p, ps, h, d, b, n): smoke, deploy and the serve phase's store and table
 GATHER_SHAPES = [(8, 8, 2, 8, 2, 4), (64, 16, 4, 32, 8, 8),
                  (257, 16, 8, 128, 8, 32)]
+#: (g, q, h, p, n), float32 as on the model's path: the smoke and deploy
+#: workloads, a 384-token prompt padded to chunks of 64, the serve
+#: prefill's 256-token chunk, and two such chunks
+SSD_SHAPES = [(2, 8, 2, 4, 8), (4, 16, 4, 8, 16), (6, 64, 80, 64, 128),
+              (1, 256, 80, 64, 128), (2, 256, 80, 64, 128)]
+#: (rows, d): the smoke and deploy workloads and the model's width
+RMS_SHAPES = [(16, 32), (64, 128), (4096, 2560)]
 
 
 def gather_tiled(static) -> dict:
@@ -187,6 +232,17 @@ def all_schedules():
         for _, kern in with_orders(
                 lambda o: gather_kernel(st, gather_tiled(st), o)):
             yield pg.FUNCTION, kern
+    for shape in SSD_SHAPES:
+        st = ssd_static(*shape)
+        for _, kern in with_orders(lambda o: ssd_kernel(st, o)):
+            yield sk.FUNCTION, kern
+    for shape, dt in itertools.product(RMS_SHAPES, (F32, BF16)):
+        st = rms_static(*shape, dt)
+        for _, kern in with_orders(lambda o: rms_kernel(st, None, o)):
+            yield rk.FUNCTION, kern
+        if shape == RMS_SHAPES[-1]:
+            for knobs in rms_knob_points(st):
+                yield rk.FUNCTION, rms_kernel(st, knobs)
 
 
 # ------------------------------------------------------------------ phases
@@ -224,7 +280,9 @@ def phase_build() -> dict:
     main = [(gf.FUNCTION, gemm_kernel(512, 512, 2048, BF16)),
             (fa.FUNCTION, flash_kernel(flash_static(*FLASH_CASES[2], BF16))),
             (pg.FUNCTION, gather_kernel(gather_static(*GATHER_SHAPES[2],
-                                                      BF16)))]
+                                                      BF16))),
+            (sk.FUNCTION, ssd_kernel(ssd_static(*SSD_SHAPES[3]))),
+            (rk.FUNCTION, rms_kernel(rms_static(*RMS_SHAPES[-1], BF16)))]
     ptxas = {fn: [ln.strip() for ln in _build.build_log(
         fn, kern.source()[0]).splitlines() if "registers" in ln or "spill" in ln]
         for fn, kern in main}
@@ -425,6 +483,113 @@ def phase_gather(gen) -> dict:
     return out
 
 
+def ssd_inputs(g, q, h, p, n, gen, decaying: bool = True):
+    """(xb, la, B, C) as the model passes them: float32, la = dt * A < 0
+    (``decaying``), or standard-normal la as the SIP tests draw it."""
+    la = _randn((g, q, h), F32, gen)
+    la = -la.abs() * 0.1 if decaying else la
+    return (_randn((g, q, h, p), F32, gen), la,
+            _randn((g, q, n), F32, gen) * 0.3,
+            _randn((g, q, n), F32, gen) * 0.3)
+
+
+def ssd_bound_ms(g, q, h, p, n) -> tuple[float, str]:
+    """The least time for the function: the work at and below the diagonal
+    (the rest of W is zero), C B^T once per chunk (every head shares it),
+    W x per head, and the decay's difference, exp and the mask's product per
+    entry, in fp32 at 67 TFLOP/s; against xb, la, B, C read and y written
+    once at 3.35 TB/s."""
+    tri = q * (q + 1) // 2
+    flops = g * (2 * n * tri + h * (2 * p * tri + 3 * tri))
+    nbytes = 4 * (2 * g * q * h * p + g * q * h + 2 * g * q * n)
+    t_ops, t_bytes = flops / PEAK_FLOPS[F32], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def phase_ssd(gen) -> dict:
+    results = []
+    for shape in SSD_SHAPES:
+        st = ssd_static(*shape)
+        results.append(_run_orders(
+            f"ssd {shape}", lambda o: ssd_kernel(st, o),
+            ssd_inputs(*shape, gen), sk_ref.intra_chunk, F32))
+    # the SIP tests' draw: standard-normal la, so the decay reaches e^40 and
+    # more over a 256-row chunk; held to the oracle's tolerance
+    args = ssd_inputs(*SSD_SHAPES[3], gen, decaying=False)
+    got, want = ssd_kernel(ssd_static(*SSD_SHAPES[3]))(*args), \
+        sk_ref.intra_chunk(*args)
+    if not (torch.isfinite(got).all() and torch.allclose(
+            got, want, rtol=2e-2, atol=2e-2)):
+        raise AssertionError("ssd at standard-normal la: not finite or not "
+                             "within 2e-2 of its plain version")
+    positive = {"max_abs_y": want.abs().max().item(),
+                "max_rel_err": ((got - want).abs()
+                                / want.abs().clamp_min(1.0)).max().item()}
+    # the kernel first, then the plain version on the CPU: no buffer of the
+    # plain version's can stand in for an output the kernel did not write
+    args = ssd_inputs(*SSD_SHAPES[3], gen)
+    got = ssd_kernel(ssd_static(*SSD_SHAPES[3]))(*args).cpu()
+    want = sk_ref.intra_chunk(*[a.cpu() for a in args])
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    vs_cpu = (got - want).abs().max().item()
+    timed = {}
+    for shape in (SSD_SHAPES[3], SSD_SHAPES[2]):
+        args = ssd_inputs(*shape, gen)
+        kern = ssd_kernel(ssd_static(*shape))
+        bound_ms, bound_by = ssd_bound_ms(*shape)
+        timed["g{}_q{}_h{}_p{}_n{}".format(*shape)] = {
+            "ms": cuda_ms(lambda: kern(*args)),
+            "plain_ms": cuda_ms(lambda: sk_ref.intra_chunk(*args)),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    out = {"cases": results, "standard_normal_la_q256": positive,
+           "max_abs_err_vs_cpu_plain_q256": vs_cpu,
+           "max_abs_err": max(r["max_abs_err"] for r in results),
+           "timed_f32": timed}
+    emit("ssd_intra_chunk", **out)
+    return {**out, **timed["g1_q256_h80_p64_n128"]}
+
+
+def phase_rmsnorm(gen) -> dict:
+    results, worst = [], {F32: 0.0, BF16: 0.0}
+    for shape, dt in itertools.product(RMS_SHAPES, (F32, BF16)):
+        st = rms_static(*shape, dt)
+        args = (_randn(shape, dt, gen), _randn((shape[1],), dt, gen))
+        res = _run_orders(f"rmsnorm {shape}", lambda o: rms_kernel(st, None, o),
+                          args, rk_ref.rmsnorm, dt)
+        if shape == RMS_SHAPES[-1]:
+            want = rk_ref.rmsnorm(*args)
+            res["knob_points"] = [
+                {**knobs, "max_abs_err": compare(
+                    rms_kernel(st, knobs)(*args), want, dt,
+                    f"rmsnorm {shape} {knobs}")}
+                for knobs in rms_knob_points(st)]
+        worst[dt] = max([worst[dt], res["max_abs_err"]] + [
+            k["max_abs_err"] for k in res.get("knob_points", [])])
+        results.append(res)
+    timed = {}
+    rows, d = RMS_SHAPES[-1]
+    for dt in (BF16, F32):
+        x, g = _randn((rows, d), dt, gen), _randn((d,), dt, gen)
+        kern = rms_kernel(rms_static(rows, d, dt))
+        timed[_dt(dt)] = {
+            "ms": cuda_ms(lambda: kern(x, g)),
+            "plain_ms": cuda_ms(lambda: rk_ref.rmsnorm(x, g)),
+            "library_ms": cuda_ms(lambda: torch.nn.functional.rms_norm(
+                x, (d,), g, rk.EPS)),
+            "bound_ms": (2 * rows * d + d) * x.element_size() / PEAK_BYTES
+            * 1e3, "bound_by": "bytes",
+            "knob_points_ms": {
+                f"br{k['br']}_nch{k['n_chunks']}": cuda_ms(
+                    functools.partial(rms_kernel(rms_static(rows, d, dt), k),
+                                      x, g), iters=20)
+                for k in rms_knob_points(rms_static(rows, d, dt))}}
+    out = {"cases": results, "max_abs_err_f32": worst[F32],
+           "max_abs_err_bf16": worst[BF16], "timed_4096x2560": timed}
+    emit("rmsnorm_fused", **out)
+    return {**out, **timed["bfloat16"], "max_abs_err": worst[BF16]}
+
+
 def _sass_hash(cubin: Path) -> str | None:
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
@@ -447,14 +612,19 @@ def distinct_cubins() -> dict:
         "paged_gather serve store, rows 8 n_chunks 4, bf16":
             lambda o: gather_kernel(
                 gather_static(*GATHER_SHAPES[2], BF16),
-                gather_tiled(gather_static(*GATHER_SHAPES[2], BF16)), o)}
+                gather_tiled(gather_static(*GATHER_SHAPES[2], BF16)), o),
+        "ssd_intra_chunk g1 q256 h80 p64 n128 f32":
+            lambda o: ssd_kernel(ssd_static(*SSD_SHAPES[3]), o),
+        "rmsnorm_fused 4096x2560 bf16, br 256 n_chunks 4":
+            lambda o: rms_kernel(rms_static(*RMS_SHAPES[-1], BF16), None, o)}
     out = {}
     for label, make in makers.items():
         base = make(None)
         orders = {random_legal_order(base.program, s) for s in range(16)}
         texts, rejected = [], 0
         fn = {gf.GemmKernel: gf.FUNCTION, fa.FlashKernel: fa.FUNCTION,
-              pg.GatherKernel: pg.FUNCTION}[type(base)]
+              pg.GatherKernel: pg.FUNCTION, sk.SsdKernel: sk.FUNCTION,
+              rk.RmsNormKernel: rk.FUNCTION}[type(base)]
         for order in orders:
             try:
                 texts.append((fn, make(order).source()[0]))
@@ -476,7 +646,7 @@ def phase_sip(workdir: Path) -> dict:
     wall-clock tune of each kernel at its main-path shape, and the
     distinct-cubin count."""
     cache = workdir / "sip_smoke.json"
-    for mod in (fa, pg, gf):
+    for mod in KERNEL_MODULES:
         mod.launches = 0
     _build.STATS.reset()
     t0 = time.perf_counter()
@@ -490,7 +660,8 @@ def phase_sip(workdir: Path) -> dict:
     print(buf.getvalue(), end="", flush=True)
     lines = [ln for ln in buf.getvalue().splitlines()
              if ln.startswith("[verify] ") and "workload(s)" not in ln]
-    if rc != 0 or len(lines) != 3 or not all(
+    smoke = [w for spec in registry.specs() for w in spec.workloads_in("smoke")]
+    if rc != 0 or len(lines) != len(smoke) or not all(
             ln.startswith("[verify] PASS") and "tuned schedule" in ln
             for ln in lines):
         raise AssertionError(f"verify on the card's smoke store: rc {rc}")
@@ -509,7 +680,12 @@ def phase_sip(workdir: Path) -> dict:
                 _randn((4, 8, 128, 128), BF16, gen),
                 _randn((4, 8, 128, 128), BF16, gen)]),
         "paged_gather serve store bf16": (pg_ops.NAME, [
-            _randn((257, 16, 8, 128), BF16, gen), pt])}
+            _randn((257, 16, 8, 128), BF16, gen), pt]),
+        "ssd_intra_chunk serve prefill g1 q256 h80 p64 n128 f32": (
+            sk_ops.NAME, list(ssd_inputs(*SSD_SHAPES[3], gen))),
+        "rmsnorm_fused 4096x2560 bf16": (rk_ops.NAME, [
+            _randn(RMS_SHAPES[-1], BF16, gen),
+            _randn((RMS_SHAPES[-1][1],), BF16, gen)])}
     wall_tune = {}
     for label, (name, args) in wall_tunes.items():
         _build.STATS.reset()
@@ -540,7 +716,9 @@ def phase_sip(workdir: Path) -> dict:
             "tests_passed": entry.tests_passed, **_build.STATS.snapshot()}
     launches = {"gemm_fused_leaky_relu": gf.launches,
                 "flash_attention_causal": fa.launches,
-                "paged_gather": pg.launches}
+                "paged_gather": pg.launches,
+                "ssd_intra_chunk": sk.launches,
+                "rmsnorm_fused": rk.launches}
     cubins = distinct_cubins()
     failures = smoke_builds["compile_failures"] \
         + sum(t["compile_failures"] for t in wall_tune.values()) \
@@ -595,9 +773,8 @@ def phase_serve(params, cfg) -> dict:
     eng = ContinuousEngine(params, cfg, scfg)
     tracer = obs.Tracer()
     compiles_before = _build.STATS.compiles
-    fa.launches = 0
-    pg.launches = 0
-    gf.launches = 0
+    for mod in KERNEL_MODULES:
+        mod.launches = 0
     t0 = time.perf_counter()
     with obs.tracing(tracer):
         handles = [eng.submit(p, b) for p, b in zip(prompts, budgets)]
@@ -652,12 +829,12 @@ def phase_serve(params, cfg) -> dict:
     return out
 
 
-def phase_profile(params, cfg) -> dict:
-    """Device time by kernel over a short paged serving window (8 requests
-    of 100 tokens, 16 new each), from torch.profiler."""
+def phase_profile(params, cfg, scfg: ServeConfig,
+                  phase: str = "profile") -> dict:
+    """Device time by kernel over a short serving window (8 requests of 100
+    tokens, 16 new each), from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
-    eng = ContinuousEngine(params, cfg, ServeConfig(
-        max_len=512, capacity=8, paged=True, page_size=16, prefill_chunk=128))
+    eng = ContinuousEngine(params, cfg, scfg)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, 100).astype(np.int32)
                for _ in range(8)]
@@ -686,7 +863,9 @@ def phase_profile(params, cfg) -> dict:
     host_ops.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
     s = eng.stats
-    out = {"window": "8 x 100-token prompts, 16 new tokens, paged",
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "window": "8 x 100-token prompts, 16 new tokens, "
+                     + ("paged" if scfg.paged else "contiguous"),
            "wall_s": wall, "device_busy_s": busy_s if rows else None,
            "device_idle_share": 1 - busy_s / wall if rows else None,
            "decode_steps": s["decode_steps"],
@@ -695,7 +874,7 @@ def phase_profile(params, cfg) -> dict:
                            for us, c, k in rows[:12]],
            "top_host_ops": [{"op": k, "calls": c, "self_cpu_ms": us / 1e3}
                             for us, c, k in host_ops[:12]]}
-    emit("profile", **out)
+    emit(phase, **out)
     return out
 
 
@@ -704,6 +883,10 @@ SERVED = (fa_ops.variant_name(True, None), pg_ops.NAME)
 
 
 def _input_specs(name: str, static: dict) -> list[InputSpec]:
+    if name == sk_ops.NAME:
+        g, q, h, n, dt = (static[k] for k in ("g", "q", "h", "n", "dtype"))
+        return [InputSpec((g, q, h, static["p"]), dt), InputSpec((g, q, h), dt),
+                InputSpec((g, q, n), dt), InputSpec((g, q, n), dt)]
     if name == pg_ops.NAME:
         return [InputSpec((static["p"], static["ps"], static["h"],
                            static["d"]), static["dtype"]),
@@ -821,13 +1004,154 @@ def phase_differential(sip_cache: str, workdir: Path) -> dict:
     return out
 
 
-def kernels_line(gemm: dict, flash: dict, gather: dict, sip: dict,
-                 serve: dict) -> dict:
+def _ssm_requests(vocab: int):
+    """17 requests with prompt lengths uniform in 16-384 (request 0: 256, a
+    whole chunk of the configured 256) and new tokens uniform in 16-32."""
+    rng = np.random.default_rng(4)
+    lens = rng.integers(16, 385, 17)
+    lens[0] = 256
+    prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+    return prompts, [int(n) for n in rng.integers(16, 33, len(prompts))]
+
+
+def phase_serve_ssm(params, cfg) -> dict:
+    """The SSM path: mamba2-2.7b at full width, bf16, on the contiguous
+    continuous engine with per-slot conv and SSD states."""
+    scfg = ServeConfig(max_len=512, capacity=8)
+    prompts, budgets = _ssm_requests(cfg.vocab)
+    # warm-up, not counted: the same prompts with 2 new tokens each builds
+    # the SSD schedule of every chunk length (256, and 64 for the padded
+    # rest) and warms cuBLAS and the allocator
+    warm = ContinuousEngine(params, cfg, scfg)
+    for p in prompts:
+        warm.submit(p, 2)
+    warm.run(max_steps=10_000)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    eng = ContinuousEngine(params, cfg, scfg)
+    tracer = obs.Tracer()
+    compiles_before = _build.STATS.compiles
+    for mod in KERNEL_MODULES:
+        mod.launches = 0
+    t0 = time.perf_counter()
+    with obs.tracing(tracer), schedule_cache(ScheduleCache()) as store:
+        handles = [eng.submit(p, b) for p, b in zip(prompts, budgets)]
+        eng.run(max_steps=10_000)
+        served = registry.get(sk_ops.NAME, store).served_signatures()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {m.FUNCTION: m.launches for m in KERNEL_MODULES}
+
+    events = tracer.events()
+    n_prefill = sum(e["name"] == "serve.prefill" for e in events)
+    decode_us = [e["dur"] for e in events if e["name"] == "serve.decode"]
+    s = eng.stats
+    for r, b in zip(handles, budgets):
+        if len(r.tokens) != b:
+            raise AssertionError(f"request {r.uid} emitted {len(r.tokens)} "
+                                 f"of {b} tokens")
+        if not all(0 <= t < cfg.vocab for t in r.tokens):
+            raise AssertionError(f"request {r.uid}: token out of range")
+    want = {m.FUNCTION: 0 for m in KERNEL_MODULES}
+    want[sk.FUNCTION] = cfg.n_layers * n_prefill
+    if launches != want or n_prefill < 1:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    chunks = sorted({sig["q"] for sig in served})
+    if 256 not in chunks:
+        raise AssertionError(f"no prefill ran the q = 256 chunk: {served}")
+    ttft = [r.admitted_at - r.submitted_at for r in handles]
+    tokens = sum(len(r.tokens) for r in handles)
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+           "requests": len(handles), "tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall,
+           "ttft_p50_ms": _pct_ms(ttft, 50), "ttft_p99_ms": _pct_ms(ttft, 99),
+           "decode_step_p50_ms": float(np.percentile(decode_us, 50)) / 1e3,
+           "prefill_s": s["prefill_s"], "decode_s": s["decode_s"],
+           "prefill_frac": eng.metrics()["prefill_frac"],
+           "prefill_dispatches": n_prefill, "decode_steps": s["decode_steps"],
+           "prefill_compiles": s["prefill_compiles"],
+           "ssd_signatures": served, "launches": launches,
+           "kernel_builds_in_timed_window":
+               _build.STATS.compiles - compiles_before,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit("serve_ssm", **out)
+    return out
+
+
+def phase_differential_ssm(sip_cache: str, workdir: Path) -> dict:
+    """mamba2 at full width cut to 4 layers, float32: the contiguous
+    continuous engine is token-identical to single-request
+    Engine.generate, in fifo and reversed arrival, and under the card's
+    smoke store plus a non-default SSD schedule at every signature the fifo
+    run served, each of which the tuned run must resolve."""
+    cfg = dataclasses.replace(configs.get("mamba2-2.7b"), n_layers=4,
+                              dtype="float32")
+    params = M.init_lm(cfg, seed=1, device="cuda")
+    rng = np.random.default_rng(5)
+    # 256: a whole configured chunk; two prompts of 70 share one prefill
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (23, 70, 256, 45, 70)]
+    budgets = [10, 8, 12, 9, 11]
+    ref = Engine(params, cfg, ServeConfig(max_len=512))
+    want = [ref.generate(p[None], b)[0] for p, b in zip(prompts, budgets)]
+    scfg = ServeConfig(max_len=512, capacity=3)
+    stats = {}
+
+    def run(order: str, cache: ScheduleCache | str) -> dict[str, list]:
+        idxs = list(range(len(prompts)))[::-1 if order == "reversed" else 1]
+        sk.launches = 0
+        with schedule_cache(cache) as store:
+            eng = ContinuousEngine(params, cfg, scfg)
+            uids = {eng.submit(prompts[i], budgets[i]).uid: i for i in idxs}
+            got = eng.run(max_steps=1000)
+            served = {sk_ops.NAME:
+                      registry.get(sk_ops.NAME, store).served_signatures()}
+        for uid, i in uids.items():
+            if not np.array_equal(got[uid], want[i]):
+                raise AssertionError(f"differential_ssm ({order}): request "
+                                     f"{i} gave {got[uid].tolist()}, Engine "
+                                     f"gave {want[i].tolist()}")
+        stats[order] = {k: eng.stats[k] for k in (
+            "decode_steps", "prefill_compiles")}
+        stats[order]["launches"] = {sk_ops.NAME: sk.launches}
+        return served
+
+    served = run("fifo", ScheduleCache())
+    if not served[sk_ops.NAME]:
+        raise AssertionError("the engine served no SSD signature")
+    run("reversed", ScheduleCache())
+    tuned = workdir / "sip_served_ssm.json"
+    shutil.copy(sip_cache, tuned)
+    put = put_served_schedules(tuned, served)
+    served_tuned = run("tuned_cache", str(tuned))
+    store = ScheduleCache(str(tuned))
+    for static in served_tuned[sk_ops.NAME]:
+        best = store.best(sk_ops.NAME, SipKernel.sig_str(static))
+        if best is None or best.order is None:
+            raise AssertionError(f"tuned run: {static} resolved the default "
+                                 f"schedule")
+    if stats["tuned_cache"]["launches"][sk_ops.NAME] < 1:
+        raise AssertionError(f"tuned run launched no SSD kernel: {stats}")
+    stats["tuned_cache"].update(
+        schedules_put=put,
+        non_default_resolved={sk_ops.NAME: len(served_tuned[sk_ops.NAME])})
+    out = {"n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "requests": len(prompts), "token_identical": True, **stats}
+    emit("differential_ssm", **out)
+    return out
+
+
+def kernels_line(gemm: dict, flash: dict, gather: dict, ssd: dict,
+                 rms: dict, sip: dict, serve: dict, serve_ssm: dict) -> dict:
     rows = []
     for mod, name, res, path in (
             (gf, "gemm_fused_leaky_relu", gemm, sip),
             (fa, "flash_attention_causal", flash, serve),
-            (pg, "paged_gather", gather, serve)):
+            (pg, "paged_gather", gather, serve),
+            (sk, "ssd_intra_chunk", ssd, serve_ssm),
+            (rk, "rmsnorm_fused", rms, sip)):
         rows.append({"name": name, "route": "cuda", "source": mod.SOURCE,
                      "replaces": mod.REPLACES,
                      "launches": path["launches"][name],
@@ -850,6 +1174,8 @@ def main() -> int:
     gemm = phase_gemm(gen)
     flash = phase_flash(gen)
     gather = phase_gather(gen)
+    ssd = phase_ssd(gen)
+    rms = phase_rmsnorm(gen)
     workdir = _build.BUILD_DIR.parent / "chip_smoke"
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
@@ -857,12 +1183,22 @@ def main() -> int:
     cfg = configs.get("qwen3-1.7b")
     params = M.init_lm(cfg, seed=0, device="cuda")
     serve = phase_serve(params, cfg)
-    phase_profile(params, cfg)
+    phase_profile(params, cfg, ServeConfig(max_len=512, capacity=8,
+                                           paged=True, page_size=16,
+                                           prefill_chunk=128))
     del params
     torch.cuda.empty_cache()
     phase_differential(sip["cache"], workdir)
-    print(json.dumps(kernels_line(gemm, flash, gather, sip, serve)),
-          flush=True)
+    cfg = configs.get("mamba2-2.7b")
+    params = M.init_lm(cfg, seed=0, device="cuda")
+    serve_ssm = phase_serve_ssm(params, cfg)
+    phase_profile(params, cfg, ServeConfig(max_len=512, capacity=8),
+                  phase="profile_ssm")
+    del params
+    torch.cuda.empty_cache()
+    phase_differential_ssm(sip["cache"], workdir)
+    print(json.dumps(kernels_line(gemm, flash, gather, ssd, rms, sip, serve,
+                                  serve_ssm)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}))
     return 0

@@ -19,22 +19,6 @@ import pkgutil
 # integration modules probed inside each kernel package, in import order
 _INTEGRATION_MODULES = ("ops",)
 
-#: kernels the JAX package registers that the port has not ported yet
-NOT_PORTED = {
-    "rmsnorm_fused": "ROADMAP.md Queue 2 row 4 (the next slice)",
-    "ssd_intra_chunk": "ROADMAP.md Queue 2 row 5 (with the SSM family)",
-}
-
-
-def check_ported(name: str) -> None:
-    """Raise ``NotImplementedError`` for a JAX-package kernel the port does
-    not have yet."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"kernel {name!r} is not ported to repro_torch yet: "
-            f"{NOT_PORTED[name]}")
-
-
 def load_all() -> list[str]:
     """Import every kernel package's integration module, registering their
     KernelSpecs.  Returns the registered kernel names.

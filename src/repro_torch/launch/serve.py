@@ -5,7 +5,11 @@
         --prompt-len-min 16 --prompt-len-max 384 --new-tokens 16 \
         --new-tokens-max 32
 
-Generates a mixed-prompt-length request stream (uniform lengths in
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        --requests 17 --capacity 8 --prompt-len-min 16 --prompt-len-max 384
+
+serves the SSM family through the contiguous engine (``--paged`` refuses
+it).  Generates a mixed-prompt-length request stream (uniform lengths in
 [--prompt-len-min, --prompt-len-max], Poisson arrivals at --arrival-rate
 req/s; 0 = all at once), or replays ``--replay FILE`` — a JSON list of
 ``{"prompt_len": int, "new_tokens": int, "arrival": float}`` records — and

@@ -82,7 +82,6 @@ def main(argv: list[str] | None = None) -> int:
 
     kernels.load_all()
     for name in args.kernel:
-        kernels.check_ported(name)
         if name not in registry:
             ap.error(f"unknown kernel {name!r}; registered: "
                      f"{', '.join(registry.names())}")

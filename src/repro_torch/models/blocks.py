@@ -1,4 +1,5 @@
-"""The dense decoder block: pre-norm attention and MLP with residuals."""
+"""The dense decoder block (pre-norm attention and MLP with residuals) and
+the Mamba-2 block (pre-norm SSM mixer with a residual)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import torch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import modules as nn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 
 
@@ -26,3 +28,15 @@ def decoder_block(p, x: torch.Tensor, cfg: ModelConfig, *,
     x = x + a
     h2 = nn.rmsnorm_apply(p["ln2"], x)
     return x + mlp_mod.mlp(p["ffn"], h2, cfg), new_cache
+
+
+def mamba_block(p, x: torch.Tensor, cfg: ModelConfig, *, state=None,
+                return_state: bool = False):
+    """-> (x, new_state); ``new_state`` is None unless ``state`` is given or
+    ``return_state`` is set."""
+    h = nn.rmsnorm_apply(p["ln"], x)
+    if state is not None or return_state:
+        y, new_state = ssm_mod.mamba(p["mixer"], h, cfg, state=state,
+                                     return_state=True)
+        return x + y, new_state
+    return x + ssm_mod.mamba(p["mixer"], h, cfg), None

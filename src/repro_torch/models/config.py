@@ -13,6 +13,9 @@ from __future__ import annotations
 
 import dataclasses
 
+#: the model families the port runs
+SUPPORTED_FAMILIES = ("dense", "ssm")
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -144,12 +147,13 @@ def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> ModelConfig:
     """Raise ``NotImplementedError`` for what the port does not run yet
-    (see ROADMAP.md, Queue 1): families other than dense, padded heads and
-    sliding-window attention."""
-    if cfg.family != "dense":
+    (see ROADMAP.md, Queue 1): families other than dense and ssm, padded
+    heads and sliding-window attention."""
+    if cfg.family not in SUPPORTED_FAMILIES:
         raise NotImplementedError(
-            f"repro_torch runs the dense family only; {cfg.name} is "
-            f"{cfg.family!r} (ROADMAP.md, Queue 1: other model families)")
+            f"repro_torch runs the {' and '.join(SUPPORTED_FAMILIES)} "
+            f"families only; {cfg.name} is {cfg.family!r} (ROADMAP.md, "
+            f"Queue 1: other model families)")
     if cfg.padded_heads:
         raise NotImplementedError(
             f"repro_torch does not pad heads (padded_heads="

@@ -3,7 +3,8 @@
 ``params_from_numpy`` takes ``repro``'s params as numpy arrays —
 ``jax.tree.map(np.asarray, nn.unwrap(M.init_lm(key, cfg)))``, layers stacked
 on axis 0 — and returns the port's param tree, so both packages compute the
-same function.
+same function.  Norm gains and the SSM leaves the reference reads in
+float32 stay float32.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ def params_from_numpy(tree: dict[str, Any], cfg: ModelConfig, *,
                       dtype: torch.dtype | None = None) -> M.Params:
     """numpy param tree -> torch param tree on ``device``.  Weights are
     stored in ``dtype`` (default: the compute dtype, which is what the JAX
-    package casts them to at every use); norm gains stay float32.  Raises
+    package casts them to at every use); ``M.F32_LEAVES`` stay float32.  Raises
     if the tree's names or shapes differ from ``cfg``'s."""
     check_supported(cfg)
     dev = M.resolve_device(device)
@@ -41,6 +42,6 @@ def params_from_numpy(tree: dict[str, Any], cfg: ModelConfig, *,
                              f"{arr.shape}, {cfg.name} needs {tuple(shape)}")
         t = torch.from_numpy(np.array(arr, dtype=np.float32))
         return t.to(device=dev, dtype=torch.float32
-                    if path[-1] in M.NORM_LEAVES else dt)
+                    if path[-1] in M.F32_LEAVES else dt)
 
     return M.map_params(convert, M.param_shapes(cfg))

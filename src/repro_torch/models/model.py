@@ -1,5 +1,6 @@
-"""The dense decoder LM: init, forward, prefill and decode entry points, and
-the per-slot and paged cache helpers the serving engines use.
+"""The dense decoder LM and the Mamba-2 LM: init, forward, prefill and
+decode entry points, and the per-slot and paged cache helpers the serving
+engines use.
 
 Params are a nested dict of tensors with ``repro``'s tree, leaf names and
 layouts (``nn.unwrap(init_lm(...))``), per-layer leaves stacked on axis 0.
@@ -8,12 +9,15 @@ keeps params in float32 and casts each weight to ``cfg.dtype`` at every use;
 the port stores every weight in the compute dtype once, at load, which gives
 the same values and halves the weight memory in bf16.  Norm gains stay
 float32: RMSNorm casts its gain to float32, so storing them rounded would
-change the result.
+change the result.  The same holds for the SSM leaves the reference reads
+in float32 (``ssm.F32_LEAVES``).
 
 Cache layouts, written out (``repro`` finds them structurally with
-``jax.eval_shape``): ``k``/``v`` (L, B | P, S | ps, Hkv, D) in the compute
-dtype and ``len`` int32 — (L,) from :func:`prefill`, (L, slots) for the
-serving caches.  The decode paths update caches in place where the JAX
+``jax.eval_shape``): dense ``k``/``v`` (L, B | P, S | ps, Hkv, D) in the
+compute dtype and ``len`` int32 — (L,) from :func:`prefill`, (L, slots) for
+the serving caches; ssm ``conv`` (L, B | slots, W-1, C) in the compute
+dtype and ``ssd`` (L, B | slots, H, N, P) float32, with no ``len`` and no
+paged store.  The decode paths update caches in place where the JAX
 package donates them, and return the same dict.
 """
 
@@ -25,11 +29,14 @@ import torch
 
 from repro_torch.models import blocks
 from repro_torch.models import modules as nn
+from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig, check_supported
 
 Params = dict[str, Any]
 #: leaves that hold RMSNorm gains (kept in float32)
-NORM_LEAVES = ("ln1", "ln2", "ln_f", "q_norm", "k_norm")
+NORM_LEAVES = ("ln1", "ln2", "ln", "ln_f", "q_norm", "k_norm")
+#: every leaf kept in float32
+F32_LEAVES = NORM_LEAVES + ssm.F32_LEAVES
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -50,6 +57,10 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
     """The param tree's leaf shapes (layers stacked on axis 0)."""
     n, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
+    top = {"embed": (cfg.vocab, d), "ln_f": (d,), "lm_head": (d, cfg.vocab)}
+    if cfg.family == "ssm":
+        mixer = {k: (n,) + v for k, v in ssm.mixer_shapes(cfg).items()}
+        return {**top, "blocks": {"ln": (n, d), "mixer": mixer}}
     attn = {"wq": (n, d, cfg.n_heads, hd), "wk": (n, d, cfg.n_kv_heads, hd),
             "wv": (n, d, cfg.n_kv_heads, hd), "wo": (n, cfg.n_heads, hd, d)}
     if cfg.qk_norm:
@@ -63,9 +74,8 @@ def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
         ffn["w_up"] = (n, d, cfg.d_ff)
     else:
         raise ValueError(cfg.mlp_type)
-    return {"embed": (cfg.vocab, d), "ln_f": (d,), "lm_head": (d, cfg.vocab),
-            "blocks": {"ln1": (n, d), "attn": attn, "ln2": (n, d),
-                       "ffn": ffn}}
+    return {**top, "blocks": {"ln1": (n, d), "attn": attn, "ln2": (n, d),
+                              "ffn": ffn}}
 
 
 def map_params(fn, shapes: dict[str, Any], path: tuple[str, ...] = ()):
@@ -78,22 +88,31 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
             device: str | torch.device = "cuda") -> Params:
     """Random weights from ``seed``, with ``repro``'s init scales: normal
     times 1 (embed), d**-0.5 (lm_head, wq, wk, wv, w_gate, w_up),
-    (n_heads*hd)**-0.5 (wo), d_ff**-0.5 (w_down); norm gains are ones."""
+    (n_heads*hd)**-0.5 (wo), d_ff**-0.5 (w_down); norm gains are ones; the
+    ssm mixer's as ``ssm.INIT`` says."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = compute_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
-    scale = {"embed": 1.0, "lm_head": d ** -0.5, "wq": d ** -0.5,
-             "wk": d ** -0.5, "wv": d ** -0.5,
-             "wo": (cfg.n_heads * cfg.hd) ** -0.5, "w_gate": d ** -0.5,
-             "w_up": d ** -0.5, "w_down": cfg.d_ff ** -0.5}
+    # the fan-in each normal weight is scaled by (its ** -0.5)
+    fan_in = {"embed": 1, "lm_head": d, "wq": d, "wk": d, "wv": d,
+              "wo": cfg.n_heads * cfg.hd, "w_gate": d, "w_up": d,
+              "w_down": cfg.d_ff}
 
     def make(path, shape):
-        if path[-1] in NORM_LEAVES:
+        name = path[-1]
+        if name in NORM_LEAVES:
             return torch.ones(shape, dtype=torch.float32, device=dev)
+        if path[-2:-1] == ("mixer",):
+            if not isinstance(ssm.INIT[name], str):
+                return torch.full(shape, ssm.INIT[name], dtype=torch.float32,
+                                  device=dev)
+            scale = ssm.init_scale(cfg, name)
+        else:
+            scale = fan_in[name] ** -0.5
         w = torch.randn(shape, generator=gen, device=dev)
-        return (w * scale[path[-1]]).to(dt)
+        return (w * scale).to(dt)
 
     return map_params(make, param_shapes(cfg))
 
@@ -109,7 +128,10 @@ def _layers(stacked: dict[str, Any]) -> list[dict[str, Any]]:
                 for k, v in tree.items()}
 
     per_leaf = unbind(stacked)
-    return [pick(per_leaf, i) for i in range(stacked["ln1"].shape[0])]
+    first = stacked
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    return [pick(per_leaf, i) for i in range(first.shape[0])]
 
 
 def _embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -125,7 +147,10 @@ def forward(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig):
     """Eval forward over ``inputs['tokens']`` (B, S) -> (logits, aux)."""
     x = _embed(p, inputs["tokens"], cfg)
     for lp in _layers(p["blocks"]):
-        x, _ = blocks.decoder_block(lp, x, cfg, causal=True)
+        if cfg.family == "ssm":
+            x, _ = blocks.mamba_block(lp, x, cfg)
+        else:
+            x, _ = blocks.decoder_block(lp, x, cfg, causal=True)
     x = nn.rmsnorm_apply(p["ln_f"], x)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(p, x), {"load_balance": zero, "router_z": zero}
@@ -135,8 +160,17 @@ def forward(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig):
 def prefill(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig,
             max_len: int):
     """Forward over the prompt, building decode caches sized ``max_len``.
-    Returns (last_token_logits, caches)."""
+    Returns (last_token_logits, caches).  An ssm model's caches are its
+    per-layer conv and SSD states, whatever ``max_len``."""
     x = _embed(p, inputs["tokens"], cfg)
+    if cfg.family == "ssm":
+        states = []
+        for lp in _layers(p["blocks"]):
+            x, st = blocks.mamba_block(lp, x, cfg, return_state=True)
+            states.append(st)
+        caches = {k: torch.stack([st[k] for st in states]) for k in states[0]}
+        x = nn.rmsnorm_apply(p["ln_f"], x[:, -1:])
+        return _logits(p, x)[:, 0], caches
     b, s, _ = x.shape
     if s > max_len:
         raise ValueError(f"prompt length {s} exceeds max_len {max_len}")
@@ -163,7 +197,20 @@ def decode_step(p: Params, caches, tokens: torch.Tensor, cfg: ModelConfig, *,
     ``pt`` (B, n_pages) routes cache traffic through a paged store (see
     :func:`alloc_paged_caches`); ``active`` (B,) masks rows that must neither
     write real pages nor advance (idle slots, slots mid chunked prefill) —
-    their scatters land in the trash page."""
+    their scatters land in the trash page.  An ssm model takes neither: its
+    caches are dense per-slot states, advanced in place."""
+    if cfg.family == "ssm":
+        if pt is not None:
+            raise ValueError(f"paged decode supports attention families "
+                             f"(dense/moe/vlm), not {cfg.family!r}")
+        x = _embed(p, tokens[:, None], cfg)
+        for i, lp in enumerate(_layers(p["blocks"])):
+            st = {"conv": caches["conv"][i], "ssd": caches["ssd"][i]}
+            x, new = blocks.mamba_block(lp, x, cfg, state=st)
+            caches["conv"][i] = new["conv"]
+            caches["ssd"][i] = new["ssd"]
+        x = nn.rmsnorm_apply(p["ln_f"], x)
+        return _logits(p, x)[:, 0], caches
     logits, caches = decode_tokens(p, caches, tokens[:, None], cfg, pt=pt,
                                    active=active)
     return logits[:, 0], caches
@@ -208,9 +255,15 @@ def decode_tokens(p: Params, caches, tokens: torch.Tensor, cfg: ModelConfig,
 
 def alloc_slot_caches(cfg: ModelConfig, capacity: int, max_len: int, *,
                       device: str | torch.device) -> dict[str, torch.Tensor]:
-    """Zero decode caches for ``capacity`` slots of ``max_len`` positions."""
-    shape = (cfg.n_layers, capacity, max_len, cfg.n_kv_heads, cfg.hd)
+    """Zero decode caches for ``capacity`` slots of ``max_len`` positions
+    (an ssm model's per-slot states do not depend on ``max_len``)."""
     dt, dev = compute_dtype(cfg), torch.device(device)
+    if cfg.family == "ssm":
+        st = ssm.init_mamba_state(cfg, capacity, dt, dev)
+        return {k: torch.zeros((cfg.n_layers,) + tuple(v.shape),
+                               dtype=v.dtype, device=dev)
+                for k, v in st.items()}
+    shape = (cfg.n_layers, capacity, max_len, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev),
             "len": torch.zeros((cfg.n_layers, capacity), dtype=torch.int32,
@@ -221,16 +274,18 @@ def insert_slots(caches, group_caches, slots: torch.Tensor):
     """Splice a batch-G prefill cache into slots ``slots`` ((G,) ints) in
     place — one scatter per leaf.  The group shares one prompt length."""
     slots = slots.long()
-    caches["k"][:, slots] = group_caches["k"].to(caches["k"].dtype)
-    caches["v"][:, slots] = group_caches["v"].to(caches["v"].dtype)
-    caches["len"][:, slots] = group_caches["len"][:, None].to(torch.int32)
+    for name, leaf in caches.items():
+        grp = group_caches[name]
+        leaf[:, slots] = grp[:, None] if name == "len" else grp.to(leaf.dtype)
     return caches
 
 
 def evict_slot(caches, slot: int):
     """Invalidate slot ``slot``: zero its lengths so attention sees an empty
-    prefix (its k/v rows are overwritten by the next insert)."""
-    caches["len"][:, slot] = 0
+    prefix.  State leaves (k/v rows, ssm states) are left in place: the next
+    insert into the slot overwrites them wholesale."""
+    if "len" in caches:
+        caches["len"][:, slot] = 0
     return caches
 
 

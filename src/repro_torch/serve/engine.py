@@ -21,6 +21,11 @@
   interleaved with decode (``prefill_chunk``).  Greedy outputs stay
   token-identical to the static engine.
 
+An ssm model (mamba2) serves through the contiguous engine: its per-slot
+conv and SSD states are spliced into slots as KV segments are, prompts must
+cover the conv's receptive field (``conv_width - 1`` tokens), and paged
+serving refuses the family, as the JAX engine does.
+
 The engines run on the device of the params.  Tensor-parallel serving, the
 schedule hot-swap and the workload recorder of the JAX package are not
 ported yet (ROADMAP.md, Queue 1).
@@ -42,7 +47,6 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.pages import PagePool, PagesExhausted, PrefixCache
 from repro_torch.serve.slots import SlotPool
-
 
 @dataclasses.dataclass
 class ServeConfig:
@@ -230,8 +234,18 @@ class ContinuousEngine:
         self.on_token = on_token
         self.obs = obs if obs is not None else obs_metrics.MetricsRegistry()
         self.pool = SlotPool(scfg.capacity)
+        # conv-state shapes only stabilize once the prompt covers the conv
+        # receptive field — shorter prompts would prefill a cache segment that
+        # cannot be spliced into the fixed-shape slot batch
+        self._min_prompt = cfg.conv_width - 1 if cfg.family == "ssm" else 1
         self.paged = scfg.paged
         if self.paged:
+            # the port's one attention family (the reference also pages moe
+            # and vlm, which the port does not serve yet)
+            if cfg.family != "dense":
+                raise ValueError(
+                    f"paged serving supports the dense family, not "
+                    f"{cfg.family!r} (its decode state is dense per-slot)")
             if scfg.admission not in ("queue", "reject"):
                 raise ValueError(f"admission must be 'queue' or 'reject', "
                                  f"got {scfg.admission!r}")
@@ -285,8 +299,10 @@ class ContinuousEngine:
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got "
                              f"{max_new_tokens}")
-        if len(prompt) < 1:
-            raise ValueError("prompts need >= 1 token")
+        if len(prompt) < self._min_prompt:
+            raise ValueError(
+                f"{self.cfg.family} prompts need >= {self._min_prompt} "
+                f"tokens (conv receptive field), got {len(prompt)}")
         total = len(prompt) + max_new_tokens
         if not self.paged:
             if total > self.scfg.max_len:

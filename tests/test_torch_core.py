@@ -1,4 +1,4 @@
-"""The port's SIP core against the JAX package's: the three kernels'
+"""The port's SIP core against the JAX package's: the five kernels'
 programs at every knob point of their smoke and deploy spaces, ``emit``,
 the annealers' trajectories under the v5e cost model, probabilistic testing
 with a fault injector, and the schedule cache's JSON read across packages.
@@ -26,7 +26,8 @@ from repro_torch.kernels.gemm_fused import kernel as tgemm  # noqa: E402
 jkernels.load_all()
 tkernels.load_all()
 
-KERNELS = ("flash_attention_causal", "gemm_fused_leaky_relu", "paged_gather")
+KERNELS = ("flash_attention_causal", "gemm_fused_leaky_relu", "paged_gather",
+           "rmsnorm_fused", "ssd_intra_chunk")
 CASES = [(k, w.name) for k in KERNELS
          for w in jregistry.spec(k).workloads]
 
@@ -148,7 +149,9 @@ def _search(pkg, name, static, chains, seed):
 @pytest.mark.parametrize("name,workload", [
     ("flash_attention_causal", "deploy_b1_h4kv2_s128_d32"),
     ("gemm_fused_leaky_relu", "deploy_64x64x128"),
-    ("paged_gather", "deploy_p64_ps16_h4_d32_b8_n8")])
+    ("paged_gather", "deploy_p64_ps16_h4_d32_b8_n8"),
+    ("rmsnorm_fused", "deploy_64x128"),
+    ("ssd_intra_chunk", "deploy_g4_q16_h4_p8_n16")])
 def test_annealers_follow_the_reference_trajectory(name, workload, chains):
     static = _static(name, workload)
     got = _search(tcore, name, static, chains, seed=3)
@@ -193,13 +196,6 @@ def test_schedule_cache_json_reads_across_packages(tmp_path):
                                                '{"m": 16}')] == \
             [e.to_dict() for e in w.entries("gemm_fused_leaky_relu",
                                             '{"m": 16}')]
-
-
-def test_unported_kernels_raise_not_implemented():
-    for name in ("rmsnorm_fused", "ssd_intra_chunk"):
-        assert name in jregistry and name not in tregistry
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tkernels.check_ported(name)
 
 
 def test_wallclock_energy_needs_the_card():

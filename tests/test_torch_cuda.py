@@ -1,5 +1,7 @@
 """The port's CUDA kernels and engine on the card: each emitted kernel
-against its plain version at the default and at seeded random legal orders,
+against its plain version at the default and at seeded random legal orders
+(the SSD intra-chunk kernel at the model's widths, RMSNorm at every point
+of its knob space),
 the gather's wrap of negative page ids, and a paged engine run on the card
 token-identical to the same run on the CPU.  Marked ``cuda``: they skip without a card.  On the GPU
 machine:
@@ -19,6 +21,11 @@ from repro_torch.kernels.gemm_fused import kernel as gf  # noqa: E402
 from repro_torch.kernels.gemm_fused import ref as gf_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as pg  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pg_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm import kernel as rk  # noqa: E402
+from repro_torch.kernels.rmsnorm import ref as rk_ref  # noqa: E402
+from repro_torch.kernels.ssd import kernel as sk  # noqa: E402
+from repro_torch.kernels.ssd import ops as sk_ops  # noqa: E402
+from repro_torch.kernels.ssd import ref as sk_ref  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.serve.engine import ContinuousEngine, ServeConfig  # noqa: E402
@@ -147,3 +154,75 @@ def _leaf(tree, path):
     for key in path:
         tree = tree[key]
     return tree
+
+
+@pytest.mark.parametrize("seed", [None, 1, 2])
+@pytest.mark.parametrize("g,q,h,p,n", [(2, 8, 2, 4, 8), (3, 64, 80, 64, 128),
+                                       (1, 256, 80, 64, 128)])
+def test_ssd_kernel_matches_plain(cuda, g, q, h, p, n, seed):
+    gen = torch.Generator(device=cuda).manual_seed(q)
+    xb = torch.randn((g, q, h, p), generator=gen, device=cuda)
+    la = -torch.randn((g, q, h), generator=gen, device=cuda).abs() * 0.1
+    B = torch.randn((g, q, n), generator=gen, device=cuda) * 0.3
+    C = torch.randn((g, q, n), generator=gen, device=cuda) * 0.3
+    base = sk.SsdKernel(q=q, n=n, p=p, grid=g * h)
+    kern = base if seed is None else sk.SsdKernel(
+        q=q, n=n, p=p, grid=g * h,
+        order=random_legal_order(base.program, seed))
+    before = sk.launches
+    got = kern(xb, la, B, C)
+    assert sk.launches == before + 1
+    want = sk_ref.intra_chunk(xb, la, B, C)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_kernel_at_positive_log_decays(cuda):
+    """The SIP tests draw la standard-normal: the decay reaches e^40 and
+    more over 256 rows; kernel and plain version stay finite and agree to
+    the tests' 2e-2."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    args = [torch.randn(s, generator=gen, device=cuda)
+            for s in ((1, 256, 80, 64), (1, 256, 80), (1, 256, 128),
+                      (1, 256, 128))]
+    got = sk.SsdKernel(q=256, n=128, p=64)(*args)
+    want = sk_ref.intra_chunk(*args)
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+
+def test_ssd_chunked_kernel_on_card_matches_cpu(cuda):
+    gen = np.random.default_rng(0)
+    x = gen.standard_normal((2, 100, 4, 8)).astype(np.float32)
+    dt = np.abs(gen.standard_normal((2, 100, 4))).astype(np.float32) * 0.5
+    A = -np.abs(gen.standard_normal(4)).astype(np.float32)
+    B = gen.standard_normal((2, 100, 16)).astype(np.float32)
+    C = gen.standard_normal((2, 100, 16)).astype(np.float32)
+    D = gen.standard_normal(4).astype(np.float32)
+    outs = []
+    for dev in ("cpu", cuda):
+        t = [torch.from_numpy(a).to(dev) for a in (x, dt, A, B, C, D)]
+        outs.append([o.cpu() for o in sk_ops.ssd_chunked_kernel(
+            *t, chunk=256, return_state=True)])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_rmsnorm_kernel_matches_plain_at_every_knob_point(cuda, dtype, tol):
+    from repro_torch.kernels.rmsnorm import ops as rk_ops
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((512, 2560), generator=gen, device=cuda).to(dtype)
+    g = torch.randn((2560,), generator=gen, device=cuda).to(dtype)
+    want = rk_ref.rmsnorm(x, g).float()
+    space = rk_ops.space(rows=512, d=2560, dtype=str(dtype)[6:])
+    for br in space.knobs[0].choices:
+        for nch in space.knobs[1].choices:
+            base = rk.RmsNormKernel(br=br, d=2560, n_chunks=nch, dtype=dtype,
+                                    rows=512)
+            for kern in (base, rk.RmsNormKernel(
+                    br=br, d=2560, n_chunks=nch, dtype=dtype, rows=512,
+                    order=random_legal_order(base.program, br + nch))):
+                got = kern(x, g).float()
+                assert (got - want).abs().max().item() <= \
+                    tol * max(1.0, want.abs().max().item() / 8)

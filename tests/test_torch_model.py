@@ -66,7 +66,7 @@ class TestConfigs:
             assert dataclasses.asdict(tconfigs.get_smoke(name)) == \
                 dataclasses.asdict(jconfigs.get_smoke(name))
 
-    @pytest.mark.parametrize("name", ["mamba2-2.7b", "h2o-danube-1.8b",
+    @pytest.mark.parametrize("name", ["zamba2-7b", "h2o-danube-1.8b",
                                       "dbrx-132b"])
     def test_unsupported_raise(self, name):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -262,3 +262,131 @@ def test_init_lm_cpu_shapes():
                            cfg)
     assert logits.shape == (1, 5, cfg.vocab)
     assert torch.isfinite(logits).all()
+
+
+# ===================================================== mamba2 (ssm family)
+SSM_ARCH = "mamba2-2.7b"
+
+
+@pytest.fixture(scope="module")
+def ssm_setup():
+    """mamba2's smoke config (4 layers, d 128, state 16, chunk 16) with the
+    reference's weights.  The reference runs its jnp SSD path
+    (``use_pallas=False``): at ragged lengths its Pallas path takes chunks
+    of 1, and the kernel is held to the interpret-mode Pallas kernel in
+    tests/test_torch_ssd.py."""
+    jcfg = jconfigs.get_smoke(SSM_ARCH)
+    tcfg = tconfigs.get_smoke(SSM_ARCH)
+    jp = jnn.unwrap(JM.init_lm(jax.random.PRNGKey(0), jcfg))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    return jcfg, tcfg, jp, tp
+
+
+class TestMamba:
+    def test_params_keep_reference_tree_and_float32_leaves(self, ssm_setup):
+        _, tcfg, jp, tp = ssm_setup
+        assert set(tp["blocks"]["mixer"]) == set(jp["blocks"]["mixer"])
+        for name in ("A_log", "D", "dt_bias", "norm", "conv_b"):
+            assert tp["blocks"]["mixer"][name].dtype == torch.float32
+        cfg = dataclasses.replace(tcfg, dtype="bfloat16")
+        p = TM.init_lm(cfg, seed=0, device="cpu")
+        mixer = p["blocks"]["mixer"]
+        assert mixer["in_proj"].dtype == torch.bfloat16
+        assert mixer["A_log"].dtype == torch.float32
+        assert torch.equal(mixer["D"], torch.ones_like(mixer["D"]))
+        assert torch.equal(mixer["dt_bias"], torch.zeros_like(mixer["dt_bias"]))
+        for name, fan in (("in_proj", cfg.d_model),
+                          ("conv_w", cfg.conv_width),
+                          ("out_proj", cfg.d_inner)):
+            std = mixer[name].float().std().item()
+            assert abs(std * fan ** 0.5 - 1) < 0.1, name
+
+    @pytest.mark.parametrize("s", [32, 13, 37])
+    def test_forward_logits(self, ssm_setup, s):
+        jcfg, tcfg, jp, tp = ssm_setup
+        toks = np.random.default_rng(s).integers(0, tcfg.vocab, (2, s))
+        want, _ = JM.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
+                             jcfg)
+        got, _ = TM.forward(tp, {"tokens": _t(toks.astype(np.int32))}, tcfg)
+        _close(got, want)
+
+    def test_forward_against_interpret_pallas_path(self, ssm_setup):
+        jcfg, tcfg, jp, tp = ssm_setup
+        toks = np.random.default_rng(7).integers(0, tcfg.vocab, (1, 32))
+        want, _ = JM.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
+                             dataclasses.replace(jcfg, use_pallas=True))
+        got, _ = TM.forward(tp, {"tokens": _t(toks.astype(np.int32))}, tcfg)
+        _close(got, want)
+
+    @pytest.mark.parametrize("s", [16, 19, 3])
+    def test_prefill_then_decode_steps(self, ssm_setup, s):
+        """Logits and the conv/SSD states after prefill and after each of
+        three decode steps."""
+        jcfg, tcfg, jp, tp = ssm_setup
+        rng = np.random.default_rng(s)
+        toks = rng.integers(0, tcfg.vocab, (2, s)).astype(np.int32)
+        want, wc = JM.prefill(jp, {"tokens": jnp.asarray(toks)}, jcfg,
+                              max_len=64)
+        got, gc = TM.prefill(tp, {"tokens": _t(toks)}, tcfg, max_len=64)
+        _close(got, want)
+        _caches_close(gc, wc)
+        assert gc["conv"].dtype == torch.float32 and set(gc) == {"conv",
+                                                                 "ssd"}
+        tokens = rng.integers(0, tcfg.vocab, 2).astype(np.int32)
+        for _ in range(3):
+            want, wc = JM.decode_step(jp, wc, jnp.asarray(tokens), jcfg)
+            got, gc = TM.decode_step(tp, gc, _t(tokens), tcfg)
+            _close(got, want)
+            _caches_close(gc, wc)
+            tokens = np.asarray(jnp.argmax(want, axis=-1), np.int32)
+
+    def test_slot_caches_insert_and_evict(self, ssm_setup):
+        jcfg, tcfg, jp, tp = ssm_setup
+        toks = np.random.default_rng(3).integers(0, tcfg.vocab, (2, 9))
+        ex = {"tokens": np.zeros((1, 8), np.int32)}
+        jc, axes = JM.alloc_slot_caches(jp, jcfg, 4, 16, ex)
+        tc = TM.alloc_slot_caches(tcfg, 4, 16, device="cpu")
+        _caches_close(tc, jc)
+        _, jg = JM.prefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)}, jcfg,
+                           max_len=16)
+        _, tg = TM.prefill(tp, {"tokens": _t(toks.astype(np.int32))}, tcfg,
+                           max_len=16)
+        slots = np.array([3, 1], np.int32)
+        jc = JM.insert_slots(jc, jg, jnp.asarray(slots), axes)
+        tc = TM.insert_slots(tc, tg, _t(slots))
+        _caches_close(tc, jc)
+        jc = JM.evict_slot(jc, 3, axes)
+        tc = TM.evict_slot(tc, 3)
+        _caches_close(tc, jc)
+        tokens = np.array([5, 6, 7, 8], np.int32)
+        want, jc = JM.decode_step(jp, jc, jnp.asarray(tokens), jcfg)
+        got, tc = TM.decode_step(tp, tc, _t(tokens), tcfg)
+        _close(got, want)
+        _caches_close(tc, jc)
+
+    @pytest.mark.parametrize("s", [5, 37])
+    def test_mixer_continues_from_a_state(self, ssm_setup, s):
+        """A continuation of S > 1 from a prefill's state runs the padded
+        chunked SSD (the reference: its largest power-of-two chunk); the
+        output and both states agree at the logits tolerance."""
+        from repro.models import ssm as jssm
+        from repro_torch.models import ssm as tssm
+        jcfg, tcfg, jp, tp = ssm_setup
+        jmix = {k: v[0] for k, v in jp["blocks"]["mixer"].items()}
+        tmix = {k: v[0] for k, v in tp["blocks"]["mixer"].items()}
+        rng = np.random.default_rng(s)
+        x0, x1 = (rng.standard_normal((2, n, tcfg.d_model)).astype(np.float32)
+                  for n in (19, s))
+        _, jst = jssm.mamba(jmix, jnp.asarray(x0), jcfg, return_state=True)
+        _, tst = tssm.mamba(tmix, _t(x0), tcfg, return_state=True)
+        want, jst = jssm.mamba(jmix, jnp.asarray(x1), jcfg, state=jst)
+        got, tst = tssm.mamba(tmix, _t(x1), tcfg, state=tst)
+        _close(got, want)
+        _caches_close(tst, jst)
+
+    def test_paged_decode_refused(self, ssm_setup):
+        _, tcfg, _, tp = ssm_setup
+        tc = TM.alloc_slot_caches(tcfg, 2, 16, device="cpu")
+        with pytest.raises(ValueError, match="paged decode supports"):
+            TM.decode_step(tp, tc, torch.zeros(2, dtype=torch.int32), tcfg,
+                           pt=torch.zeros((2, 1), dtype=torch.int32))

@@ -239,3 +239,73 @@ class TestAdmission:
         assert all(r.done for r in rs)
         with pytest.raises(ValueError, match="admission"):
             tengine.ContinuousEngine(tp, CFG, _paged_cfg(admission="drop"))
+
+
+# ===================================================== mamba2 (ssm family)
+SSM_FIELDS = dict(name="m", family="ssm", n_layers=2, d_model=64, n_heads=0,
+                  n_kv_heads=0, d_ff=0, vocab=128, ssm_state=16,
+                  ssm_headdim=32, ssm_chunk=16, dtype="float32")
+SSM_JCFG = JConfig(**SSM_FIELDS).validate()
+SSM_CFG = ModelConfig(**SSM_FIELDS).validate()
+
+
+@pytest.fixture(scope="module")
+def ssm_params():
+    jp = jnn.unwrap(JM.init_lm(jax.random.PRNGKey(1), SSM_JCFG))
+    return jp, params_from_numpy(jax.tree.map(np.asarray, jp), SSM_CFG,
+                                 device="cpu")
+
+
+@pytest.fixture(scope="module")
+def ssm_reference(ssm_params):
+    """repro's single-request Engine.generate over ragged prompt lengths,
+    odd ones and a whole chunk among them."""
+    jp, _ = ssm_params
+    rng = np.random.default_rng(4)
+    reqs = [(rng.integers(1, SSM_CFG.vocab, n).astype(np.int32), b)
+            for n, b in ((3, 5), (17, 4), (32, 6), (9, 3), (17, 7), (25, 2))]
+    ref = jengine.Engine(jp, SSM_JCFG, jengine.ServeConfig(max_len=MAX_LEN))
+    return reqs, [ref.generate(p[None], b)[0] for p, b in reqs]
+
+
+class TestMambaServing:
+    def test_generate_matches_jax(self, ssm_params, ssm_reference):
+        _, tp = ssm_params
+        reqs, want = ssm_reference
+        eng = tengine.Engine(tp, SSM_CFG, tengine.ServeConfig(max_len=MAX_LEN))
+        for (p, b), w in zip(reqs, want):
+            np.testing.assert_array_equal(eng.generate(p[None], b)[0], w)
+
+    @pytest.mark.parametrize("capacity", [1, 3])
+    @pytest.mark.parametrize("order", ["fifo", "reversed", "staggered"])
+    def test_contiguous_matches_jax(self, ssm_params, ssm_reference, capacity,
+                                    order):
+        jp, tp = ssm_params
+        reqs, want = ssm_reference
+        eng = tengine.ContinuousEngine(tp, SSM_CFG, tengine.ServeConfig(
+            max_len=MAX_LEN, capacity=capacity))
+        got = _serve(eng, reqs, order)
+        for i in range(len(reqs)):
+            np.testing.assert_array_equal(got[i], want[i],
+                                          err_msg=f"request {i} ({order})")
+        # the reference's continuous engine gives the same tokens
+        jeng = jengine.ContinuousEngine(jp, SSM_JCFG, jengine.ServeConfig(
+            max_len=MAX_LEN, capacity=capacity))
+        jgot = _serve(jeng, reqs, order)
+        for i in range(len(reqs)):
+            np.testing.assert_array_equal(got[i], jgot[i])
+
+    def test_paged_and_short_prompts_refused_as_the_reference(self,
+                                                              ssm_params):
+        jp, tp = ssm_params
+        for eng_mod, params, cfg in ((tengine, tp, SSM_CFG),
+                                     (jengine, jp, SSM_JCFG)):
+            with pytest.raises(ValueError,
+                               match=r"paged serving supports .*'ssm'"):
+                eng_mod.ContinuousEngine(params, cfg, eng_mod.ServeConfig(
+                    max_len=MAX_LEN, paged=True))
+            eng = eng_mod.ContinuousEngine(params, cfg, eng_mod.ServeConfig(
+                max_len=MAX_LEN))
+            with pytest.raises(ValueError, match="ssm prompts need >= 3"):
+                eng.submit(np.array([1, 2], np.int32), 2)
+            assert eng.submit(np.array([1, 2, 3], np.int32), 2) is not None

@@ -4,7 +4,8 @@ tests_passed) as the JAX package's ``TuningSession`` over the same kernels;
 ``verify`` passes on the tuned store; a ``--die-after 1`` run resumed with
 ``--resume`` leaves a cache byte-identical to an uninterrupted run; ``--list``
 shows the registered kernels; serving reads the store with ``--sip-cache``;
-both drivers refuse CUDA without a card; and what is not ported raises."""
+tune and verify refuse CUDA without a card; mamba2 serves on the CPU; and
+what is not ported raises."""
 
 import json
 import os
@@ -23,7 +24,9 @@ from repro.tuning.session import TuningSession  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 NAMES = ["flash_attention", "flash_attention_causal", "gemm_fused_leaky_relu",
-         "paged_gather"]
+         "paged_gather", "rmsnorm_fused", "ssd_intra_chunk"]
+#: the registered names with a smoke workload (flash_attention has none)
+SMOKE = 5
 
 
 def _run(module, *args, check=True):
@@ -57,7 +60,7 @@ def test_smoke_tune_persists_what_the_reference_session_does(smoke_cache):
     session.run(kernels=NAMES, suite="smoke")
     got = _entries(json.loads(smoke_cache.read_text()))
     want = _entries(session.cache._data)
-    assert len(got) == len(want) == 3
+    assert len(got) == len(want) == SMOKE
     for (gk, gs, ge, gp), (wk, ws, we, wp) in zip(got, want):
         assert (gk, gs, gp) == (wk, ws, wp)
         assert ge == pytest.approx(we, rel=1e-9)
@@ -68,8 +71,10 @@ def test_verify_passes_on_the_tuned_store(smoke_cache):
     res = _run("verify", "--suite", "smoke", "--device", "cpu", "--cache",
                str(smoke_cache))
     lines = [ln for ln in res.stdout.splitlines() if ln.startswith("[verify] ")]
-    assert sum("PASS" in ln and "tuned schedule" in ln for ln in lines) == 3
-    assert lines[-1] == "[verify] 3 workload(s) passed the correctness gate"
+    assert sum("PASS" in ln and "tuned schedule" in ln
+               for ln in lines) == SMOKE
+    assert lines[-1] == \
+        f"[verify] {SMOKE} workload(s) passed the correctness gate"
 
 
 def test_die_after_then_resume_is_byte_identical(smoke_cache, tmp_path):
@@ -89,6 +94,13 @@ def test_list_shows_the_registered_kernels():
     listed = [ln.split()[0] for ln in res.stdout.splitlines()
               if ln and not ln.startswith(" ")]
     assert listed == NAMES
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    ref = subprocess.run([sys.executable, "-m", "repro.launch.tune",
+                          "--list"], capture_output=True, text=True,
+                         env=env, timeout=240)
+    assert ref.returncode == 0, ref.stderr
+    assert listed == [ln.split()[0] for ln in ref.stdout.splitlines()
+                      if ln and not ln.startswith(" ")]
 
 
 def test_drivers_refuse_cuda_without_a_card(tmp_path):
@@ -100,9 +112,6 @@ def test_drivers_refuse_cuda_without_a_card(tmp_path):
         res = _run(module, *args, check=False)
         assert res.returncode != 0
         assert "CUDA" in res.stderr and "PASS" not in res.stdout
-    res = _run("tune", "--kernel", "rmsnorm_fused", "--device", "cpu",
-               "--cache", str(tmp_path / "r.json"), check=False)
-    assert res.returncode != 0 and "NotImplementedError" in res.stderr
 
 
 def test_serve_runs_from_the_tuned_store(smoke_cache):
@@ -113,6 +122,21 @@ def test_serve_runs_from_the_tuned_store(smoke_cache):
     (line,) = [ln for ln in res.stdout.splitlines()
                if ln.startswith("[serve:continuous] ")]
     assert json.loads(line.split(" ", 1)[1])["tokens"] == 6
+
+
+def test_serve_mamba2_smoke_on_cpu():
+    """The SSM family serves through the contiguous engine; paged serving
+    refuses it."""
+    res = _run("serve", "--arch", "mamba2-2.7b", "--smoke", "--device", "cpu",
+               "--requests", "3", "--capacity", "2", "--new-tokens", "2")
+    lines = [ln for ln in res.stdout.splitlines()
+             if ln.startswith("[serve:continuous] ")]
+    assert len(lines) == 1
+    assert json.loads(lines[0].split(" ", 1)[1])["tokens"] == 6
+    res = _run("serve", "--arch", "mamba2-2.7b", "--smoke", "--device", "cpu",
+               "--requests", "1", "--paged", check=False)
+    assert res.returncode != 0
+    assert "paged serving supports the dense family, not 'ssm'" in res.stderr
 
 
 @pytest.mark.parametrize("module", ["train", "autotune"])
