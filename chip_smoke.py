@@ -16,6 +16,7 @@ there is no card or any phase fails.  The last line is the contract line
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import hashlib
@@ -183,7 +184,74 @@ def with_orders(make, seeds=ORDER_SEEDS):
         (s, make(random_legal_order(base.program, s))) for s in seeds]
 
 
+def gemm_hoisted(prog, steps: int) -> tuple[int, ...]:
+    """The order that issues step s+1's loads (ld_x, ld_w) above dot{s}:
+    one k step in flight during each product (instructions: init_acc, then
+    ld_x{s}, ld_w{s}, dot{s} per step, then the epilogue)."""
+    order = [0, 1, 2]
+    for s in range(steps):
+        if s + 1 < steps:
+            order += [1 + 3 * (s + 1), 2 + 3 * (s + 1)]
+        order.append(3 + 3 * s)
+    order += [i for i in prog.default_order() if i not in order]
+    return tuple(order)
+
+
+def flash_v_hoisted(prog) -> tuple[int, ...]:
+    """The order that issues each ld_v{c} right after ld_k{c}: V's copy in
+    flight through Q K^T and the softmax."""
+    names = [ins.name for ins in prog.instrs]
+    order = [i for i in prog.default_order()
+             if not names[i].startswith("ld_v")]
+    for c in range(sum(n.startswith("ld_v") for n in names)):
+        order.insert(order.index(names.index(f"ld_k{c}")) + 1,
+                     names.index(f"ld_v{c}"))
+    return tuple(order)
+
+
+def gemm_tiles(bm, bn, bk, dtype, hoist=False, m=512, n=512, k=2048):
+    """The paper-shape gemm at a knob point, default or hoisted order."""
+    kern = gf.GemmKernel(m=m, n=n, k=k, bm=bm, bn=bn, bk=bk, dtype=dtype)
+    if not hoist:
+        return kern
+    return gf.GemmKernel(m=m, n=n, k=k, bm=bm, bn=bn, bk=bk, dtype=dtype,
+                         order=gemm_hoisted(kern.program, k // bk))
+
+
+def gemm_split(kern) -> dict[str, str]:
+    """Two measuring copies of a gemm schedule's text: its copies alone
+    (every dot{s} disabled) and its products alone (every load disabled,
+    the products run on whatever shared memory holds).  They time where a
+    step's time goes; their outputs are not used."""
+    text = kern.source()[0]
+    return {"loads_only": text.replace("dot_tile(X", "if (0) dot_tile(X"),
+            "products_only": text.replace("load_x(x,", "if (0) load_x(x,")
+            .replace("load_w(w,", "if (0) load_w(w,")}
+
+
+def split_ms(kern, text: str, x, w) -> float:
+    """Device time of one measuring copy of ``kern`` (see gemm_split),
+    launched directly: not counted in ``gf.launches``."""
+    smem = kern.source()[1]
+    built = _build.load(gf.FUNCTION, text, smem)
+    out = torch.empty((x.shape[0], w.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    args = [ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_int(x.shape[0]),
+            ctypes.c_int(w.shape[1])]
+    return cuda_ms(lambda: built.launch(
+        (x.shape[0] // kern.bm, w.shape[1] // kern.bn, 1),
+        kern.layout["NT"], args))
+
+
 GEMM_SHAPES = [(16, 16, 32), (64, 64, 128), (128, 128, 256), (512, 512, 2048)]
+#: knob points of the paper's shape timed at the default and the hoisted
+#: order, bf16
+GEMM_TILES = [(64, 64, 64), (128, 128, 64), (128, 128, 128), (128, 256, 64)]
+#: (m, n, k, bm, bn, bk): tiles smaller than the instruction, zero-filled in
+#: shared memory, and one whose accumulator no block can hold
+GEMM_PADDED = (64, 64, 128, 8, 8, 8)
+GEMM_REJECTED = (512, 512, 2048, 512, 512, 64)
 #: (b, hq, hkv, s_q, s_kv, d, causal, window); the first three run at the
 #: random orders too: the smoke and deploy workloads and a serve prefill
 FLASH_CASES = [(1, 2, 2, 16, 16, 8, True, None),
@@ -220,6 +288,14 @@ def all_schedules():
     for (m, n, k), dt in itertools.product(GEMM_SHAPES, (F32, BF16)):
         for _, kern in with_orders(lambda o: gemm_kernel(m, n, k, dt, o)):
             yield gf.FUNCTION, kern
+    for tiles, hoist in itertools.product(GEMM_TILES, (False, True)):
+        yield gf.FUNCTION, gemm_tiles(*tiles, BF16, hoist)
+    m, n, k, bm, bn, bk = GEMM_PADDED
+    for dt in (F32, BF16):
+        yield gf.FUNCTION, gemm_tiles(bm, bn, bk, dt, m=m, n=n, k=k)
+    st = flash_static(*FLASH_CASES[2], BF16)
+    yield fa.FUNCTION, flash_kernel(st, flash_v_hoisted(
+        flash_kernel(st).program))
     for i, case in enumerate(FLASH_CASES):
         for dt in (F32, BF16):
             st = flash_static(*case, dt)
@@ -267,12 +343,17 @@ def phase_build() -> dict:
     parallel, one nvcc per text."""
     t0 = time.perf_counter()
     texts, rejected = [], 0
+    _build.STATS.reset()
     for fn, kern in all_schedules():
         try:
             texts.append((fn, kern.source()[0]))
         except UnassemblableSchedule:
             rejected += 1
+    texts += [(gf.FUNCTION, text) for text in gemm_split(
+        gemm_kernel(512, 512, 2048, BF16)).values()]
     emit_s = time.perf_counter() - t0
+    rejections = {k: getattr(_build.STATS, k)
+                  for k in ("smem_rejections", "reg_rejections")}
     _build.STATS.reset()
     t0 = time.perf_counter()
     _build.compile_many(texts)
@@ -286,9 +367,23 @@ def phase_build() -> dict:
     ptxas = {fn: [ln.strip() for ln in _build.build_log(
         fn, kern.source()[0]).splitlines() if "registers" in ln or "spill" in ln]
         for fn, kern in main}
+    # the tensor cores are really used: wgmma is HGMMA in the SASS, mma.sync
+    # HMMA
+    tensor_cores = {}
+    for label, (fn, kern), want in (
+            ("gemm_fused 512x512x2048 bf16", main[0], "HGMMA"),
+            ("gemm_fused 512x512x2048 f32",
+             (gf.FUNCTION, gemm_kernel(512, 512, 2048, F32)), "HMMA"),
+            ("flash_attention b4 s128 d128 bf16", main[1], "HMMA")):
+        sass = _sass(_build.cubin_path(fn, kern.source()[0]))
+        count = sum(want in ln for ln in sass.splitlines())
+        if not count:
+            raise AssertionError(f"{label}: no {want} instruction in its SASS")
+        tensor_cores[label] = {"instruction": want, "count": count}
     out = {"texts": len(texts), "distinct_texts": len(set(texts)),
            "smem_rejected": rejected, "emit_s": emit_s, "wall_s": wall,
-           **_build.STATS.snapshot(), "ptxas_main_shapes": ptxas}
+           **_build.STATS.snapshot(), **rejections,
+           "ptxas_main_shapes": ptxas, "tensor_cores_in_sass": tensor_cores}
     emit("build", **out)
     return out
 
@@ -330,15 +425,56 @@ def phase_gemm(gen) -> dict:
         esize = x.element_size()
         t_ops = 2 * m * n * k / PEAK_FLOPS[dt]
         t_bytes = (m * k + k * n + m * n) * esize / PEAK_BYTES
+        split = {f"{key}_ms": split_ms(kern, text, x, w)
+                 for key, text in gemm_split(kern).items()} \
+            if dt == BF16 else {}
         timed[_dt(dt)] = {
+            **split,
             "ms": cuda_ms(lambda: kern(x, w)),
             "plain_ms": cuda_ms(lambda: gf_ref.gemm_leaky_relu(x, w)),
             "library_ms": cuda_ms(lambda: torch.nn.functional.leaky_relu(
                 x @ w, 0.01)),
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+    # the pipeline depth the order sets: each knob point at the default
+    # order (no copy in flight during a product) and with step s+1's loads
+    # above dot{s}, timed in turns (default, hoisted, hoisted, default)
+    x, w = _randn((512, 2048), BF16, gen), _randn((2048, 512), BF16, gen)
+    want = gf_ref.gemm_leaky_relu(x, w)
+    tiles = {}
+    for bm, bn, bk in GEMM_TILES:
+        pair = {"default": gemm_tiles(bm, bn, bk, BF16),
+                "hoisted": gemm_tiles(bm, bn, bk, BF16, hoist=True)}
+        row = {f"{key}_smem": kern.source()[1] for key, kern in pair.items()}
+        for key, kern in pair.items():
+            row[f"{key}_max_abs_err"] = compare(
+                kern(x, w), want, BF16, f"gemm tiles {(bm, bn, bk)} {key}")
+        times = {"default": [], "hoisted": []}
+        for key in ("default", "hoisted", "hoisted", "default"):
+            times[key].append(cuda_ms(lambda: pair[key](x, w)))
+        row.update({f"{key}_ms": float(np.mean(t)) for key, t in times.items()})
+        tiles[f"{bm}x{bn}x{bk}"] = row
+    # tiles smaller than the instruction, zero-filled in shared memory; a
+    # tile whose accumulator no block can hold is rejected before any build
+    m, n, k, bm, bn, bk = GEMM_PADDED
+    padded = {}
+    for dt in (F32, BF16):
+        x, w = _randn((m, k), dt, gen), _randn((k, n), dt, gen)
+        padded[_dt(dt)] = compare(
+            gemm_tiles(bm, bn, bk, dt, m=m, n=n, k=k)(x, w),
+            gf_ref.gemm_leaky_relu(x, w), dt, f"gemm padded {GEMM_PADDED}")
+    m, n, k, bm, bn, bk = GEMM_REJECTED
+    try:
+        gemm_tiles(bm, bn, bk, BF16, m=m, n=n, k=k).source()
+    except UnassemblableSchedule as e:
+        rejected = str(e)
+    else:
+        raise AssertionError(f"gemm {GEMM_REJECTED}: assembled; its "
+                             f"accumulator cannot fit a block's registers")
     worst = max(r["max_abs_err"] for r in results if r["dtype"] == "bfloat16")
     out = {"cases": results, "timed_512x512x2048": timed,
+           "tiles_512x512x2048_bf16": tiles,
+           "padded_tiles_max_abs_err": padded, "rejected_tile": rejected,
            "max_abs_err_bf16": worst,
            "max_abs_err_f32": max(r["max_abs_err"] for r in results
                                   if r["dtype"] == "float32")}
@@ -398,6 +534,26 @@ def phase_flash(gen) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "registry_call_host_us": host_us(
                 lambda: fa.flash_attention(q, k, v, causal=True))}
+    # the default order against one that issues each ld_v{c} after its
+    # ld_k{c}, at B4 S128, in turns (default, hoisted, hoisted, default)
+    st = flash_static(*FLASH_CASES[2], BF16)
+    pair = {"default": flash_kernel(st)}
+    pair["v_hoisted"] = flash_kernel(st, flash_v_hoisted(
+        pair["default"].program))
+    q = _randn((4, 16, 128, 128), BF16, gen)
+    k = _randn((4, 8, 128, 128), BF16, gen)
+    v = _randn((4, 8, 128, 128), BF16, gen)
+    want = fa_ref.attention(q, k, v, causal=True)
+    orders = {}
+    for key, kern in pair.items():
+        orders[f"{key}_max_abs_err"] = compare(kern(q, k, v), want, BF16,
+                                               f"flash b4 s128 {key}")
+        orders[f"{key}_smem"] = kern.source()[1]
+    times = {"default": [], "v_hoisted": []}
+    for key in ("default", "v_hoisted", "v_hoisted", "default"):
+        times[key].append(cuda_ms(lambda: pair[key](q, k, v)))
+    orders.update({f"{key}_ms": float(np.mean(t)) for key, t in times.items()})
+    timed["b4_s128_orders"] = orders
     # a serve prefill at a length that is not a multiple of 8: the model's
     # call pads it to 128 rows; the schedule at the exact length has 1-row
     # query tiles
@@ -422,6 +578,19 @@ def phase_flash(gen) -> dict:
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, kr, vr, is_causal=True)),
         "bound_ms": bound_ms, "bound_by": bound_by}
+    # a bidirectional call at an odd length is padded too, the padded keys
+    # masked past its real length (unpadded, 501 f32 keys give one 1 x 501
+    # tile)
+    bidir = {}
+    for dt in (F32, BF16):
+        q = _randn((2, 16, 501, 128), dt, gen)
+        k = _randn((2, 8, 501, 128), dt, gen)
+        v = _randn((2, 8, 501, 128), dt, gen)
+        bidir[_dt(dt)] = compare(
+            fa.flash_attention(q, k, v, causal=False),
+            fa_ref.attention(q, k, v, causal=False), dt,
+            f"flash bidirectional s501 {dt}")
+    timed["bidirectional_s501_max_abs_err"] = bidir
     if timed["b8_s100"]["ms"] >= timed["b8_s100"]["exact_length_ms"]:
         raise AssertionError(f"flash at b8 s100: the padded call is no "
                              f"faster than 1-row tiles: {timed['b8_s100']}")
@@ -590,14 +759,19 @@ def phase_rmsnorm(gen) -> dict:
     return {**out, **timed["bfloat16"], "max_abs_err": worst[BF16]}
 
 
+def _sass(cubin: Path) -> str:
+    """The cubin's SASS listing (``cuobjdump -sass``)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", str(cubin)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+
+
 def _sass_hash(cubin: Path) -> str | None:
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return None
-    sass = subprocess.run([tool, "-sass", str(cubin)], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
     code = [ln.split("/*")[1] if ln.strip().startswith("/*") else ln
-            for ln in sass.splitlines() if ";" in ln]
+            for ln in _sass(cubin).splitlines() if ";" in ln]
     return hashlib.sha256("\n".join(code).encode()).hexdigest()
 
 

@@ -158,7 +158,10 @@ class SipKernel:
         return [json.loads(sig) for sig in self._resolved]
 
     # ------------------------------------------------------------ deployment
-    def __call__(self, *args: Any) -> Any:
+    def __call__(self, *args: Any, **kwargs: Any) -> Any:
+        """Run the schedule resolved for ``args``' signature; ``kwargs``
+        (runtime scalars such as flash's ``kv_len``) go to the kernel and
+        are not part of the signature."""
         static = self.static_of(*args)
         sig = self.sig_str(static)
         if self._resolved_version != self.cache.version:
@@ -176,7 +179,7 @@ class SipKernel:
                 fn = self._build(sched, **static)
                 self._built[key] = fn
             self._resolved[sig] = fn
-        return fn(*args)
+        return fn(*args, **kwargs)
 
     # ---------------------------------------------------------------- tuning
     def tune(self, example_args: Sequence[Any],

@@ -248,8 +248,8 @@ class KernelHandle:
     def __init__(self, name: str):
         self._name = name
 
-    def __call__(self, *args: Any) -> Any:
-        return registry.get(self._name)(*args)
+    def __call__(self, *args: Any, **kwargs: Any) -> Any:
+        return registry.get(self._name)(*args, **kwargs)
 
     def __getattr__(self, attr: str) -> Any:
         return getattr(registry.get(self._name), attr)

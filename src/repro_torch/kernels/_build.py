@@ -35,6 +35,11 @@ NVCC_FLAGS = ("-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xptxas", "-v")
 #: shared memory one block may use on the H100 (227 KB of the SM's 256 KB)
 SMEM_LIMIT = 232_448
+#: 32-bit registers of an SM, which one block's threads share
+REGS_PER_SM = 65_536
+#: registers a thread needs beside its accumulators (addresses, indices,
+#: fragments in flight); an estimate, not a count ptxas reports
+REG_RESERVE = 40
 #: dynamic shared memory above this needs an explicit opt-in per function
 _SMEM_DEFAULT = 48 * 1024
 _CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES = 8
@@ -46,7 +51,8 @@ class BuildStats:
     their ``compile_s`` seconds, texts found on disk (``disk_hits``) or
     already loaded (``memo_hits``), ``compile_failures``, and schedules
     rejected before any compile because their shared memory exceeds
-    :data:`SMEM_LIMIT` (``smem_rejections``)."""
+    :data:`SMEM_LIMIT` (``smem_rejections``) or their accumulators do not
+    fit their threads' registers (``reg_rejections``)."""
 
     compiles: int = 0
     compile_s: float = 0.0
@@ -54,6 +60,7 @@ class BuildStats:
     memo_hits: int = 0
     compile_failures: int = 0
     smem_rejections: int = 0
+    reg_rejections: int = 0
 
     def snapshot(self) -> dict:
         d = dataclasses.asdict(self)
@@ -115,6 +122,22 @@ def check_smem(name: str, nbytes: int) -> None:
         raise UnassemblableSchedule(
             f"{name}: this schedule keeps {nbytes} bytes of shared memory "
             f"live per block; a block on the H100 may use {SMEM_LIMIT}")
+
+
+def check_regs(name: str, threads: int, live: int) -> None:
+    """Reject a tile whose threads cannot hold their ``live`` fp32 values
+    (accumulators and fragments) plus :data:`REG_RESERVE` each in the SM's
+    register file, or that needs more than 1024 threads.  (A thread past
+    255 registers in a smaller block is not rejected: ptxas spills the rest
+    to local memory, slower but right.)"""
+    if threads > 1024 or threads * (live + REG_RESERVE) > REGS_PER_SM:
+        from repro_torch.core.energy import UnassemblableSchedule
+        with _lock:
+            STATS.reg_rejections += 1
+        raise UnassemblableSchedule(
+            f"{name}: {threads} threads keeping {live} values live each "
+            f"(+{REG_RESERVE}) need more than the {REGS_PER_SM} registers "
+            f"of an SM, or more than 1024 threads")
 
 
 def compile_many(texts: Sequence[tuple[str, str]]) -> list[Path]:

@@ -1,5 +1,6 @@
 """What every emitted kernel's template needs from a schedule order: where
-each shared-memory buffer lives, and where a ``__syncthreads()`` must stand.
+each shared-memory buffer lives, and where a wait or a ``__syncthreads()``
+must stand.
 
 Every value a MEM instruction produces gets its own shared buffer, so no
 legal reorder can race on a buffer another value still needs.  Buffers are
@@ -8,7 +9,10 @@ a buffer's first to its last touch), so an interleaved order reuses one
 step's space while a hoisted order needs more.  :class:`SyncPlanner` then
 puts a barrier before an instruction that reads a buffer written by other
 threads since the last barrier, or writes over a region read or written
-since then.
+since then.  :class:`AsyncPlanner` does the same for kernels whose MEM loads
+are asynchronous copies (``cp.async``, one committed group per load): it
+also waits, before the first reader of a group, for that group and every
+older one, so the order alone decides how many loads are in flight.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Mapping, Sequence
 
 import numpy as np
 
-from repro_torch.core.ir import Instr, Program
+from repro_torch.core.ir import Instr, Kind, Program
 
 ALIGN = 16
 
@@ -102,6 +106,56 @@ class SyncPlanner:
         self.read += r
         self.written += w
         return text
+
+
+class AsyncPlanner(SyncPlanner):
+    """``Program.emit``'s ``before`` hook for kernels whose MEM loads issue
+    ``cp.async`` copies and then commit them as one group, unconditionally.
+
+    Walking the order it numbers the groups and remembers which group
+    filled each buffer.  Ahead of an instruction that reads a buffer whose
+    group may still be in flight it emits ``cp_async_wait<N>();``, N being
+    the number of groups committed after the newest one the instruction
+    needs, then ``fence_proxy_async();`` when the instruction is in
+    ``proxy_readers`` (its operands are read by ``wgmma``, through the async
+    proxy), then ``__syncthreads();``.  Otherwise it places barriers as
+    :class:`SyncPlanner` does: before overwriting a region read or written
+    since the last barrier.  A ``wgmma`` reader waits for its own products
+    before it ends, so that barrier also orders its reads.  The group count
+    restarts with each planner: a loop body must read, within the same
+    iteration, every group it commits (each template's loop begins with a
+    barrier)."""
+
+    def __init__(self, plan: SharedPlan, buffer_of: Mapping[str, str],
+                 proxy_readers: frozenset[str] = frozenset()):
+        super().__init__(plan, buffer_of)
+        self.proxy_readers = proxy_readers
+        self.committed = 0                 # groups committed so far
+        self.complete = -1                 # groups <= this one have landed
+        self.group_of: dict[str, int] = {}
+
+    def __call__(self, ins: Instr) -> str:
+        reads, writes = _touches(ins, self.buffer_of)
+        pending = [self.group_of[b] for b in reads
+                   if self.group_of.get(b, -1) > self.complete]
+        lines = []
+        if pending:
+            newest = max(pending)
+            n = self.committed - 1 - newest
+            lines.append(f"cp_async_wait<{n}>();")
+            self.complete = newest
+            if ins.name in self.proxy_readers:
+                lines.append("fence_proxy_async();")
+            self.read, self.written = [], []
+            lines.append("__syncthreads();")
+        barrier = super().__call__(ins)
+        if barrier:
+            lines.append(barrier)
+        if ins.kind is Kind.MEM and not ins.is_store and writes:
+            for b in writes:
+                self.group_of[b] = self.committed
+            self.committed += 1
+        return "\n".join(lines)
 
 
 def divisor_at_most(n: int, cap: int) -> int:

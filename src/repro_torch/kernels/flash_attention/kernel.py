@@ -6,7 +6,9 @@ with two faces per instruction: a torch ``fn`` (the CPU face, run by
 ``Program.execute`` over the grid with the running statistics carried
 across kv blocks, as Pallas interpret mode runs the reference off-TPU) and a
 CUDA ``src`` snippet that ``Program.emit`` lays out in schedule order inside
-the kv loop of ``csrc/flash_attention.cu``.  MEM instructions (the q load,
+the kv loop of ``csrc/flash_attention.cu`` (bf16: tensor cores, ``cp.async``
+loads whose waits follow the order) or ``csrc/flash_attention_f32.cu``
+(float32: FMAs, synchronous loads).  MEM instructions (the q load,
 per-chunk K and V loads, the output store) are SIP's movable set.
 
 :class:`FlashKernel` is one schedule of the kernel: on CPU tensors it runs
@@ -14,8 +16,8 @@ the CPU face, on CUDA tensors it emits, builds (once per text) and launches
 the CUDA kernel, counting ``launches``.  :func:`flash_attention` is the
 model's entry point: the plain version on CPU tensors, the registry's shared
 instance (``ops.kernel(causal, window)``, which serves the schedule of the
-active schedule cache) on CUDA tensors, with causal lengths padded to a
-multiple of :data:`SEQ_TILE`.
+active schedule cache) on CUDA tensors, with lengths padded to a multiple
+of :data:`SEQ_TILE`.
 """
 
 from __future__ import annotations
@@ -26,10 +28,12 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.core.energy import UnassemblableSchedule
 from repro_torch.core.ir import Instr, Kind, Program
 from repro_torch.core.testing import dtype_name
 from repro_torch.kernels import _build
-from repro_torch.kernels._emit import (SyncPlanner, buffer_decls, cfloat,
+from repro_torch.kernels._emit import (AsyncPlanner, SyncPlanner,
+                                       buffer_decls, cfloat,
                                        divisor_at_most, emit_kernel,
                                        plan_shared)
 from repro_torch.kernels.flash_attention import ref
@@ -41,7 +45,7 @@ CTYPES = {"float32": "float", "bfloat16": "bf16_t"}
 NEG_INF = -1e30
 
 launches = 0
-#: the model's causal calls reach the kernel at lengths padded to a multiple
+#: the model's calls reach the kernel at lengths padded to a multiple
 #: of this (:func:`padded`): the knob space gives a length that is not a
 #: multiple of 8 one-row query tiles, and most multiples of 8 eight-row
 #: tiles; a multiple of 64 gets tiles of 64 or 128 rows
@@ -58,6 +62,7 @@ def make_program(*, bq: int, bk: int, n_chunks: int, d: int, sq: int,
     dtype = getattr(torch, dtype_name(dtype))
     esize = torch.empty((), dtype=dtype).element_size()
     scale = d ** -0.5
+    mma = dtype == torch.bfloat16     # the tensor-core face (flash_attention.cu)
     instrs: list[Instr] = []
 
     # ---- loads -------------------------------------------------------------
@@ -65,7 +70,8 @@ def make_program(*, bq: int, bk: int, n_chunks: int, d: int, sq: int,
         name="ld_q", kind=Kind.MEM, inputs=(), outputs=("q",),
         fn=lambda env: {"q": env["q_ref"][0].float()},
         buffer="q", bytes=bq * d * esize,
-        src="if (first) load_rows<BQ, LDQ>(qp, Q, q0, sq);"))
+        src="if (first) load_rows<BQ, BQP>(qp, Q, q0, sq); cp_async_commit();"
+        if mma else "if (first) load_rows<BQ, LDQ>(qp, Q, q0, sq);"))
 
     def ld_k(env, c):
         return {f"k{c}": env["k_ref"][0, c * ck:(c + 1) * ck, :].float()}
@@ -80,7 +86,9 @@ def make_program(*, bq: int, bk: int, n_chunks: int, d: int, sq: int,
         i, j = env["i"], env["j"]
         rows = i * bq + torch.arange(bq)[:, None] + (skv - sq)
         cols = j * bk + c * ck + torch.arange(ck)[None, :]
-        m = torch.ones((bq, ck), dtype=torch.bool)
+        # keys at or past a padded call's real length are masked
+        m = torch.ones((bq, ck), dtype=torch.bool) & (
+            cols < env.get("kv_len", skv))
         if causal:
             m &= cols <= rows
         if window is not None:
@@ -92,19 +100,22 @@ def make_program(*, bq: int, bk: int, n_chunks: int, d: int, sq: int,
         instrs.append(Instr(name=f"ld_k{c}", kind=Kind.MEM, inputs=(),
                             outputs=(f"k{c}",), fn=functools.partial(ld_k, c=c),
                             buffer="k", bytes=ck * d * esize,
-                            src=f"load_rows<CK, LDK>(kp, K{c}, "
+                            src=f"load_rows<CK, CKP>(kp, K{c}, kb + {c * ck}, "
+                                f"skv); cp_async_commit();" if mma else
+                                f"load_rows<CK, LDK>(kp, K{c}, "
                                 f"kb + {c * ck}, skv);"))
         instrs.append(Instr(name=f"qk{c}", kind=Kind.COMPUTE,
                             inputs=("q", f"k{c}"), outputs=(f"s{c}",),
                             fn=functools.partial(qk, c=c),
                             flops=2 * bq * ck * d,
-                            src=f"qk_tile(Q, K{c}, S{c});"))
+                            src=f"qk_tile(Q, K{c}, S[{c}]);" if mma
+                            else f"qk_tile(Q, K{c}, S{c});"))
         instrs.append(Instr(name=f"mask{c}", kind=Kind.COMPUTE,
                             inputs=(f"s{c}",), outputs=(f"sm{c}", f"mask{c}"),
                             fn=functools.partial(mk_mask, c=c),
                             flops=bq * ck,
-                            src=f"mask_tile(S{c}, kb + {c * ck}, q0, off, sq, "
-                                f"skv);"))
+                            src=f"mask_tile({f'S[{c}]' if mma else f'S{c}'}, "
+                                f"kb + {c * ck}, q0, off, sq, kv_len);"))
 
     # ---- read running stats (carried across kv blocks) -----------------------
     def ld_stats(env):
@@ -141,8 +152,9 @@ def make_program(*, bq: int, bk: int, n_chunks: int, d: int, sq: int,
                + tuple(f"mask{c}" for c in range(n_chunks)),
         outputs=("m_new", "l_new", "corr") + tuple(f"p{c}" for c in range(n_chunks)),
         fn=softmax_update, flops=6 * bq * bk,
-        src=f"{{ float* const sc[NCH] = {{{chunks}}}; softmax_rows(sc, m_s, "
-            f"l_s, c_s, kb, q0, off, sq, skv, acc); }}"))
+        src="softmax_rows(S, m_r, l_r, acc, kb, q0, off, sq, kv_len);" if mma
+        else f"{{ float* const sc[NCH] = {{{chunks}}}; softmax_rows(sc, m_s, "
+             f"l_s, c_s, kb, q0, off, sq, kv_len, acc); }}"))
 
     # ---- PV and accumulator ---------------------------------------------------
     def pv(env, c):
@@ -152,13 +164,16 @@ def make_program(*, bq: int, bk: int, n_chunks: int, d: int, sq: int,
         instrs.append(Instr(name=f"ld_v{c}", kind=Kind.MEM, inputs=(),
                             outputs=(f"v{c}",), fn=functools.partial(ld_v, c=c),
                             buffer="v", bytes=ck * d * esize,
-                            src=f"load_rows<CK, D>(vp, V{c}, kb + {c * ck}, "
+                            src=f"load_rows<CK, CKP>(vp, V{c}, kb + {c * ck}, "
+                                f"skv); cp_async_commit();" if mma else
+                                f"load_rows<CK, D>(vp, V{c}, kb + {c * ck}, "
                                 f"skv);"))
         instrs.append(Instr(name=f"pv{c}", kind=Kind.COMPUTE,
                             inputs=(f"p{c}", f"v{c}"), outputs=(f"pv{c}",),
                             fn=functools.partial(pv, c=c),
                             flops=2 * bq * ck * d,
-                            src=f"pv_tile(S{c}, V{c}, acc);"))
+                            src=f"pv_tile(S[{c}], V{c}, acc);" if mma
+                            else f"pv_tile(S{c}, V{c}, acc);"))
 
     def accumulate(env):
         acc = env["corr"] * env["acc_prev"]
@@ -192,7 +207,8 @@ def make_program(*, bq: int, bk: int, n_chunks: int, d: int, sq: int,
                         inputs=("acc_new", "l_new"), outputs=(),
                         fn=st_o, buffer="o", is_store=True,
                         bytes=bq * d * esize,
-                        src="if (last) store_o(op, acc, l_s, q0, sq);"))
+                        src="if (last) store_o(op, acc, l_r, q0, sq);" if mma
+                        else "if (last) store_o(op, acc, l_s, q0, sq);"))
     return Program(instrs, replications=replications)
 
 
@@ -246,68 +262,115 @@ class FlashKernel:
         self._kernels: dict[int, _build.Kernel] = {}
 
     @property
+    def mma(self) -> bool:
+        """bf16 runs the tensor-core kernel (``csrc/flash_attention.cu``),
+        float32 the FMA kernel (``csrc/flash_attention_f32.cu``)."""
+        return self.dtype == "bfloat16"
+
+    @property
     def threads(self) -> int:
+        if self.mma:
+            return 2 * -(-self.bq // 16) * 16   # a warp per 16-row strip
         return 256 if self.bq >= 16 else 128
 
     # ------------------------------------------------------------ CUDA face
     def source(self) -> tuple[str, int]:
         """The emitted CUDA text of this schedule and its shared memory in
-        bytes; raises ``UnassemblableSchedule`` when that exceeds a block."""
+        bytes; raises ``UnassemblableSchedule`` when that exceeds a block or
+        (bf16) a warp's scores and output do not fit its registers."""
         if self._text is None:
-            bq, d, nch = self.bq, self.d, self.n_chunks
-            ck = self.bk // nch
-            esize = 4 if self.dtype == "float32" else 2
-            pad = 4 // esize          # one 32-bit word per row: no conflicts
-            ldq = ldk = d + pad
-            lds = ck + 1
-            buffer_of = {"q": "Q"}
-            for c in range(nch):
-                buffer_of.update({f"k{c}": f"K{c}", f"v{c}": f"V{c}"})
-                for v in ("s", "sm", "mask", "p"):
-                    buffer_of[f"{v}{c}"] = f"S{c}"
-            for v in ("m_prev", "l_prev", "m_new", "l_new", "corr"):
-                buffer_of[v] = "STATS"
-            sizes = {"Q": bq * ldq * esize, "STATS": 3 * bq * 4}
-            for c in range(nch):
-                sizes.update({f"K{c}": ck * ldk * esize,
-                              f"V{c}": ck * d * esize, f"S{c}": bq * lds * 4})
-            plan = plan_shared(self.program, self.order, buffer_of, sizes,
-                               pinned=("Q", "STATS"))
-            _build.check_smem(FUNCTION, plan.total)
-            body = self.program.emit(self.order,
-                                     before=SyncPlanner(plan, buffer_of))
-            nt = self.threads
-            # thread grids: (QK_TR x QK_TC) over a score chunk's (rows,
-            # keys), tiled only when it fills the block; (TR x TC) over the
-            # output's (rows, columns), which owns the acc registers
-            qk_tc = divisor_at_most(ck, 16)
-            qk_tr = divisor_at_most(bq, nt // qk_tc)
-            tc = divisor_at_most(d, 32)
-            tr = divisor_at_most(bq, nt // tc)
-            defines = {"T": CTYPES[self.dtype], "BQ": bq, "BK": self.bk,
-                       "CK": ck, "NCH": nch, "D": d, "NT": nt,
-                       "QK_TILED": int(qk_tr * qk_tc == nt), "QK_TR": qk_tr,
-                       "QK_TC": qk_tc, "QK_TM": bq // qk_tr,
-                       "QK_TN": ck // qk_tc, "TR": tr, "TC": tc,
-                       "TM": bq // tr, "TN": d // tc, "LDQ": ldq, "LDK": ldk,
-                       "LDS": lds, "CAUSAL": int(self.causal),
-                       "WINDOW": self.window or 0,
-                       "SCALE": cfloat(float(torch.tensor(d ** -0.5)))}
-            ctype = {b: "float" if b.startswith(("S", "STATS")) else "T"
-                     for b in sizes}
-            text = emit_kernel(
-                _build.template("sip_common.cuh")
-                + _build.template("flash_attention.cu"), defines,
-                buffer_decls(plan, ctype), body)
-            self._text = (text, plan.total)
+            self._text = self._source_mma() if self.mma \
+                else self._source_f32()
         return self._text
 
-    def _launch(self, q: torch.Tensor, k: torch.Tensor,
-                v: torch.Tensor) -> torch.Tensor:
+    def _defines(self) -> dict:
+        return {"T": CTYPES[self.dtype], "BQ": self.bq, "BK": self.bk,
+                "CK": self.bk // self.n_chunks, "NCH": self.n_chunks,
+                "D": self.d, "NT": self.threads, "CAUSAL": int(self.causal),
+                "WINDOW": self.window or 0,
+                "SCALE": cfloat(float(torch.tensor(self.d ** -0.5)))}
+
+    def _source_mma(self) -> tuple[str, int]:
+        bq, d, nch = self.bq, self.d, self.n_chunks
+        if d % 8:
+            raise UnassemblableSchedule(f"{FUNCTION}: head_dim {d} is not a "
+                                        f"multiple of 8 (16-byte copies)")
+        ck = self.bk // nch
+        bqp, ckp, dp = (-(-x // 16) * 16 for x in (bq, ck, d))
+        ld = dp + 8                   # a 16-byte pad per row: no conflicts
+        # a thread keeps two rows of every score chunk and of the output
+        _build.check_regs(FUNCTION, self.threads, nch * ckp // 2 + dp // 2)
+        buffer_of = {"q": "Q"}
+        for c in range(nch):
+            buffer_of.update({f"k{c}": f"K{c}", f"v{c}": f"V{c}"})
+        sizes = {"Q": bqp * ld * 2}
+        for c in range(nch):
+            sizes.update({f"K{c}": ckp * ld * 2, f"V{c}": ckp * ld * 2})
+        plan = plan_shared(self.program, self.order, buffer_of, sizes,
+                           pinned=("Q",))
+        _build.check_smem(FUNCTION, plan.total)
+        body = self.program.emit(self.order,
+                                 before=AsyncPlanner(plan, buffer_of))
+        defines = {**self._defines(), "BQP": bqp, "CKP": ckp, "DP": dp,
+                   "LD": ld, "NTK": ckp // 8, "NTD": dp // 8}
+        text = emit_kernel(
+            _build.template("sip_common.cuh")
+            + _build.template("flash_attention.cu"), defines,
+            buffer_decls(plan, {b: "T" for b in sizes}), body)
+        return text, plan.total
+
+    def _source_f32(self) -> tuple[str, int]:
+        bq, d, nch = self.bq, self.d, self.n_chunks
+        ck = self.bk // nch
+        ldq = ldk = d + 1             # one word per row: no conflicts
+        lds = ck + 1
+        buffer_of = {"q": "Q"}
+        for c in range(nch):
+            buffer_of.update({f"k{c}": f"K{c}", f"v{c}": f"V{c}"})
+            for v in ("s", "sm", "mask", "p"):
+                buffer_of[f"{v}{c}"] = f"S{c}"
+        for v in ("m_prev", "l_prev", "m_new", "l_new", "corr"):
+            buffer_of[v] = "STATS"
+        sizes = {"Q": bq * ldq * 4, "STATS": 3 * bq * 4}
+        for c in range(nch):
+            sizes.update({f"K{c}": ck * ldk * 4, f"V{c}": ck * d * 4,
+                          f"S{c}": bq * lds * 4})
+        plan = plan_shared(self.program, self.order, buffer_of, sizes,
+                           pinned=("Q", "STATS"))
+        _build.check_smem(FUNCTION, plan.total)
+        body = self.program.emit(self.order,
+                                 before=SyncPlanner(plan, buffer_of))
+        nt = self.threads
+        # thread grids: (QK_TR x QK_TC) over a score chunk's (rows, keys),
+        # tiled only when it fills the block; (TR x TC) over the output's
+        # (rows, columns), which owns the acc registers
+        qk_tc = divisor_at_most(ck, 16)
+        qk_tr = divisor_at_most(bq, nt // qk_tc)
+        tc = divisor_at_most(d, 32)
+        tr = divisor_at_most(bq, nt // tc)
+        defines = {**self._defines(),
+                   "QK_TILED": int(qk_tr * qk_tc == nt), "QK_TR": qk_tr,
+                   "QK_TC": qk_tc, "QK_TM": bq // qk_tr, "QK_TN": ck // qk_tc,
+                   "TR": tr, "TC": tc, "TM": bq // tr, "TN": d // tc,
+                   "LDQ": ldq, "LDK": ldk, "LDS": lds}
+        ctype = {b: "float" if b.startswith(("S", "STATS")) else "T"
+                 for b in sizes}
+        text = emit_kernel(
+            _build.template("sip_common.cuh")
+            + _build.template("flash_attention_f32.cu"), defines,
+            buffer_decls(plan, ctype), body)
+        return text, plan.total
+
+    def _launch(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                kv_len: int) -> torch.Tensor:
         global launches
         _check(q, k, v, self.dtype, self.d)
         b, hq, sq, d = q.shape
         _, hkv, skv, _ = k.shape
+        if self.mma and any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("flash_attention: q, k and v must start on "
+                             "16-byte boundaries (the kernel copies 16 bytes "
+                             "at a time)")
         dev = q.device.index if q.device.index is not None \
             else torch.cuda.current_device()
         kern = self._kernels.get(dev)
@@ -323,13 +386,14 @@ class FlashKernel:
                              ctypes.c_void_p(v.data_ptr()),
                              ctypes.c_void_p(out.data_ptr()),
                              ctypes.c_int(hq), ctypes.c_int(hkv),
-                             ctypes.c_int(sq), ctypes.c_int(skv)])
+                             ctypes.c_int(sq), ctypes.c_int(skv),
+                             ctypes.c_int(kv_len)])
             launches += 1
         return out
 
     # ------------------------------------------------------------- CPU face
-    def _execute(self, q: torch.Tensor, k: torch.Tensor,
-                 v: torch.Tensor) -> torch.Tensor:
+    def _execute(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_len: int) -> torch.Tensor:
         b, hq, sq, d = q.shape
         _, hkv, skv, _ = k.shape
         bq, bk = self.bq, self.bk
@@ -354,28 +418,38 @@ class FlashKernel:
                          "k_ref": kf[kvh:kvh + 1, j * bk:(j + 1) * bk],
                          "v_ref": vf[kvh:kvh + 1, j * bk:(j + 1) * bk],
                          "o_ref": out[bh:bh + 1, i * bq:(i + 1) * bq],
-                         "i": i, "j": j, "nkv": nkv, **scratch}, self.order)
+                         "i": i, "j": j, "nkv": nkv, "kv_len": kv_len,
+                         **scratch}, self.order)
         return out.reshape(b, hq, sq, d)
 
-    def __call__(self, q: torch.Tensor, k: torch.Tensor,
-                 v: torch.Tensor) -> torch.Tensor:
+    def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_len: int | None = None) -> torch.Tensor:
+        """Attention over the first ``kv_len`` keys (all of them when None):
+        keys at or past it are masked, as a padded call needs."""
+        kv_len = k.shape[2] if kv_len is None else kv_len
+        if not 0 < kv_len <= k.shape[2]:
+            raise ValueError(f"flash_attention: kv_len {kv_len} outside "
+                             f"(0, {k.shape[2]}]")
         if all(t.device.type == "cpu" for t in (q, k, v)):
-            return self._execute(q, k, v)
-        return self._launch(q, k, v)
+            return self._execute(q, k, v, kv_len)
+        return self._launch(q, k, v, kv_len)
 
 
 def padded(kern, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool) -> torch.Tensor:
-    """``kern(q, k, v)``, a causal call's sequences padded at the end to a
-    multiple of :data:`SEQ_TILE` and the padded query rows dropped.  Both
-    lengths grow by the same amount, so every real query row keeps its
-    diagonal and the padded keys, which lie after it, stay masked."""
-    pad = -q.shape[2] % SEQ_TILE if causal else 0
+    """``kern(q, k, v)``, the sequences padded at the end to a multiple of
+    :data:`SEQ_TILE` and the padded query rows dropped.  Both lengths grow
+    by the same amount, so every real query row keeps its position.  A
+    causal call's padded keys lie after every real row's diagonal and stay
+    masked; a bidirectional call passes its real key length, at or past
+    which the kernel masks keys."""
+    pad = -q.shape[2] % SEQ_TILE
     if not pad or not all(t.is_contiguous() for t in (q, k, v)):
         return kern(q, k, v)     # as given: the kernel rejects a strided view
     q2, k2, v2 = (torch.nn.functional.pad(t, (0, 0, 0, pad))
                   for t in (q, k, v))
-    return kern(q2, k2, v2)[:, :, :q.shape[2]]
+    kw = {} if causal else {"kv_len": k.shape[2]}
+    return kern(q2, k2, v2, **kw)[:, :, :q.shape[2]]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -23,10 +23,11 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.core.energy import UnassemblableSchedule
 from repro_torch.core.ir import Instr, Kind, Program
 from repro_torch.core.testing import dtype_name
 from repro_torch.kernels import _build
-from repro_torch.kernels._emit import (SyncPlanner, buffer_decls, cfloat,
+from repro_torch.kernels._emit import (AsyncPlanner, buffer_decls, cfloat,
                                        divisor_at_most, emit_kernel,
                                        plan_shared)
 
@@ -35,11 +36,10 @@ SOURCE = "src/repro_torch/csrc/gemm_fused.cu"
 REPLACES = "src/repro/kernels/gemm_fused/kernel.py:89"
 FUNCTION = "gemm_fused_leaky_relu"
 CTYPES = {"float32": "float", "bfloat16": "bf16_t"}
-MAX_THREADS = 256
 
 launches = 0
 
-_LOOP_IJ = "for (int i = 0; i < TM; ++i) for (int j = 0; j < TN; ++j) "
+_LOOP_I = "for (int i = 0; i < NACC; ++i) "
 
 
 def make_program(*, m: int, n: int, k: int, bm: int, bn: int, bk: int,
@@ -63,16 +63,18 @@ def make_program(*, m: int, n: int, k: int, bm: int, bn: int, bk: int,
     instrs.append(Instr(name="init_acc", kind=Kind.COMPUTE, inputs=(),
                         outputs=("acc0",),
                         fn=lambda env: {"acc0": torch.zeros((bm, bn))},
-                        flops=0, src=_LOOP_IJ + "acc[i][j] = 0.f;"))
+                        flops=0, src=_LOOP_I + "acc[i] = 0.f;"))
     for s in range(k_steps):
         instrs.append(Instr(name=f"ld_x{s}", kind=Kind.MEM, inputs=(),
                             outputs=(f"x{s}",), fn=functools.partial(ld_x, s=s),
                             buffer="x", bytes=bm * bk * esize,
-                            src=f"load_x(x, X{s}, row0, {s * bk}, m);"))
+                            src=f"load_x(x, X{s}, row0, {s * bk}); "
+                                "cp_async_commit();"))
         instrs.append(Instr(name=f"ld_w{s}", kind=Kind.MEM, inputs=(),
                             outputs=(f"w{s}",), fn=functools.partial(ld_w, s=s),
                             buffer="w", bytes=bk * bn * esize,
-                            src=f"load_w(w, W{s}, {s * bk}, col0, n);"))
+                            src=f"load_w(w, W{s}, {s * bk}, col0, n); "
+                                "cp_async_commit();"))
         instrs.append(Instr(name=f"dot{s}", kind=Kind.COMPUTE,
                             inputs=(f"x{s}", f"w{s}", f"acc{s}"),
                             outputs=(f"acc{s + 1}",),
@@ -88,8 +90,8 @@ def make_program(*, m: int, n: int, k: int, bm: int, bn: int, bk: int,
     instrs.append(Instr(name="leaky_relu", kind=Kind.COMPUTE,
                         inputs=(acc_final,), outputs=("y",), fn=epilogue,
                         flops=bm * bn,
-                        src=_LOOP_IJ + "acc[i][j] = acc[i][j] >= 0.f ? "
-                                       "acc[i][j] : ALPHA * acc[i][j];"))
+                        src=_LOOP_I + "acc[i] = acc[i] >= 0.f ? acc[i] : "
+                                      "ALPHA * acc[i];"))
 
     def store(env):
         env["o_ref"][...] = env["y"]
@@ -98,16 +100,37 @@ def make_program(*, m: int, n: int, k: int, bm: int, bn: int, bk: int,
     instrs.append(Instr(
         name="st_o", kind=Kind.MEM, inputs=("y",), outputs=(), fn=store,
         buffer="o", is_store=True, bytes=bm * bn * esize,
-        src=_LOOP_IJ + "{ const int r = row0 + ty + TR * i, "
-                       "c = col0 + tx + TC * j; if (r < m && c < n) "
-                       "o[(size_t)r * n + c] = from_f<T>(acc[i][j]); }"))
+        src="store_o(o, acc, row0, col0, m, n);"))
     return Program(instrs, replications=(m // bm) * (n // bn))
 
 
-def thread_grid(bm: int, bn: int) -> tuple[int, int]:
-    """(TR, TC): threads along the tile's rows and columns."""
-    tc = divisor_at_most(bn, 16)
-    return divisor_at_most(bm, max(MAX_THREADS // tc, 1)), tc
+def tile_layout(bm: int, bn: int, bk: int, dtype: str) -> dict:
+    """The CUDA face's ``#define``s for a (bm, bn, bk) tile, with ``NT``
+    threads, ``NACC`` accumulators a thread and the bytes of one X and one
+    W buffer (``x_bytes``, ``w_bytes``).
+
+    bf16 runs wgmma: one warpgroup per 64 rows and per 256 columns, rows
+    zero-filled to a multiple of 64 and K to one of 16.  f32 runs 3xTF32 on
+    mma.sync m16n8k8: up to 4 x 2 warps, each owning MT x NTL tiles of
+    16 x 8, rows zero-filled to a multiple of 16.  Both copy 16 bytes at a
+    time and take bn and bk in multiples of 8."""
+    if dtype == "bfloat16":
+        mp, kp = -(-bm // 64) * 64, -(-bk // 16) * 16
+        wm, wn = mp // 64, -(-bn // 256)
+        bnw = bn // wn
+        return {"GEMM_WGMMA": 1, "MP": mp, "KP": kp, "WM": wm, "WN": wn,
+                "BNW": bnw, "NACC": bnw // 2, "NT": 128 * wm * wn,
+                "A_LBO": 128, "A_SBO": 16 * kp, "B_LBO": 16 * bn,
+                "B_SBO": 128, "x_bytes": mp * kp * 2, "w_bytes": kp * bn * 2}
+    mp = -(-bm // 16) * 16
+    wr = divisor_at_most(mp // 16, 4)
+    wc = divisor_at_most(bn // 8, 8 // wr)
+    mt, ntl = mp // 16 // wr, bn // 8 // wc
+    ldx, ldw = bk + 4, bn + 8
+    return {"GEMM_WGMMA": 0, "MP": mp, "WR": wr, "WC": wc, "MT": mt,
+            "NTL": ntl, "NACC": 4 * mt * ntl, "NT": 32 * wr * wc,
+            "LDX": ldx, "LDW": ldw, "x_bytes": mp * ldx * 4,
+            "w_bytes": bk * ldw * 4, "frag_regs": 8 * mt}
 
 
 class GemmKernel:
@@ -133,28 +156,37 @@ class GemmKernel:
         self._kernels: dict[int, _build.Kernel] = {}
 
     # ------------------------------------------------------------ CUDA face
+    @property
+    def layout(self) -> dict:
+        return tile_layout(self.bm, self.bn, self.bk, self.dtype)
+
     def source(self) -> tuple[str, int]:
         """The emitted CUDA text of this schedule and its shared memory in
-        bytes; raises ``UnassemblableSchedule`` when that exceeds a block."""
+        bytes; raises ``UnassemblableSchedule`` when that exceeds a block or
+        the accumulator does not fit the registers of its threads."""
         if self._text is None:
-            bm, bn, bk = self.bm, self.bn, self.bk
-            esize = 4 if self.dtype == "float32" else 2
-            pad = 4 // esize          # one 32-bit word per row: no conflicts
-            ldx, ldw = bk + pad, bn + pad
-            steps = self.k // bk
+            if self.bn % 8 or self.bk % 8:
+                raise UnassemblableSchedule(
+                    f"{FUNCTION}: tiles ({self.bm}, {self.bn}, {self.bk}): "
+                    f"bn and bk must be multiples of 8")
+            lay = self.layout
+            _build.check_regs(FUNCTION, lay["NT"], lay["NACC"]
+                              + lay.get("frag_regs", 0))
+            steps = self.k // self.bk
             buffer_of = {f"x{s}": f"X{s}" for s in range(steps)}
             buffer_of.update({f"w{s}": f"W{s}" for s in range(steps)})
-            sizes = {f"X{s}": bm * ldx * esize for s in range(steps)}
-            sizes.update({f"W{s}": bk * ldw * esize for s in range(steps)})
+            sizes = {f"X{s}": lay["x_bytes"] for s in range(steps)}
+            sizes.update({f"W{s}": lay["w_bytes"] for s in range(steps)})
             plan = plan_shared(self.program, self.order, buffer_of, sizes)
             _build.check_smem(FUNCTION, plan.total)
-            body = self.program.emit(self.order,
-                                     before=SyncPlanner(plan, buffer_of))
-            tr, tc = thread_grid(bm, bn)
-            defines = {"T": CTYPES[self.dtype], "BM": bm, "BN": bn, "BK": bk,
-                       "KDIM": self.k, "LDX": ldx, "LDW": ldw, "TR": tr,
-                       "TC": tc, "TM": bm // tr, "TN": bn // tc,
-                       "NT": tr * tc, "ALPHA": cfloat(ALPHA)}
+            wgmma = frozenset(f"dot{s}" for s in range(steps)) \
+                if lay["GEMM_WGMMA"] else frozenset()
+            body = self.program.emit(self.order, before=AsyncPlanner(
+                plan, buffer_of, proxy_readers=wgmma))
+            defines = {"T": CTYPES[self.dtype], "BM": self.bm, "BN": self.bn,
+                       "BK": self.bk, "KDIM": self.k, "ALPHA": cfloat(ALPHA),
+                       **{k: v for k, v in lay.items()
+                          if k.isupper()}}
             text = emit_kernel(
                 _build.template("sip_common.cuh")
                 + _build.template("gemm_fused.cu"), defines,
@@ -180,6 +212,10 @@ class GemmKernel:
             raise ValueError(f"gemm_fused: x {tuple(x.shape)} w "
                              f"{tuple(w.shape)} do not fit this schedule "
                              f"(K {self.k}, tiles {self.bm} x {self.bn})")
+        if (x.data_ptr() | w.data_ptr()) % 16:
+            raise ValueError("gemm_fused: x and w must start on 16-byte "
+                             "boundaries (the kernel copies 16 bytes at a "
+                             "time)")
         dev = x.device.index if x.device.index is not None \
             else torch.cuda.current_device()
         kern = self._kernels.get(dev)
@@ -187,9 +223,8 @@ class GemmKernel:
             text, smem = self.source()
             kern = self._kernels[dev] = _build.load(FUNCTION, text, smem, dev)
         out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-        tr, tc = thread_grid(self.bm, self.bn)
         with torch.cuda.device(x.device):
-            kern.launch((m // self.bm, n // self.bn, 1), tr * tc,
+            kern.launch((m // self.bm, n // self.bn, 1), self.layout["NT"],
                         [ctypes.c_void_p(x.data_ptr()),
                          ctypes.c_void_p(w.data_ptr()),
                          ctypes.c_void_p(out.data_ptr()),

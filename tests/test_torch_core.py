@@ -117,6 +117,115 @@ def test_hoisted_order_needs_more_shared_memory_and_is_rejected_past_227kb():
         tgemm.GemmKernel(**kw, order=order).source()
 
 
+def replay_async_groups(program, text):
+    """Replay the cp.async group queue of an emitted body: each MEM load's
+    ``cp_async_commit();`` pushes a group holding the buffers it fills
+    (buffer = value name upper-cased), ``cp_async_wait<N>();`` completes all
+    but the newest N groups, and every instruction that reads a loaded
+    buffer must find its group complete.  Also checks that each load's
+    snippet ends in exactly one commit outside any condition.  Returns the
+    number of reads checked."""
+    by_name = {ins.name: ins for ins in program.instrs}
+    loads = [ins for ins in program.instrs
+             if ins.kind is Kind.MEM and not ins.is_store]
+    for ins in loads:
+        stmts = [st.strip() for st in ins.src.split(";") if st.strip()]
+        assert stmts[-1] == "cp_async_commit()", ins.src
+        assert ins.src.count("cp_async_commit();") == 1 and "{" not in ins.src
+    groups, done, group_of, reads, current = [], 0, {}, 0, None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("// ") and line[3:] in by_name:
+            current = by_name[line[3:]]
+            for v in current.inputs:
+                if v.upper() in group_of:
+                    assert group_of[v.upper()] < done, (current.name, v)
+                    reads += 1
+        elif line.startswith("cp_async_wait<"):
+            done = max(done, len(groups) - int(line[14:line.index(">")]))
+        elif "cp_async_commit();" in line:
+            for v in current.outputs:
+                group_of[v.upper()] = len(groups)
+            groups.append(current.name)
+    assert sorted(groups) == sorted(ins.name for ins in loads)
+    return reads
+
+
+def check_schedules(name, static, seed, replay=True):
+    """At every knob point of ``name``'s space at ``static`` and the default
+    (seed None) or a seeded random legal order: the schedule assembles
+    within a block's shared memory or raises UnassemblableSchedule, and an
+    assembled one waits for every group before reading it."""
+    spec = tregistry.spec(name)
+    space = spec.space_for(**static)
+    names = [k.name for k in space.knobs]
+    built = rejected = 0
+    for point in itertools.product(*[k.choices for k in space.knobs]):
+        knobs = dict(zip(names, point))
+        prog = spec.program_for(tcore.Schedule(knobs=knobs), **static)
+        order = None if seed is None else _emit.random_legal_order(prog, seed)
+        kern = spec.build(tcore.Schedule(knobs=knobs, order=order), **static)
+        try:
+            text, smem = kern.source()
+        except UnassemblableSchedule:
+            rejected += 1
+            continue
+        assert smem <= 232_448
+        if replay:
+            assert replay_async_groups(kern.program, text) > 0, knobs
+        built += 1
+    return built, rejected
+
+
+@pytest.mark.parametrize("seed", [None, 1, 2, 3, 4, 5])
+@pytest.mark.parametrize("static", [
+    dict(m=512, n=512, k=2048, dtype="bfloat16"),
+    dict(m=16, n=16, k=32, dtype="bfloat16"),
+    dict(m=16, n=16, k=32, dtype="float32")],
+    ids=["paper_bf16", "smoke_bf16", "smoke_f32"])
+def test_gemm_schedules_assemble_or_reject_and_wait_for_their_groups(static,
+                                                                     seed):
+    built, rejected = check_schedules("gemm_fused_leaky_relu", static, seed)
+    assert built > 0
+    if static["m"] == 512:
+        assert rejected > 0       # bm = bn = 512 cannot hold its accumulator
+
+
+def test_gemm_default_assembles_at_every_workload_and_the_paper_shape():
+    spec = tregistry.spec("gemm_fused_leaky_relu")
+    statics = [_static("gemm_fused_leaky_relu", w.name)
+               for w in spec.workloads]
+    statics.append(dict(m=512, n=512, k=2048, dtype="bfloat16"))
+    for static in statics:
+        for dtype in ("float32", "bfloat16"):
+            kern = spec.build(tcore.Schedule(), **{**static, "dtype": dtype})
+            assert kern.source()[1] <= 232_448, static
+
+
+def test_gemm_tile_too_large_for_its_registers_is_rejected_and_counted():
+    from repro_torch.kernels import _build
+    before = _build.STATS.reg_rejections
+    for dtype in ("bfloat16", "float32"):
+        with pytest.raises(UnassemblableSchedule, match="registers"):
+            tgemm.GemmKernel(m=512, n=512, k=2048, bm=512, bn=512, bk=64,
+                             dtype=dtype).source()
+    assert _build.STATS.reg_rejections == before + 2
+
+
+def test_bf16_gemm_pads_small_tiles_and_fences_wgmma_reads():
+    kern = tgemm.GemmKernel(m=16, n=16, k=32, bm=8, bn=8, bk=8,
+                            dtype="bfloat16")
+    text, smem = kern.source()
+    lay = kern.layout
+    # 8 rows and 8 k zero-filled to the instruction's 64 x 16: per step one
+    # 64 x 16 X tile and one 16 x 8 W tile
+    assert (lay["MP"], lay["KP"], lay["BNW"], lay["NT"]) == (64, 16, 8, 128)
+    assert smem == 64 * 16 * 2 + 16 * 8 * 2
+    body = text[text.index("// init_acc"):]
+    assert body.count("fence_proxy_async();") == 4    # one per dot
+    assert body.index("fence_proxy_async();") < body.index("// dot0")
+
+
 def test_random_legal_orders_are_legal_and_seeded():
     prog = tregistry.spec("flash_attention_causal").program_for(
         tcore.Schedule(), **_static("flash_attention_causal",

@@ -1,7 +1,9 @@
 """The port's CUDA kernels and engine on the card: each emitted kernel
 against its plain version at the default and at seeded random legal orders
 (the SSD intra-chunk kernel at the model's widths, RMSNorm at every point
-of its knob space),
+of its knob space, the tensor-core gemm at tiles smaller than its
+instructions and at the paper's shape with a hoisted order, bf16 flash at
+an ld_v-hoisted order, padded bidirectional flash calls),
 the gather's wrap of negative page ids, and a paged engine run on the card
 token-identical to the same run on the CPU.  Marked ``cuda``: they skip without a card.  On the GPU
 machine:
@@ -226,3 +228,94 @@ def test_rmsnorm_kernel_matches_plain_at_every_knob_point(cuda, dtype, tol):
                 got = kern(x, g).float()
                 assert (got - want).abs().max().item() <= \
                     tol * max(1.0, want.abs().max().item() / 8)
+
+
+def _close(got, want, dtype):
+    """Within the chip smoke's tolerance: fp32 1e-4, bf16 2e-2 (rtol and
+    atol)."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    g, w = got.float(), want.float()
+    return bool(torch.isfinite(g).all()) and bool(
+        ((g - w).abs() <= tol + tol * w.abs()).all())
+
+
+def _hoisted(prog, steps):
+    order = [0, 1, 2]
+    for s in range(steps):
+        if s + 1 < steps:
+            order += [1 + 3 * (s + 1), 2 + 3 * (s + 1)]
+        order.append(3 + 3 * s)
+    return tuple(order + [i for i in prog.default_order() if i not in order])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,k,bm,bn,bk,hoist", [
+    (64, 64, 128, 8, 8, 8, False), (16, 16, 32, 16, 16, 32, False),
+    (64, 64, 128, 32, 64, 16, True), (512, 512, 2048, 128, 128, 128, False),
+    (512, 512, 2048, 64, 64, 64, True)])
+def test_tensor_core_gemm_matches_plain(cuda, dtype, m, n, k, bm, bn, bk,
+                                        hoist):
+    """wgmma (bf16) and 3xTF32 mma.sync (f32) at tiles zero-filled to the
+    instruction's shape and at the paper's shape, default or hoisted."""
+    g = torch.Generator(device=cuda).manual_seed(m + bm)
+    x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+    w = torch.randn((k, n), generator=g, device=cuda).to(dtype)
+    kern = gf.GemmKernel(m=m, n=n, k=k, bm=bm, bn=bn, bk=bk, dtype=dtype)
+    if hoist:
+        kern = gf.GemmKernel(m=m, n=n, k=k, bm=bm, bn=bn, bk=bk, dtype=dtype,
+                             order=_hoisted(kern.program, k // bk))
+    before = gf.launches
+    got = kern(x, w)
+    assert gf.launches == before + 1
+    assert _close(got, gf_ref.gemm_leaky_relu(x, w), dtype)
+
+
+def test_gemm_tile_that_no_block_can_hold_is_rejected(cuda):
+    from repro_torch.core.energy import UnassemblableSchedule
+    x = torch.zeros((512, 2048), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((2048, 512), device=cuda, dtype=torch.bfloat16)
+    kern = gf.GemmKernel(m=512, n=512, k=2048, bm=512, bn=512, bk=64,
+                         dtype=torch.bfloat16)
+    before = gf.launches
+    with pytest.raises(UnassemblableSchedule):
+        kern(x, w)
+    assert gf.launches == before
+
+
+@pytest.mark.parametrize("order", ["v_hoisted", 1, 2])
+def test_bf16_flash_matches_plain_at_reordered_loads(cuda, order):
+    from repro_torch.core import Schedule
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    st = dict(b=4, hq=16, hkv=8, sq=128, skv=128, d=128, causal=True,
+              window=None, dtype="bfloat16")
+    prog = fa_ops.build(Schedule(), **st).program
+    if order == "v_hoisted":
+        names = [ins.name for ins in prog.instrs]
+        o = [i for i in prog.default_order()
+             if not names[i].startswith("ld_v")]
+        for c in range(2):
+            o.insert(o.index(names.index(f"ld_k{c}")) + 1,
+                     names.index(f"ld_v{c}"))
+    else:
+        o = random_legal_order(prog, order)
+    kern = fa_ops.build(Schedule(order=tuple(o)), **st)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((4, 16, 128, 128), generator=g, device=cuda).bfloat16()
+    k = torch.randn((4, 8, 128, 128), generator=g, device=cuda).bfloat16()
+    v = torch.randn((4, 8, 128, 128), generator=g, device=cuda).bfloat16()
+    assert _close(kern(q, k, v), fa_ref.attention(q, k, v), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [37, 501])
+def test_padded_bidirectional_flash_matches_plain(cuda, dtype, s):
+    """The model's bidirectional calls are padded to a multiple of 64 and
+    pass their real key length; the kernel masks the padded keys."""
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q = torch.randn((2, 4, s, 64), generator=g, device=cuda).to(dtype)
+    k = torch.randn((2, 2, s, 64), generator=g, device=cuda).to(dtype)
+    v = torch.randn((2, 2, s, 64), generator=g, device=cuda).to(dtype)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=False)
+    assert fa.launches == before + 1
+    assert _close(got, fa_ref.attention(q, k, v, causal=False), dtype)

@@ -76,8 +76,9 @@ def test_build_targets_hopper():
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert {"-cubin", "-O3", "-std=c++17"} <= set(cmd)
     templates = {p.name for p in _build.CSRC.glob("*.cu")}
-    assert templates == {"flash_attention.cu", "gemm_fused.cu",
-                         "paged_gather.cu", "rmsnorm.cu", "ssd_intra.cu"}
+    assert templates == {"flash_attention.cu", "flash_attention_f32.cu",
+                         "gemm_fused.cu", "paged_gather.cu", "rmsnorm.cu",
+                         "ssd_intra.cu"}
     for name in templates:
         text = _build.template(name)
         assert "/*@BODY@*/" in text and "sm_90a" in text

@@ -125,8 +125,13 @@ def test_padded_causal_call_matches_plain(sq, skv, window):
     want = fa_ref.attention(q, k, v, causal=True, window=window)
     assert seen == [(1, 4, -(-sq // fa.SEQ_TILE) * fa.SEQ_TILE, 8)]
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
-    # a bidirectional call is never padded: padded keys would be visible
-    assert fa.padded(lambda *a: a[0], q, k, v, causal=False) is q
+    # a bidirectional call is padded too and passes its real key length,
+    # past which the kernel masks the padded keys
+    given = []
+    got = fa.padded(lambda *a, **kw: given.append((a[2].shape[2], kw)) or a[0],
+                    q, k, v, causal=False)
+    assert given == [(skv + seen[0][2] - sq, {"kv_len": skv})]
+    assert torch.equal(got, q)
     # nor is a strided view, which the kernel rejects as it was given
     qt = q.transpose(2, 3)
     assert fa.padded(lambda *a: a[0], qt, k, v, causal=True) is qt
@@ -146,3 +151,72 @@ def test_default_schedule_assembles_at_every_padded_length(dtype, d):
                             d=d, causal=True, window=None, dtype=dtype)
         assert kern.bq >= fa.SEQ_TILE, s
         assert kern.source()[1] <= 232_448, s
+
+
+FLASH_SERVE = dict(b=4, hq=16, hkv=8, sq=128, skv=128, d=128, causal=True,
+                   window=None, dtype="bfloat16")
+
+
+@pytest.mark.parametrize("seed", [None, 1, 2, 3, 4, 5])
+@pytest.mark.parametrize("case", ["serve_bf16", "smoke_bf16", "smoke_f32"])
+def test_flash_schedules_assemble_or_reject_and_wait_for_their_groups(case,
+                                                                      seed):
+    """At every knob point, the default and 5 random legal orders: each
+    schedule assembles within a block or raises UnassemblableSchedule; the
+    bf16 kernel's cp.async groups are complete before every read (the
+    float32 kernel loads synchronously)."""
+    from tests.test_torch_core import check_schedules
+    if case == "serve_bf16":
+        static = FLASH_SERVE
+    else:
+        _, static = _smoke("flash_attention_causal")
+        static = {**static, "dtype": case.split("_")[1].replace(
+            "bf16", "bfloat16").replace("f32", "float32")}
+    built, _ = check_schedules("flash_attention_causal", static, seed,
+                               replay=static["dtype"] == "bfloat16")
+    assert built > 0
+
+
+def test_flash_ld_v_hoisted_order_overlaps_v_with_qk():
+    """Hoisting each ld_v{c} next to its ld_k{c} leaves V's group in flight
+    through Q K^T and the softmax: the first wait keeps groups pending, and
+    the order needs more shared memory than the default."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from tests.test_torch_core import replay_async_groups
+    base = fa_ops.build(tcore.Schedule(), **FLASH_SERVE)
+    prog = base.program
+    names = [ins.name for ins in prog.instrs]
+    order = [i for i in prog.default_order()
+             if not names[i].startswith("ld_v")]
+    for c in range(base.n_chunks):
+        order.insert(order.index(names.index(f"ld_k{c}")) + 1,
+                     names.index(f"ld_v{c}"))
+    assert prog.is_legal(order)
+    hoisted = fa_ops.build(tcore.Schedule(order=tuple(order)), **FLASH_SERVE)
+    text, smem = hoisted.source()
+    assert smem > base.source()[1]
+    assert replay_async_groups(prog, text) == 2 * base.n_chunks + 2
+    assert "cp_async_wait<1>();" in text
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [37, 501])
+def test_padded_bidirectional_call_matches_plain(s, dtype):
+    """A bidirectional call at a ragged length reaches the kernel padded to
+    a multiple of SEQ_TILE with its real key length, past which the keys
+    are masked: the CPU face at the padded length equals the plain
+    attention at the real one.  (Unpadded, 501 keys in f32 give the
+    reference space's single 1 x 501 tile.)"""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    rng = np.random.default_rng(s)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(getattr(torch, dtype))
+               for shape in ((1, 2, s, 8), (1, 1, s, 8), (1, 1, s, 8)))
+    got = fa.padded(fa_ops.kernel(False, None), q, k, v, causal=False)
+    want = fa_ref.attention(q, k, v, causal=False)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    tol = TOL if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               **tol)
