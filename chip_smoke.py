@@ -18,7 +18,6 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
-import functools
 import hashlib
 import io
 import itertools
@@ -244,6 +243,35 @@ def split_ms(kern, text: str, x, w) -> float:
         kern.layout["NT"], args))
 
 
+def ssd_split(kern) -> dict[str, str]:
+    """Three measuring copies of an SSD schedule's text, each with one part
+    of a step disabled: its copies (the products and the decay run on
+    whatever shared memory holds), its two products, or its decay and
+    mask.  They time where a step's time goes; their outputs are not
+    used."""
+    text = kern.source()[0]
+    return {"no_copies": text.replace("load_rows(cp,", "if (0) load_rows(cp,")
+            .replace("load_rows(bp,", "if (0) load_rows(bp,")
+            .replace("load_la(lp,", "if (0) load_la(lp,")
+            .replace("load_x(xp,", "if (0) load_x(xp,"),
+            "no_products": text.replace("\ncb_tile(", "\nif (0) cb_tile(")
+            .replace("\ny_tile(", "\nif (0) y_tile("),
+            "no_decay": text.replace("\ndecay_tile(", "\nif (0) decay_tile(")
+            .replace("\nmul_tile(", "\nif (0) mul_tile(")}
+
+
+def ssd_split_ms(kern, text: str, args) -> float:
+    """Device time of one measuring copy of ``kern`` (see ssd_split),
+    launched directly: not counted in ``sk.launches``."""
+    built = _build.load(sk.FUNCTION, text, kern.source()[1])
+    xb = args[0]
+    g, q, h, _ = xb.shape
+    out = torch.empty_like(xb)
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (*args, out)]
+    return cuda_ms(lambda: built.launch(kern.grid(g, q, h, kern.br), sk.NT,
+                                        ptrs + [ctypes.c_int(h)]))
+
+
 GEMM_SHAPES = [(16, 16, 32), (64, 64, 128), (128, 128, 256), (512, 512, 2048)]
 #: knob points of the paper's shape timed at the default and the hoisted
 #: order, bf16
@@ -269,9 +297,11 @@ GATHER_SHAPES = [(8, 8, 2, 8, 2, 4), (64, 16, 4, 32, 8, 8),
                  (257, 16, 8, 128, 8, 32)]
 #: (g, q, h, p, n), float32 as on the model's path: the smoke and deploy
 #: workloads, a 384-token prompt padded to chunks of 64, the serve
-#: prefill's 256-token chunk, and two such chunks
+#: prefill's 256-token chunk, two such chunks, and a head count that the
+#: kernel's head groups do not divide
 SSD_SHAPES = [(2, 8, 2, 4, 8), (4, 16, 4, 8, 16), (6, 64, 80, 64, 128),
-              (1, 256, 80, 64, 128), (2, 256, 80, 64, 128)]
+              (1, 256, 80, 64, 128), (2, 256, 80, 64, 128),
+              (2, 128, 3, 64, 128)]
 #: (rows, d): the smoke and deploy workloads and the model's width
 RMS_SHAPES = [(16, 32), (64, 128), (4096, 2560)]
 
@@ -351,6 +381,8 @@ def phase_build() -> dict:
             rejected += 1
     texts += [(gf.FUNCTION, text) for text in gemm_split(
         gemm_kernel(512, 512, 2048, BF16)).values()]
+    texts += [(sk.FUNCTION, text) for shape in (SSD_SHAPES[3], SSD_SHAPES[2])
+              for text in ssd_split(ssd_kernel(ssd_static(*shape))).values()]
     emit_s = time.perf_counter() - t0
     rejections = {k: getattr(_build.STATS, k)
                   for k in ("smem_rejections", "reg_rejections")}
@@ -367,23 +399,31 @@ def phase_build() -> dict:
     ptxas = {fn: [ln.strip() for ln in _build.build_log(
         fn, kern.source()[0]).splitlines() if "registers" in ln or "spill" in ln]
         for fn, kern in main}
-    # the tensor cores are really used: wgmma is HGMMA in the SASS, mma.sync
-    # HMMA
-    tensor_cores = {}
+    # the designs are really compiled: wgmma is HGMMA in the SASS, mma.sync
+    # HMMA, the SSD's fp64 mma.sync DMMA (its decay's fp64 exp keeps some
+    # DFMA), RMSNorm's 16-byte loads LDG.E.128
+    in_sass = {}
     for label, (fn, kern), want in (
             ("gemm_fused 512x512x2048 bf16", main[0], "HGMMA"),
             ("gemm_fused 512x512x2048 f32",
              (gf.FUNCTION, gemm_kernel(512, 512, 2048, F32)), "HMMA"),
-            ("flash_attention b4 s128 d128 bf16", main[1], "HMMA")):
-        sass = _sass(_build.cubin_path(fn, kern.source()[0]))
-        count = sum(want in ln for ln in sass.splitlines())
+            ("flash_attention b4 s128 d128 bf16", main[1], "HMMA"),
+            ("ssd_intra_chunk g1 q256 h80 f32", main[3], "DMMA"),
+            ("rmsnorm_fused 4096x2560 bf16", main[4], "LDG.E.128")):
+        sass = _sass(_build.cubin_path(fn, kern.source()[0])).splitlines()
+        count = sum(want in ln for ln in sass)
         if not count:
             raise AssertionError(f"{label}: no {want} instruction in its SASS")
-        tensor_cores[label] = {"instruction": want, "count": count}
+        in_sass[label] = {"instruction": want, "count": count}
+        if fn == sk.FUNCTION:
+            in_sass[label]["DFMA"] = sum("DFMA" in ln for ln in sass)
+        if fn == rk.FUNCTION:
+            in_sass[label]["STG.E.128"] = sum("STG.E.128" in ln
+                                                   for ln in sass)
     out = {"texts": len(texts), "distinct_texts": len(set(texts)),
            "smem_rejected": rejected, "emit_s": emit_s, "wall_s": wall,
            **_build.STATS.snapshot(), **rejections,
-           "ptxas_main_shapes": ptxas, "tensor_cores_in_sass": tensor_cores}
+           "ptxas_main_shapes": ptxas, "designs_in_sass": in_sass}
     emit("build", **out)
     return out
 
@@ -705,10 +745,18 @@ def phase_ssd(gen) -> dict:
     timed = {}
     for shape in (SSD_SHAPES[3], SSD_SHAPES[2]):
         args = ssd_inputs(*shape, gen)
+        normal = ssd_inputs(*shape, gen, decaying=False)
         kern = ssd_kernel(ssd_static(*shape))
+        g, q, h = shape[:3]
         bound_ms, bound_by = ssd_bound_ms(*shape)
         timed["g{}_q{}_h{}_p{}_n{}".format(*shape)] = {
+            "heads_per_block": kern.layout["HG"],
+            "grid": list(kern.grid(g, q, h, kern.br)),
+            "smem_bytes": kern.source()[1],
             "ms": cuda_ms(lambda: kern(*args)),
+            "ms_standard_normal_la": cuda_ms(lambda: kern(*normal)),
+            **{f"{key}_ms": ssd_split_ms(kern, text, args)
+               for key, text in ssd_split(kern).items()},
             "plain_ms": cuda_ms(lambda: sk_ref.intra_chunk(*args)),
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
     out = {"cases": results, "standard_normal_la_q256": positive,
@@ -741,18 +789,34 @@ def phase_rmsnorm(gen) -> dict:
     for dt in (BF16, F32):
         x, g = _randn((rows, d), dt, gen), _randn((d,), dt, gen)
         kern = rms_kernel(rms_static(rows, d, dt))
+        # x and y together (42 MB in bf16) fit the 50 MB L2, so the cold
+        # times take 6 inputs (126 MB or more) in turn, as a model's norm
+        # finds its input after other work
+        xs = [_randn((rows, d), dt, gen) for _ in range(6)]
+        turn = itertools.count()
+
+        def cold() -> torch.Tensor:
+            return xs[next(turn) % len(xs)]
+
         timed[_dt(dt)] = {
-            "ms": cuda_ms(lambda: kern(x, g)),
-            "plain_ms": cuda_ms(lambda: rk_ref.rmsnorm(x, g)),
+            "l2": "cold", "grid": kern.grid(rows), "block": kern.threads,
+            "vec": kern.vec,
+            "ms": cuda_ms(lambda: kern(cold(), g)),
+            "plain_ms": cuda_ms(lambda: rk_ref.rmsnorm(cold(), g)),
             "library_ms": cuda_ms(lambda: torch.nn.functional.rms_norm(
+                cold(), (d,), g, rk.EPS)),
+            "ms_warm": cuda_ms(lambda: kern(x, g)),
+            "plain_ms_warm": cuda_ms(lambda: rk_ref.rmsnorm(x, g)),
+            "library_ms_warm": cuda_ms(lambda: torch.nn.functional.rms_norm(
                 x, (d,), g, rk.EPS)),
             "bound_ms": (2 * rows * d + d) * x.element_size() / PEAK_BYTES
             * 1e3, "bound_by": "bytes",
-            "knob_points_ms": {
+            "knob_points_ms_cold": {
                 f"br{k['br']}_nch{k['n_chunks']}": cuda_ms(
-                    functools.partial(rms_kernel(rms_static(rows, d, dt), k),
-                                      x, g), iters=20)
+                    lambda kk=rms_kernel(rms_static(rows, d, dt), k): kk(
+                        cold(), g), iters=20)
                 for k in rms_knob_points(rms_static(rows, d, dt))}}
+        del xs
     out = {"cases": results, "max_abs_err_f32": worst[F32],
            "max_abs_err_bf16": worst[BF16], "timed_4096x2560": timed}
     emit("rmsnorm_fused", **out)

@@ -37,6 +37,18 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
 }
+// kBytes (4, 8 or 16) from src to dst, zero-filled when !ok; 16-byte copies
+// bypass L1 (.cg), smaller ones cannot
+template <int kBytes>
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src, bool ok) {
+    if constexpr (kBytes == 16) {
+        cp_async16(dst, src, ok);
+    } else {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                     :: "r"(smem_addr(dst)), "l"(src), "n"(kBytes), "r"(ok ? kBytes : 0)
+                     : "memory");
+    }
+}
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -74,6 +86,17 @@ __device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const unsigned (&a)
                  "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
                  : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a b over a 16 x 8 x 4 tile of fp64 values (DMMA, sm_90): a0, a1 are
+// rows lane / 4 and lane / 4 + 8 of column lane % 4; b is row lane % 4 of
+// column lane / 4; d0..d3 are rows lane / 4 (d0, d1) and lane / 4 + 8 (d2,
+// d3) of columns 2 (lane % 4) and 2 (lane % 4) + 1.  Each product of two
+// widened fp32 values is exact in fp64.
+__device__ __forceinline__ void mma_f64_1684(double (&d)[4], const double (&a)[2], double b) {
+    asm volatile("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+                 "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+                 : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+                 : "d"(a[0]), "d"(a[1]), "d"(b));
 }
 // x = hi + lo with hi and lo tf32 (the 3xTF32 split): hi * hi + hi * lo + lo * hi
 // keeps about 22 of float32's 24 mantissa bits

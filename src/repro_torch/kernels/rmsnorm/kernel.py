@@ -33,8 +33,9 @@ REPLACES = "src/repro/kernels/rmsnorm/kernel.py:83"
 FUNCTION = "rmsnorm_fused"
 CTYPES = {"float32": "float", "bfloat16": "bf16_t"}
 EPS = 1e-6
-#: warps of a block; each warp normalizes one row at a time
-MAX_WARPS = 8
+#: warps of a block; each warp normalizes one row, so the grid is
+#: ceil(rows / WARPS) blocks whatever the row tile is
+WARPS = 4
 
 launches = 0
 
@@ -63,7 +64,8 @@ def make_program(*, br: int, d: int, n_chunks: int, dtype="float32",
         instrs.append(Instr(name=f"ld_x{c}", kind=Kind.MEM, inputs=(),
                             outputs=(f"x{c}",), fn=functools.partial(ld_x, c=c),
                             buffer="x", bytes=br * cd * esize,
-                            src=f"float x{c}[CPT]; load_chunk<{c}>(xr, x{c});"))
+                            src=f"float x{c}[CPT]; load_chunk<{c}, false>(xr, "
+                                f"x{c});"))
         instrs.append(Instr(name=f"sq{c}", kind=Kind.COMPUTE, inputs=(f"x{c}",),
                             outputs=(f"ss{c}",), fn=functools.partial(sq, c=c),
                             flops=2 * br * cd,
@@ -92,7 +94,7 @@ def make_program(*, br: int, d: int, n_chunks: int, dtype="float32",
         instrs.append(Instr(name=f"ld_g{c}", kind=Kind.MEM, inputs=(),
                             outputs=(f"g{c}",), fn=functools.partial(ld_g, c=c),
                             buffer="g", bytes=cd * esize,
-                            src=f"float g{c}[CPT]; load_chunk<{c}>(gm, "
+                            src=f"float g{c}[CPT]; load_chunk<{c}, true>(gm, "
                                 f"g{c});"))
         instrs.append(Instr(name=f"scale{c}", kind=Kind.COMPUTE,
                             inputs=(f"x{c}", "rstd", f"g{c}"),
@@ -127,20 +129,34 @@ class RmsNormKernel:
         self._text: str | None = None
         self._kernels: dict[int, _build.Kernel] = {}
 
+    threads = 32 * WARPS
+
     @property
-    def threads(self) -> int:
-        return 32 * min(self.br, MAX_WARPS)
+    def vec(self) -> int:
+        """Elements per load: a 16-byte vector when every feature chunk is
+        a whole number of them, else 1."""
+        esize = 4 if self.dtype == "float32" else 2
+        cd = self.d // self.n_chunks
+        return 16 // esize if cd * esize % 16 == 0 else 1
+
+    @staticmethod
+    def grid(rows: int) -> int:
+        """Blocks of a launch over ``rows`` rows: one warp per row."""
+        return -(-rows // WARPS)
 
     # ------------------------------------------------------------ CUDA face
     def source(self) -> tuple[str, int]:
         """The emitted CUDA text of this schedule and its shared memory in
-        bytes (none: every value lives in registers)."""
+        bytes (none: every value lives in registers).  The row tile ``br``
+        is not in it."""
         if self._text is None:
             cd = self.d // self.n_chunks
+            nv = cd // self.vec
+            vpt = -(-nv // 32)
             defines = {"T": CTYPES[self.dtype], "D": self.d,
-                       "NCH": self.n_chunks, "CD": cd, "CPT": -(-cd // 32),
-                       "BR": self.br, "NW": self.threads // 32,
-                       "NT": self.threads, "EPS": cfloat(EPS)}
+                       "NCH": self.n_chunks, "CD": cd, "VEC": self.vec,
+                       "NV": nv, "VPT": vpt, "CPT": vpt * self.vec,
+                       "NW": WARPS, "NT": self.threads, "EPS": cfloat(EPS)}
             self._text = emit_kernel(
                 _build.template("sip_common.cuh")
                 + _build.template("rmsnorm.cu"), defines, "",
@@ -158,6 +174,10 @@ class RmsNormKernel:
                 raise ValueError(f"rmsnorm_fused: {name} must be a contiguous "
                                  f"{self.dtype} tensor, got {t.dtype} "
                                  f"{tuple(t.shape)}")
+            if self.vec > 1 and t.data_ptr() % 16:
+                raise ValueError(f"rmsnorm_fused: {name} must start on a "
+                                 f"16-byte boundary (the kernel moves 16 "
+                                 f"bytes at a time)")
         if x.dim() != 2 or x.shape[1] != self.d \
                 or tuple(gamma.shape) != (self.d,) or x.shape[0] % self.br:
             raise ValueError(f"rmsnorm_fused: x {tuple(x.shape)} gamma "
@@ -172,10 +192,11 @@ class RmsNormKernel:
         out = torch.empty_like(x)
         if out.numel():
             with torch.cuda.device(x.device):
-                kern.launch((x.shape[0] // self.br, 1, 1), self.threads,
+                kern.launch((self.grid(x.shape[0]), 1, 1), self.threads,
                             [ctypes.c_void_p(x.data_ptr()),
                              ctypes.c_void_p(gamma.data_ptr()),
-                             ctypes.c_void_p(out.data_ptr())])
+                             ctypes.c_void_p(out.data_ptr()),
+                             ctypes.c_int(x.shape[0])])
             launches += 1
         return out
 

@@ -151,6 +151,110 @@ def replay_async_groups(program, text):
     return reads
 
 
+#: declarations that let a host C++ compiler parse an emitted CUDA text
+HOST_STUBS = """
+#include <cstddef>
+#include <cmath>
+#define __device__
+#define __global__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(x)
+#define __align__(x)
+#define __shared__
+struct dim3_ { unsigned x, y, z; };
+extern dim3_ threadIdx, blockIdx, gridDim, blockDim;
+void __syncthreads();
+template <typename V> V __shfl_xor_sync(unsigned, V, int);
+template <typename V> V __shfl_up_sync(unsigned, V, int);
+float __uint_as_float(unsigned);
+unsigned __float_as_uint(float);
+double __longlong_as_double(long long);
+size_t __cvta_generic_to_shared(const void*);
+struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
+struct uint2 { unsigned x, y; };
+struct uint4 { unsigned x, y, z, w; };
+float2 make_float2(float, float);
+float4 make_float4(float, float, float, float);
+uint4 make_uint4(unsigned, unsigned, unsigned, unsigned);
+template <typename V> V __ldg(const V*);
+float rsqrtf(float);
+float expf(float);
+int min(int, int);
+int max(int, int);
+using std::exp; using std::fabs; using std::fmaf;
+"""
+
+
+def host_syntax_errors(text: str, workdir) -> str:
+    """A host compiler's errors on ``text`` behind :data:`HOST_STUBS` (""
+    when it parses): wrong names, arities, types and macro clashes show
+    here; what only nvcc and ptxas check (PTX, registers) does not."""
+    import subprocess
+    import tempfile
+    with tempfile.NamedTemporaryFile("w", suffix=".cpp", dir=workdir,
+                                     delete=False) as f:
+        f.write(HOST_STUBS + text)
+    done = subprocess.run(["g++", "-std=c++17", "-fsyntax-only", "-w",
+                           f.name], capture_output=True, text=True)
+    return done.stderr if done.returncode else ""
+
+
+def _syntax_texts(name):
+    """The texts of ``name`` to check: the default and seeded orders at
+    each registry workload, and this kernel's main-path shapes (RMSNorm at
+    every knob point of the model's and the smoke widths, the SSD at every
+    chunk the model's path uses and 16 orders each)."""
+    spec = tregistry.spec(name)
+    kerns = []
+    for w in spec.workloads:
+        static = _static(name, w.name)
+        prog = spec.program_for(tcore.Schedule(), **static)
+        for seed in (None, 0, 1, 2, 3):
+            order = None if seed is None \
+                else _emit.random_legal_order(prog, seed)
+            kerns.append(spec.build(tcore.Schedule(order=order), **static))
+    if name == "rmsnorm_fused":
+        for (rows, d), dtype in itertools.product(
+                [(4096, 2560), (16, 32), (64, 128)], ("float32", "bfloat16")):
+            static = {"rows": rows, "d": d, "dtype": dtype}
+            space = spec.space_for(**static)
+            for point in itertools.product(*[k.choices for k in space.knobs]):
+                knobs = dict(zip([k.name for k in space.knobs], point))
+                kerns.append(spec.build(tcore.Schedule(knobs=knobs), **static))
+    if name == "ssd_intra_chunk":
+        from repro_torch.kernels.ssd import kernel as tssd
+        for q in (8, 16, 64, 256):
+            prog = tssd.make_program(q=q, n=128, p=64)
+            for seed in [None] + list(range(16)):
+                order = None if seed is None \
+                    else _emit.random_legal_order(prog, seed)
+                kerns.append(tssd.SsdKernel(q=q, n=128, p=64, order=order))
+            kerns.append(tssd.SsdKernel(q=q, n=128, p=64, dtype="bfloat16"))
+    texts = set()
+    for kern in kerns:
+        try:
+            texts.add(kern.source()[0])
+        except UnassemblableSchedule:
+            pass
+    return sorted(texts)
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_emitted_texts_pass_a_host_syntax_check(name, tmp_path):
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    if shutil.which("g++") is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    texts = _syntax_texts(name)
+    assert texts
+    with ThreadPoolExecutor(4) as pool:
+        errors = [e for e in pool.map(
+            lambda t: host_syntax_errors(t, tmp_path), texts) if e]
+    assert not errors, errors[0][:2000]
+
+
 def check_schedules(name, static, seed, replay=True):
     """At every knob point of ``name``'s space at ``static`` and the default
     (seed None) or a seeded random legal order: the schedule assembles

@@ -1,7 +1,8 @@
 """The port's CUDA kernels and engine on the card: each emitted kernel
 against its plain version at the default and at seeded random legal orders
-(the SSD intra-chunk kernel at the model's widths, RMSNorm at every point
-of its knob space, the tensor-core gemm at tiles smaller than its
+(the SSD intra-chunk kernel at the model's widths and at a head count its
+head groups do not divide, RMSNorm at every point of its knob space and at
+row counts its blocks do not divide, the tensor-core gemm at tiles smaller than its
 instructions and at the paper's shape with a hoisted order, bf16 flash at
 an ld_v-hoisted order, padded bidirectional flash calls),
 the gather's wrap of negative page ids, and a paged engine run on the card
@@ -192,6 +193,21 @@ def test_ssd_kernel_at_positive_log_decays(cuda):
     torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("g,h", [(2, 3), (1, 80)])
+def test_ssd_kernel_with_head_groups_matches_plain(cuda, g, h):
+    """At serve-like la = dt A < 0: h = 3 leaves a last head group with one
+    zero-filled head, h = 80 fills every group; q 256 walks four row
+    tiles, heavy ones first."""
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    xb = torch.randn((g, 256, h, 64), generator=gen, device=cuda)
+    la = -torch.randn((g, 256, h), generator=gen, device=cuda).abs() * 0.1
+    B = torch.randn((g, 256, 128), generator=gen, device=cuda) * 0.3
+    C = torch.randn((g, 256, 128), generator=gen, device=cuda) * 0.3
+    got = sk.SsdKernel(q=256, n=128, p=64, grid=g * h)(xb, la, B, C)
+    torch.testing.assert_close(got, sk_ref.intra_chunk(xb, la, B, C),
+                               rtol=1e-4, atol=1e-4)
+
+
 def test_ssd_chunked_kernel_on_card_matches_cpu(cuda):
     gen = np.random.default_rng(0)
     x = gen.standard_normal((2, 100, 4, 8)).astype(np.float32)
@@ -228,6 +244,27 @@ def test_rmsnorm_kernel_matches_plain_at_every_knob_point(cuda, dtype, tol):
                 got = kern(x, g).float()
                 assert (got - want).abs().max().item() <= \
                     tol * max(1.0, want.abs().max().item() / 8)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("rows,d", [(4097, 2560), (4098, 2560), (30, 32),
+                                    (7, 128)])
+def test_rmsnorm_kernel_at_rows_past_the_last_full_block(cuda, rows, d,
+                                                         dtype, tol):
+    """A row count that the block's WARPS rows do not divide: the last
+    block's extra warps write nothing, every row is normalized."""
+    from repro_torch.core import Schedule
+    from repro_torch.kernels.rmsnorm import ops as rk_ops
+    assert rows % rk.WARPS
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    x = torch.randn((rows, d), generator=gen, device=cuda).to(dtype)
+    g = torch.randn((d,), generator=gen, device=cuda).to(dtype)
+    kern = rk_ops.build(Schedule(), **rk_ops.signature_fn(x, g))
+    got = kern(x, g).float()
+    want = rk_ref.rmsnorm(x, g).float()
+    assert kern.grid(rows) * rk.WARPS > rows
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
 def _close(got, want, dtype):

@@ -99,8 +99,55 @@ def test_every_knob_point_emits_at_the_model_width(dtype):
         kern = tops.build(tcore.Schedule(knobs=knobs), **static)
         text, smem = kern.source()
         assert smem == 0 and "/*@" not in text
-        assert kern.threads == 32 * min(knobs["br"], tkernel.MAX_WARPS)
+        assert kern.threads == 32 * tkernel.WARPS
         assert text.count("store_chunk<") == knobs["n_chunks"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", [(4096, 2560), (16, 32), (64, 128)])
+def test_every_knob_point_moves_16_bytes_a_lane_where_its_chunk_allows(
+        rows, d, dtype):
+    """Each lane loads and stores whole 16-byte vectors (8 bf16 or 4 fp32)
+    when a feature chunk is a whole number of them, which every point at
+    d = 2560 is; a chunk of fewer (the smoke widths in bf16) takes scalar
+    loads; a chunk of vectors that 32 lanes do not divide predicates the
+    last one.  Schedules that differ only in the row tile emit one text."""
+    static = {"rows": rows, "d": d, "dtype": dtype}
+    esize = 4 if dtype == "float32" else 2
+    by_chunks: dict[int, set] = {}
+    for knobs in _points(static):
+        kern = tops.build(tcore.Schedule(knobs=knobs), **static)
+        text = kern.source()[0]
+        cd = d // knobs["n_chunks"]
+        vec = 16 // esize if cd * esize % 16 == 0 else 1
+        nv = cd // vec
+        assert kern.vec == vec and f"#define VEC {vec}\n" in text
+        assert f"#define NV {nv}\n" in text
+        assert f"#define VPT {-(-nv // 32)}\n" in text
+        assert "#define BR " not in text
+        if d == 2560:
+            assert vec > 1
+        by_chunks.setdefault(knobs["n_chunks"], set()).add(text)
+    assert all(len(texts) == 1 for texts in by_chunks.values())
+    if (d, dtype) == (32, "bfloat16"):
+        assert tops.build(tcore.Schedule(knobs={"n_chunks": 8}),
+                          **static).vec == 1        # 4 elements a chunk
+    if (d, dtype) == (2560, "bfloat16"):
+        assert tops.build(tcore.Schedule(knobs={"n_chunks": 8}),
+                          **static).source()[0].count("#define NV 40\n") == 1
+
+
+def test_launch_grid_fills_the_card_whatever_the_row_tile():
+    """One warp per row, WARPS rows a block: (4096, 2560) launches 4096 /
+    WARPS blocks at the reference's default row tile of 256, not 4096 / 256,
+    and a row count that WARPS does not divide gets one more block."""
+    static = {"rows": 4096, "d": 2560, "dtype": "bfloat16"}
+    kern = tops.build(tcore.Schedule(), **static)
+    assert kern.br == 256
+    assert kern.grid(4096) == 4096 // tkernel.WARPS != 4096 // kern.br
+    assert kern.grid(4096) >= 2 * 132            # two blocks per SM at least
+    assert kern.grid(4097) == kern.grid(4096) + 1
+    assert 4 <= tkernel.WARPS <= 8
 
 
 def test_kernel_counts_no_launches_on_cpu():

@@ -84,7 +84,7 @@ def test_cpu_face_matches_interpret_kernel(workload, seed):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
     text, smem = tk.source()
     assert "/*@" not in text and smem <= 232_448
-    assert "cb_tile(Cs, Bs, S);" in text and "y_tile(S, Xs, acc);" in text
+    assert "cb_tile(Cs, Bs, S, CBP);" in text and "y_tile(W, Xs, acc);" in text
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -112,6 +112,79 @@ def test_every_legal_order_assembles_at_full_width(q):
         except UnassemblableSchedule:          # pragma: no cover - reported
             pytest.fail(f"q {q} order seed {seed} does not assemble")
         assert smem <= 232_448
+
+
+def _legal_orders(prog):
+    """Every order of ``prog`` that its dependencies allow."""
+    deps, n, out = prog.deps, len(prog.instrs), []
+
+    def walk(order):
+        if len(order) == n:
+            out.append(tuple(order))
+        for i in range(n):
+            if i not in order and deps[i] <= set(order):
+                walk(order + [i])
+    walk([])
+    return out
+
+
+@pytest.mark.parametrize("q", [8, 16, 64, 256])
+def test_every_legal_order_assembles_with_a_head_group(q):
+    """Each of the program's legal orders fits one block at the model's
+    widths (n 128, p 64) with HG > 1 heads a block, which form C Bᵀ once,
+    and waits for each cp.async group before its first reader."""
+    from tests.test_torch_core import replay_async_groups
+    prog = tkernel.make_program(q=q, n=128, p=64, grid=80)
+    orders = _legal_orders(prog)
+    assert len(orders) == 140 and prog.default_order() in orders
+    for order in orders:
+        kern = tkernel.SsdKernel(q=q, n=128, p=64, order=order)
+        text, smem = kern.source()
+        assert smem <= 232_448 and kern.layout["HG"] == tkernel.HEADS > 1
+        assert "#define HG 2\n" in text
+        assert text.count("cb_tile(Cs, Bs, S, CBP);") == 1
+        assert replay_async_groups(kern.program, text) == 4
+
+
+@pytest.mark.parametrize("q", [8, 256])
+def test_random_orders_wait_for_their_groups(q):
+    """replay_async_groups holds the SSD body at the orders
+    random_legal_order gives for seeds 0-15: ld_c and ld_la copy on the
+    first step only but commit a group on every step."""
+    from tests.test_torch_core import replay_async_groups
+    prog = tkernel.make_program(q=q, n=128, p=64, grid=80)
+    for seed in range(16):
+        kern = tkernel.SsdKernel(q=q, n=128, p=64,
+                                 order=random_legal_order(prog, seed))
+        text = kern.source()[0]
+        assert replay_async_groups(kern.program, text) == 4
+        assert text.count("cp_async_commit();") == 4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_both_dots_run_on_the_fp64_tensor_cores(dtype):
+    """The body's two dots call the fp64 mma wrapper (DMMA m16n8k4), and no
+    scalar fp64 FMA loop is left in the kernel."""
+    text = tkernel.SsdKernel(q=256, n=128, p=64, dtype=dtype).source()[0]
+    kernel_part = text[text.index("#define FULL_MASK"):]
+    assert "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64" in text
+    for fn in ("cb_tile", "y_tile"):
+        start = kernel_part.index(f"void {fn}(")
+        end = kernel_part.index("\n}\n", start)
+        assert "mma_f64_1684(" in kernel_part[start:end], fn
+    assert "fma(" not in kernel_part
+    assert "cp_async_n<" in kernel_part and "load_rows(bp, Bs, kb); " \
+        "cp_async_commit();" in text
+
+
+@pytest.mark.parametrize("g,q,h,blocks", [(1, 256, 80, (40, 8, 1)),
+                                          (6, 64, 80, (240, 2, 1)),
+                                          (2, 8, 3, (4, 1, 1))])
+def test_grid_takes_heads_in_groups(g, q, h, blocks):
+    """A block owns (chunk, HG heads, row tile); a head count HG does not
+    divide gets a last group with a zero-filled tail."""
+    kern = tkernel.SsdKernel(q=q, n=128, p=64)
+    assert kern.grid(g, q, h, kern.br) == blocks
 
 
 def test_signature_and_space_equal_reference():
