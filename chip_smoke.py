@@ -79,6 +79,13 @@ KERNEL_MODULES = (gf, fa, pg, sk, rk)
 T0 = time.perf_counter()
 
 
+def reset_launches() -> None:
+    """Every kernel's launch counts to 0 (flash's by dtype too)."""
+    for mod in KERNEL_MODULES:
+        mod.launches = 0
+    fa.dtype_launches.update(dict.fromkeys(fa.dtype_launches, 0))
+
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields,
                       "elapsed_s": time.perf_counter() - T0}), flush=True)
@@ -323,9 +330,10 @@ def all_schedules():
     m, n, k, bm, bn, bk = GEMM_PADDED
     for dt in (F32, BF16):
         yield gf.FUNCTION, gemm_tiles(bm, bn, bk, dt, m=m, n=n, k=k)
-    st = flash_static(*FLASH_CASES[2], BF16)
-    yield fa.FUNCTION, flash_kernel(st, flash_v_hoisted(
-        flash_kernel(st).program))
+    for dt in (F32, BF16):
+        st = flash_static(*FLASH_CASES[2], dt)
+        yield fa.FUNCTION, flash_kernel(st, flash_v_hoisted(
+            flash_kernel(st).program))
     for i, case in enumerate(FLASH_CASES):
         for dt in (F32, BF16):
             st = flash_static(*case, dt)
@@ -390,26 +398,47 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     _build.compile_many(texts)
     wall = time.perf_counter() - t0
-    main = [(gf.FUNCTION, gemm_kernel(512, 512, 2048, BF16)),
+    main = {"gemm_fused 512x512x2048 bf16":
+            (gf.FUNCTION, gemm_kernel(512, 512, 2048, BF16)),
+            "flash_attention b4 s128 d128 bf16":
             (fa.FUNCTION, flash_kernel(flash_static(*FLASH_CASES[2], BF16))),
+            "flash_attention b4 s128 d128 f32":
+            (fa.FUNCTION, flash_kernel(flash_static(*FLASH_CASES[2], F32))),
+            "paged_gather serve bf16":
             (pg.FUNCTION, gather_kernel(gather_static(*GATHER_SHAPES[2],
                                                       BF16))),
+            "ssd_intra_chunk g1 q256 h80 f32":
             (sk.FUNCTION, ssd_kernel(ssd_static(*SSD_SHAPES[3]))),
-            (rk.FUNCTION, rms_kernel(rms_static(*RMS_SHAPES[-1], BF16)))]
-    ptxas = {fn: [ln.strip() for ln in _build.build_log(
+            "rmsnorm_fused 4096x2560 bf16":
+            (rk.FUNCTION, rms_kernel(rms_static(*RMS_SHAPES[-1], BF16)))}
+    ptxas = {label: [ln.strip() for ln in _build.build_log(
         fn, kern.source()[0]).splitlines() if "registers" in ln or "spill" in ln]
-        for fn, kern in main}
+        for label, (fn, kern) in main.items()}
+    # distinct texts whose registers spilled to local memory, by function:
+    # check_regs rejects only what no SM's register file can hold
+    spilled: dict[str, int] = {}
+    for fn, text in set(texts):
+        log = _build.build_log(fn, text)
+        if "spill stores" in log and " 0 bytes spill stores" not in log:
+            spilled[fn] = spilled.get(fn, 0) + 1
     # the designs are really compiled: wgmma is HGMMA in the SASS, mma.sync
-    # HMMA, the SSD's fp64 mma.sync DMMA (its decay's fp64 exp keeps some
-    # DFMA), RMSNorm's 16-byte loads LDG.E.128
+    # HMMA (the f32 flash's 3xTF32 too; its FFMA are the softmax's exp),
+    # the SSD's fp64 mma.sync DMMA (its decay's fp64 exp keeps some DFMA),
+    # RMSNorm's 16-byte loads LDG.E.128
     in_sass = {}
     for label, (fn, kern), want in (
-            ("gemm_fused 512x512x2048 bf16", main[0], "HGMMA"),
+            ("gemm_fused 512x512x2048 bf16",
+             main["gemm_fused 512x512x2048 bf16"], "HGMMA"),
             ("gemm_fused 512x512x2048 f32",
              (gf.FUNCTION, gemm_kernel(512, 512, 2048, F32)), "HMMA"),
-            ("flash_attention b4 s128 d128 bf16", main[1], "HMMA"),
-            ("ssd_intra_chunk g1 q256 h80 f32", main[3], "DMMA"),
-            ("rmsnorm_fused 4096x2560 bf16", main[4], "LDG.E.128")):
+            ("flash_attention b4 s128 d128 bf16",
+             main["flash_attention b4 s128 d128 bf16"], "HMMA"),
+            ("flash_attention b4 s128 d128 f32",
+             main["flash_attention b4 s128 d128 f32"], "HMMA"),
+            ("ssd_intra_chunk g1 q256 h80 f32",
+             main["ssd_intra_chunk g1 q256 h80 f32"], "DMMA"),
+            ("rmsnorm_fused 4096x2560 bf16",
+             main["rmsnorm_fused 4096x2560 bf16"], "LDG.E.128")):
         sass = _sass(_build.cubin_path(fn, kern.source()[0])).splitlines()
         count = sum(want in ln for ln in sass)
         if not count:
@@ -417,13 +446,16 @@ def phase_build() -> dict:
         in_sass[label] = {"instruction": want, "count": count}
         if fn == sk.FUNCTION:
             in_sass[label]["DFMA"] = sum("DFMA" in ln for ln in sass)
+        if fn == fa.FUNCTION:
+            in_sass[label]["FFMA"] = sum("FFMA" in ln for ln in sass)
         if fn == rk.FUNCTION:
             in_sass[label]["STG.E.128"] = sum("STG.E.128" in ln
                                                    for ln in sass)
     out = {"texts": len(texts), "distinct_texts": len(set(texts)),
            "smem_rejected": rejected, "emit_s": emit_s, "wall_s": wall,
            **_build.STATS.snapshot(), **rejections,
-           "ptxas_main_shapes": ptxas, "designs_in_sass": in_sass}
+           "ptxas_main_shapes": ptxas, "texts_that_spill": spilled,
+           "designs_in_sass": in_sass}
     emit("build", **out)
     return out
 
@@ -574,26 +606,7 @@ def phase_flash(gen) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "registry_call_host_us": host_us(
                 lambda: fa.flash_attention(q, k, v, causal=True))}
-    # the default order against one that issues each ld_v{c} after its
-    # ld_k{c}, at B4 S128, in turns (default, hoisted, hoisted, default)
-    st = flash_static(*FLASH_CASES[2], BF16)
-    pair = {"default": flash_kernel(st)}
-    pair["v_hoisted"] = flash_kernel(st, flash_v_hoisted(
-        pair["default"].program))
-    q = _randn((4, 16, 128, 128), BF16, gen)
-    k = _randn((4, 8, 128, 128), BF16, gen)
-    v = _randn((4, 8, 128, 128), BF16, gen)
-    want = fa_ref.attention(q, k, v, causal=True)
-    orders = {}
-    for key, kern in pair.items():
-        orders[f"{key}_max_abs_err"] = compare(kern(q, k, v), want, BF16,
-                                               f"flash b4 s128 {key}")
-        orders[f"{key}_smem"] = kern.source()[1]
-    times = {"default": [], "v_hoisted": []}
-    for key in ("default", "v_hoisted", "v_hoisted", "default"):
-        times[key].append(cuda_ms(lambda: pair[key](q, k, v)))
-    orders.update({f"{key}_ms": float(np.mean(t)) for key, t in times.items()})
-    timed["b4_s128_orders"] = orders
+    timed["b4_s128_orders"] = flash_orders(BF16, gen)
     # a serve prefill at a length that is not a multiple of 8: the model's
     # call pads it to 128 rows; the schedule at the exact length has 1-row
     # query tiles
@@ -634,10 +647,79 @@ def phase_flash(gen) -> dict:
     if timed["b8_s100"]["ms"] >= timed["b8_s100"]["exact_length_ms"]:
         raise AssertionError(f"flash at b8 s100: the padded call is no "
                              f"faster than 1-row tiles: {timed['b8_s100']}")
+    timed_f32 = flash_timed_f32(gen)
     out = {"cases": results, "max_abs_err_f32": worst[F32],
-           "max_abs_err_bf16": worst[BF16], "timed_bf16_causal": timed}
+           "max_abs_err_bf16": worst[BF16], "timed_bf16_causal": timed,
+           "timed_f32_causal": timed_f32}
     emit("flash_attention", **out)
-    return {**out, **timed["b4_s128"], "max_abs_err": worst[BF16]}
+    return {**out, **timed["b4_s128"], "max_abs_err": worst[BF16],
+            "f32": {**timed_f32["b4_s128"], "max_abs_err": worst[F32]}}
+
+
+def flash_orders(dtype, gen) -> dict:
+    """The default order against one that issues each ld_v{c} after its
+    ld_k{c}, at B4 S128 D128, in turns (default, hoisted, hoisted,
+    default)."""
+    st = flash_static(*FLASH_CASES[2], dtype)
+    pair = {"default": flash_kernel(st)}
+    pair["v_hoisted"] = flash_kernel(st, flash_v_hoisted(
+        pair["default"].program))
+    q = _randn((4, 16, 128, 128), dtype, gen)
+    k = _randn((4, 8, 128, 128), dtype, gen)
+    v = _randn((4, 8, 128, 128), dtype, gen)
+    want = fa_ref.attention(q, k, v, causal=True)
+    orders = {}
+    for key, kern in pair.items():
+        orders[f"{key}_max_abs_err"] = compare(kern(q, k, v), want, dtype,
+                                               f"flash b4 s128 {key}")
+        orders[f"{key}_smem"] = kern.source()[1]
+    times = {"default": [], "v_hoisted": []}
+    for key in ("default", "v_hoisted", "v_hoisted", "default"):
+        times[key].append(cuda_ms(lambda: pair[key](q, k, v)))
+    orders.update({f"{key}_ms": float(np.mean(t)) for key, t in times.items()})
+    return orders
+
+
+#: float32 flash timed at a serve prefill, a longer one and the registry's
+#: deploy workload: label -> (b, hq, hkv, s, d), causal
+FLASH_F32_TIMED = {"b4_s128": (4, 16, 8, 128, 128),
+                   "b4_s384": (4, 16, 8, 384, 128),
+                   "deploy_b1_s128_d32": (1, 4, 2, 128, 32)}
+
+
+def flash_timed_f32(gen) -> dict:
+    """The float32 kernel at its default schedule through the model's entry
+    point, beside its plain version and f32 SDPA on its efficient backend
+    (3xTF32 on the tensor cores, the yardstick; kv heads repeated outside
+    the timed region), and the paired ld_v-hoisted order at B4 S128."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timed = {}
+    for label, (b, hq, hkv, s, d) in FLASH_F32_TIMED.items():
+        q = _randn((b, hq, s, d), F32, gen)
+        k = _randn((b, hkv, s, d), F32, gen)
+        v = _randn((b, hkv, s, d), F32, gen)
+        kr = k.repeat_interleave(hq // hkv, dim=1)
+        vr = v.repeat_interleave(hq // hkv, dim=1)
+        want = fa_ref.attention(q, k, v, causal=True)
+        err = compare(fa.flash_attention(q, k, v, causal=True), want, F32,
+                      f"flash f32 {label}")
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            lib_err = (sdpa(q, kr, vr, is_causal=True) - want).abs().max()
+            library_ms = cuda_ms(lambda: sdpa(q, kr, vr, is_causal=True))
+        bound_ms, bound_by = attention_bound_ms(b, hq, hkv, s, s, d, 4, True,
+                                                None, PEAK_FLOPS[F32])
+        timed[label] = {
+            "shape": [b, hq, hkv, s, d], "max_abs_err": err,
+            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+            "plain_ms": cuda_ms(lambda: fa_ref.attention(q, k, v,
+                                                         causal=True)),
+            "library_ms": library_ms,
+            "library": "sdpa EFFICIENT_ATTENTION",
+            "library_max_abs_err": lib_err.item(),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    timed["b4_s128_orders"] = flash_orders(F32, gen)
+    return timed
 
 
 def phase_gather(gen) -> dict:
@@ -884,8 +966,7 @@ def phase_sip(workdir: Path) -> dict:
     wall-clock tune of each kernel at its main-path shape, and the
     distinct-cubin count."""
     cache = workdir / "sip_smoke.json"
-    for mod in KERNEL_MODULES:
-        mod.launches = 0
+    reset_launches()
     _build.STATS.reset()
     t0 = time.perf_counter()
     if tune_cli.main(["--smoke", "--cache", str(cache)]) != 0:
@@ -956,7 +1037,8 @@ def phase_sip(workdir: Path) -> dict:
                 "flash_attention_causal": fa.launches,
                 "paged_gather": pg.launches,
                 "ssd_intra_chunk": sk.launches,
-                "rmsnorm_fused": rk.launches}
+                "rmsnorm_fused": rk.launches,
+                "flash_attention_causal_f32": fa.dtype_launches["float32"]}
     cubins = distinct_cubins()
     failures = smoke_builds["compile_failures"] \
         + sum(t["compile_failures"] for t in wall_tune.values()) \
@@ -969,7 +1051,8 @@ def phase_sip(workdir: Path) -> dict:
     out = {"tune_smoke_s": tune_s, "tune_smoke_builds": smoke_builds,
            "verify": lines, "wallclock_tune": wall_tune,
            "distinct_cubins": cubins, "compile_failures": failures,
-           "launches": launches}
+           "launches": launches,
+           "flash_launches_by_dtype": dict(fa.dtype_launches)}
     emit("sip", **out)
     return {**out, "cache": str(cache)}
 
@@ -1011,8 +1094,7 @@ def phase_serve(params, cfg) -> dict:
     eng = ContinuousEngine(params, cfg, scfg)
     tracer = obs.Tracer()
     compiles_before = _build.STATS.compiles
-    for mod in KERNEL_MODULES:
-        mod.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     with obs.tracing(tracer):
         handles = [eng.submit(p, b) for p, b in zip(prompts, budgets)]
@@ -1022,6 +1104,7 @@ def phase_serve(params, cfg) -> dict:
     launches = {"flash_attention_causal": fa.launches,
                 "paged_gather": pg.launches,
                 "gemm_fused_leaky_relu": gf.launches}
+    by_dtype = dict(fa.dtype_launches)
 
     events = tracer.events()
     n_prefill = sum(e["name"] == "serve.prefill" for e in events)
@@ -1039,9 +1122,10 @@ def phase_serve(params, cfg) -> dict:
     want_pg = 2 * cfg.n_layers * (s["decode_steps"] + s["chunk_steps"])
     want_fa = cfg.n_layers * n_prefill
     if launches != {"flash_attention_causal": want_fa, "paged_gather": want_pg,
-                    "gemm_fused_leaky_relu": 0}:
-        raise AssertionError(f"launches {launches}, expected flash "
-                             f"{want_fa} and gather {want_pg}")
+                    "gemm_fused_leaky_relu": 0} or by_dtype["float32"]:
+        raise AssertionError(f"launches {launches} (flash {by_dtype}), "
+                             f"expected bf16 flash {want_fa} and gather "
+                             f"{want_pg}")
     if n_prefill < 1:
         raise AssertionError("no whole-prompt prefill dispatch ran")
     if eng.pages.used_pages != len(eng.prefix):
@@ -1060,6 +1144,7 @@ def phase_serve(params, cfg) -> dict:
            "prefix_hits": s["prefix_hits"],
            "prefix_tokens_saved": s["prefix_tokens_saved"],
            "prefill_compiles": s["prefill_compiles"], "launches": launches,
+           "flash_launches_by_dtype": by_dtype,
            "kernel_builds_in_timed_window":
                _build.STATS.compiles - compiles_before,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -1196,7 +1281,7 @@ def phase_differential(sip_cache: str, workdir: Path) -> dict:
 
     def run(order: str, cache: ScheduleCache | str) -> dict[str, list]:
         idxs = list(range(len(prompts)))[::-1 if order == "reversed" else 1]
-        fa.launches = pg.launches = 0
+        reset_launches()
         with schedule_cache(cache) as store:
             eng = ContinuousEngine(params, cfg, scfg)
             uids = {eng.submit(prompts[i], budgets[i]).uid: i for i in idxs}
@@ -1212,6 +1297,7 @@ def phase_differential(sip_cache: str, workdir: Path) -> dict:
             "prefix_hits", "chunk_steps", "decode_steps", "prefill_compiles")}
         stats[order]["launches"] = {SERVED[0]: fa.launches,
                                     SERVED[1]: pg.launches}
+        stats[order]["flash_launches_by_dtype"] = dict(fa.dtype_launches)
         return served
 
     served = run("fifo", ScheduleCache())
@@ -1232,8 +1318,11 @@ def phase_differential(sip_cache: str, workdir: Path) -> dict:
                 raise AssertionError(f"tuned run: {name} {static} resolved "
                                      f"the default schedule")
         resolved[name] = len(sigs)
-    if min(stats["tuned_cache"]["launches"].values()) < 1:
-        raise AssertionError(f"tuned run launched no kernel: {stats}")
+    if min(stats["tuned_cache"]["launches"].values()) < 1 or any(
+            st["flash_launches_by_dtype"]["float32"] < 1
+            for st in stats.values()):
+        raise AssertionError(f"a run launched no kernel, or no float32 "
+                             f"flash: {stats}")
     stats["tuned_cache"].update(schedules_put=put,
                                 non_default_resolved=resolved)
     out = {"n_layers": cfg.n_layers, "dtype": cfg.dtype,
@@ -1271,8 +1360,7 @@ def phase_serve_ssm(params, cfg) -> dict:
     eng = ContinuousEngine(params, cfg, scfg)
     tracer = obs.Tracer()
     compiles_before = _build.STATS.compiles
-    for mod in KERNEL_MODULES:
-        mod.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     with obs.tracing(tracer), schedule_cache(ScheduleCache()) as store:
         handles = [eng.submit(p, b) for p, b in zip(prompts, budgets)]
@@ -1383,14 +1471,18 @@ def phase_differential_ssm(sip_cache: str, workdir: Path) -> dict:
 
 def kernels_line(gemm: dict, flash: dict, gather: dict, ssd: dict,
                  rms: dict, sip: dict, serve: dict, serve_ssm: dict) -> dict:
+    """One row per kernel, its launches from its own main path: the bf16
+    flash kernel's from ``serve``, the float32 one's from ``sip``."""
     rows = []
-    for mod, name, res, path in (
-            (gf, "gemm_fused_leaky_relu", gemm, sip),
-            (fa, "flash_attention_causal", flash, serve),
-            (pg, "paged_gather", gather, serve),
-            (sk, "ssd_intra_chunk", ssd, serve_ssm),
-            (rk, "rmsnorm_fused", rms, sip)):
-        rows.append({"name": name, "route": "cuda", "source": mod.SOURCE,
+    for mod, source, name, res, path in (
+            (gf, gf.SOURCE, "gemm_fused_leaky_relu", gemm, sip),
+            (fa, fa.SOURCE, "flash_attention_causal", flash, serve),
+            (fa, fa.SOURCE_F32, "flash_attention_causal_f32", flash["f32"],
+             sip),
+            (pg, pg.SOURCE, "paged_gather", gather, serve),
+            (sk, sk.SOURCE, "ssd_intra_chunk", ssd, serve_ssm),
+            (rk, rk.SOURCE, "rmsnorm_fused", rms, sip)):
+        rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": mod.REPLACES,
                      "launches": path["launches"][name],
                      "max_abs_err": res["max_abs_err"],

@@ -1,5 +1,7 @@
-// Flash-attention forward for Hopper (sm_90a), bf16, on the tensor cores
-// (mma.sync), emitted per SIP schedule.
+// Flash-attention forward for Hopper (sm_90a) on the tensor cores (mma.sync),
+// emitted per SIP schedule: bf16 from this file alone, float32 with its
+// operand path (qk_tile, pv_tile: 3xTF32) from flash_attention_f32.cu
+// emitted ahead of it (TF32 1).
 //
 // Replaces: repro/kernels/flash_attention/kernel.py:179 `pallas_attention`
 // (pallas_call at :210).  Computes the same function as that kernel and its
@@ -8,8 +10,7 @@
 // sliding-window masks, GQA (query head h reads kv head h / (Hq / Hkv) of the
 // same batch row), finite NEG_INF = -1e30 masking, p re-masked after the
 // exp, and the output written as acc / max(l, 1e-30), so a row with no
-// visible key is 0, never NaN.  bf16 in and out, fp32 sums.  The float32
-// calls take flash_attention_f32.cu.
+// visible key is 0, never NaN.  bf16 or fp32 in and out, fp32 sums.
 //
 // The body is `Program.emit(order)` of flash_attention/kernel.py::
 // make_program, placed inside the loop over kv blocks: the TPU's sequential
@@ -17,27 +18,32 @@
 // query tile).  The FlashAttention-2 shape: warp w owns query rows
 // [16 w, 16 w + 16) of the tile (BQ < 16 is zero-filled to one strip).  MEM
 // instructions ld_q (first kv block only: q stays in its buffer), ld_k{c},
-// ld_v{c} copy into shared buffers of their own with cp.async and commit one
-// group each, unconditionally; kernels/_emit.py::AsyncPlanner waits for a
-// group ahead of its first reader, so hoisting ld_v{c} above qk/softmax
-// overlaps V's copy with Q Kᵀ.  qk{c} runs mma m16n8k16 with Q (ldmatrix)
-// as A and K{c} (ldmatrix) as the column-major B; mask{c}, the online softmax
-// (the running m and l, two rows a thread, reduced over the 4 threads of a
-// quad with shuffles) and the rescale of the output accumulator stay in
-// registers, so the IR's ld_stats / accum / st_stats emit nothing; pv{c}
-// repacks the fp32 score fragment as bf16 A fragments and takes V{c} by
-// ldmatrix.trans; st_o writes acc / l on the last kv block.  Tiles keep D
-// contiguous with a 16-byte pad per row (LD = DP + 8: ldmatrix reads no bank
-// twice); D < 16 and chunks of fewer than 16 keys are zero-filled to 16.
-// Rows at or past sq and keys at or past kv_len (the real key length, at
-// most skv; a padded call passes its unpadded length) are masked here, so no
-// length has to divide a tile; kv blocks wholly above the causal diagonal,
-// before the window or at or past kv_len are skipped.
+// ld_v{c} copy into shared buffers of their own with 16-byte cp.async and
+// commit one group each, unconditionally; kernels/_emit.py::AsyncPlanner
+// waits for a group ahead of its first reader, so hoisting ld_v{c} above
+// qk/softmax overlaps V's copy with Q Kᵀ.  qk{c} writes the fp32 score
+// fragments of the warp's strip; mask{c}, the online softmax (the running m
+// and l, two rows a thread, reduced over the 4 threads of a quad with
+// shuffles) and the rescale of the output accumulator stay in registers, so
+// the IR's ld_stats / accum / st_stats emit nothing; pv{c} takes the
+// probabilities from the score registers as A fragments; st_o writes acc / l
+// on the last kv block.  Tiles keep D contiguous with a 16-byte pad per row
+// (LD = DP + 16 bytes: no fragment read hits a bank twice); D, and chunks of
+// keys, are zero-filled to the product's depth of 32 bytes (DP, CKP: 16
+// bf16, 8 fp32).  Rows at or past sq and keys at or past kv_len (the real
+// key length, at most skv; a padded call passes its unpadded length) are
+// masked here, so no length has to divide a tile; kv blocks wholly above the
+// causal diagonal, before the window or at or past kv_len are skipped.
+//
+// bf16 (below): qk{c} runs mma m16n8k16 with Q (ldmatrix) as A and K{c}
+// (ldmatrix) as the column-major B; pv{c} repacks the score fragment as bf16
+// A fragments and takes V{c} by ldmatrix.trans.
 //
 // What bounds it on the H100: at the main path's prefill shapes the least
-// time is the bytes of q, k, v and o (B4 S128 D128: 1.88 us); a block reads
-// its kv head's K and V once per query tile, so 16 heads of a kv group and
-// the tiles of a causal prefill re-read them from L2.
+// time is the bytes of q, k, v and o in bf16 (B4 S128 D128: 1.88 us), the
+// operations at 67 TFLOP/s in fp32 (4.04 us); a block reads its kv head's K
+// and V once per query tile, so 16 heads of a kv group and the tiles of a
+// causal prefill re-read them from L2.
 
 __device__ __forceinline__ bool visible(int qi, int col, int off, int sq, int kv_len) {
     bool ok = qi < sq && col < kv_len;
@@ -52,14 +58,16 @@ __device__ __forceinline__ bool visible(int qi, int col, int off, int sq, int kv
 template <int ROWS, int ROWSP>
 __device__ __forceinline__ void load_rows(const T* __restrict__ src, T* __restrict__ dst,
                                           int row0, int len) {
-    constexpr int CH = DP / 8;
+    constexpr int E = 16 / sizeof(T), CH = DP / E;
 #pragma unroll 4
     for (int e = threadIdx.x; e < ROWSP * CH; e += NT) {
         const int r = e / CH, c = e % CH, g = row0 + r;
-        const bool ok = r < ROWS && g < len && 8 * c < D;
-        cp_async16(dst + r * LD + 8 * c, src + (ok ? (size_t)g * D + 8 * c : 0), ok);
+        const bool ok = r < ROWS && g < len && E * c < D;
+        cp_async16(dst + r * LD + E * c, src + (ok ? (size_t)g * D + E * c : 0), ok);
     }
 }
+
+#if !TF32
 
 // fragment element q of key tile j: row lane / 4 + 8 (q / 2) of the warp's
 // strip, key 8 j + 2 (lane % 4) + q % 2 of the chunk
@@ -88,6 +96,30 @@ __device__ __forceinline__ void qk_tile(const T* __restrict__ qs, const T* __res
 #pragma unroll
         for (int q = 0; q < 4; ++q) s[j][q] *= SCALE;
 }
+
+// acc (d tile t, element q: row lane / 4 + 8 (q / 2), column 8 t + 2 (lane %
+// 4) + q % 2) += p V{c}
+__device__ __forceinline__ void pv_tile(const float (&p)[NTK][4], const T* __restrict__ vs,
+                                        float (&acc)[NTD][4]) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int kk = 0; kk < CKP / 16; ++kk) {
+        const unsigned a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                               pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                               pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                               pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+        for (int t = 0; t < NTD; t += 2) {
+            unsigned b[4];
+            ldmatrix_x4_trans(b, vs + (16 * kk + lane % 8 + 8 * ((lane / 8) % 2)) * LD + 8 * t
+                                     + 8 * (lane / 16));
+            mma_bf16_16816(acc[t], a, b[0], b[1]);
+            mma_bf16_16816(acc[t + 1], a, b[2], b[3]);
+        }
+    }
+}
+
+#endif
 
 __device__ __forceinline__ bool seen(int j, int q, int c0, int q0, int off, int sq, int kv_len) {
     const int lane = threadIdx.x % 32;
@@ -147,28 +179,6 @@ __device__ __forceinline__ void softmax_rows(float (&s)[NCH][NTK][4], float (&m)
         for (int t = 0; t < NTD; ++t) {
             acc[t][2 * h] *= corr;
             acc[t][2 * h + 1] *= corr;
-        }
-    }
-}
-
-// acc (d tile t, element q: row lane / 4 + 8 (q / 2), column 8 t + 2 (lane %
-// 4) + q % 2) += p V{c}
-__device__ __forceinline__ void pv_tile(const float (&p)[NTK][4], const T* __restrict__ vs,
-                                        float (&acc)[NTD][4]) {
-    const int lane = threadIdx.x % 32;
-#pragma unroll
-    for (int kk = 0; kk < CKP / 16; ++kk) {
-        const unsigned a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                               pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                               pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                               pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-        for (int t = 0; t < NTD; t += 2) {
-            unsigned b[4];
-            ldmatrix_x4_trans(b, vs + (16 * kk + lane % 8 + 8 * ((lane / 8) % 2)) * LD + 8 * t
-                                     + 8 * (lane / 16));
-            mma_bf16_16816(acc[t], a, b[0], b[1]);
-            mma_bf16_16816(acc[t + 1], a, b[2], b[3]);
         }
     }
 }

@@ -4,9 +4,10 @@
 // Replaces: repro/kernels/paged_attention/kernel.py:65 `paged_gather`
 // (pallas_call at :87).  store (P, ps, H, D) and an int32 page table (B, n)
 // give (B, n, ps, H, D); the kernel is dtype-blind and moves units of UNIT
-// bytes.  A page id in [-P, 0) wraps to id + P, as the reference's gather
-// (jnp.take) does; an id outside [-P, P) reads as zeros, never outside the
-// store.
+// bytes.  Page ids follow the reference kernel's contract (its index map
+// clamps the block index): an id in [-P, 0) wraps to id + P, and then every
+// id is clamped into [0, P - 1], so an id outside [-P, P) reads the first or
+// the last page, never outside the store.
 //
 // The body is `Program.emit(order)` of paged_attention/kernel.py::
 // make_program: the page is cut into ROWS row blocks x NCH head-dim chunks,
@@ -28,11 +29,11 @@ __device__ __forceinline__ int tile_off(int e) {
 }
 
 template <int R, int C>
-__device__ __forceinline__ void load_tile(const U* __restrict__ src, U (&t)[PER], bool ok) {
+__device__ __forceinline__ void load_tile(const U* __restrict__ src, U (&t)[PER]) {
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
         const int e = threadIdx.x + i * NT;
-        if (e < TU) t[i] = ok ? src[tile_off<R, C>(e)] : U{};
+        if (e < TU) t[i] = src[tile_off<R, C>(e)];
     }
 }
 
@@ -52,8 +53,8 @@ paged_gather(const U* __restrict__ store, const int* __restrict__ page_table,
     const long long entry = blockIdx.x;
     int page = page_table[entry];
     if (page < 0) page += num_pages;
-    const bool ok = page >= 0 && page < num_pages;
-    const U* src = store + (size_t)(ok ? page : 0) * PAGE_UNITS;
+    page = min(max(page, 0), num_pages - 1);
+    const U* src = store + (size_t)page * PAGE_UNITS;
     U* dst = out + (size_t)entry * PAGE_UNITS;
 /*@BODY@*/
 }

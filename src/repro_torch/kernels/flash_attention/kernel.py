@@ -6,10 +6,11 @@ with two faces per instruction: a torch ``fn`` (the CPU face, run by
 ``Program.execute`` over the grid with the running statistics carried
 across kv blocks, as Pallas interpret mode runs the reference off-TPU) and a
 CUDA ``src`` snippet that ``Program.emit`` lays out in schedule order inside
-the kv loop of ``csrc/flash_attention.cu`` (bf16: tensor cores, ``cp.async``
-loads whose waits follow the order) or ``csrc/flash_attention_f32.cu``
-(float32: FMAs, synchronous loads).  MEM instructions (the q load,
-per-chunk K and V loads, the output store) are SIP's movable set.
+the kv loop of ``csrc/flash_attention.cu``: tensor cores (bf16 m16n8k16, or
+float32 as 3xTF32 m16n8k8 from the operand path in
+``csrc/flash_attention_f32.cu``) and ``cp.async`` loads whose waits follow
+the order.  MEM instructions (the q load, per-chunk K and V loads, the
+output store) are SIP's movable set.
 
 :class:`FlashKernel` is one schedule of the kernel: on CPU tensors it runs
 the CPU face, on CUDA tensors it emits, builds (once per text) and launches
@@ -32,19 +33,21 @@ from repro_torch.core.energy import UnassemblableSchedule
 from repro_torch.core.ir import Instr, Kind, Program
 from repro_torch.core.testing import dtype_name
 from repro_torch.kernels import _build
-from repro_torch.kernels._emit import (AsyncPlanner, SyncPlanner,
-                                       buffer_decls, cfloat,
-                                       divisor_at_most, emit_kernel,
-                                       plan_shared)
+from repro_torch.kernels._emit import (AsyncPlanner, buffer_decls, cfloat,
+                                       emit_kernel, plan_shared)
 from repro_torch.kernels.flash_attention import ref
 
 SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+#: the float32 operand path, emitted ahead of :data:`SOURCE`
+SOURCE_F32 = "src/repro_torch/csrc/flash_attention_f32.cu"
 REPLACES = "src/repro/kernels/flash_attention/kernel.py:179"
 FUNCTION = "flash_attention"
 CTYPES = {"float32": "float", "bfloat16": "bf16_t"}
 NEG_INF = -1e30
 
 launches = 0
+#: ``launches`` split by the dtype of the launched kernel
+dtype_launches = dict.fromkeys(CTYPES, 0)
 #: the model's calls reach the kernel at lengths padded to a multiple
 #: of this (:func:`padded`): the knob space gives a length that is not a
 #: multiple of 8 one-row query tiles, and most multiples of 8 eight-row
@@ -62,7 +65,6 @@ def make_program(*, bq: int, bk: int, n_chunks: int, d: int, sq: int,
     dtype = getattr(torch, dtype_name(dtype))
     esize = torch.empty((), dtype=dtype).element_size()
     scale = d ** -0.5
-    mma = dtype == torch.bfloat16     # the tensor-core face (flash_attention.cu)
     instrs: list[Instr] = []
 
     # ---- loads -------------------------------------------------------------
@@ -70,8 +72,7 @@ def make_program(*, bq: int, bk: int, n_chunks: int, d: int, sq: int,
         name="ld_q", kind=Kind.MEM, inputs=(), outputs=("q",),
         fn=lambda env: {"q": env["q_ref"][0].float()},
         buffer="q", bytes=bq * d * esize,
-        src="if (first) load_rows<BQ, BQP>(qp, Q, q0, sq); cp_async_commit();"
-        if mma else "if (first) load_rows<BQ, LDQ>(qp, Q, q0, sq);"))
+        src="if (first) load_rows<BQ, BQP>(qp, Q, q0, sq); cp_async_commit();"))
 
     def ld_k(env, c):
         return {f"k{c}": env["k_ref"][0, c * ck:(c + 1) * ck, :].float()}
@@ -101,21 +102,18 @@ def make_program(*, bq: int, bk: int, n_chunks: int, d: int, sq: int,
                             outputs=(f"k{c}",), fn=functools.partial(ld_k, c=c),
                             buffer="k", bytes=ck * d * esize,
                             src=f"load_rows<CK, CKP>(kp, K{c}, kb + {c * ck}, "
-                                f"skv); cp_async_commit();" if mma else
-                                f"load_rows<CK, LDK>(kp, K{c}, "
-                                f"kb + {c * ck}, skv);"))
+                                f"skv); cp_async_commit();"))
         instrs.append(Instr(name=f"qk{c}", kind=Kind.COMPUTE,
                             inputs=("q", f"k{c}"), outputs=(f"s{c}",),
                             fn=functools.partial(qk, c=c),
                             flops=2 * bq * ck * d,
-                            src=f"qk_tile(Q, K{c}, S[{c}]);" if mma
-                            else f"qk_tile(Q, K{c}, S{c});"))
+                            src=f"qk_tile(Q, K{c}, S[{c}]);"))
         instrs.append(Instr(name=f"mask{c}", kind=Kind.COMPUTE,
                             inputs=(f"s{c}",), outputs=(f"sm{c}", f"mask{c}"),
                             fn=functools.partial(mk_mask, c=c),
                             flops=bq * ck,
-                            src=f"mask_tile({f'S[{c}]' if mma else f'S{c}'}, "
-                                f"kb + {c * ck}, q0, off, sq, kv_len);"))
+                            src=f"mask_tile(S[{c}], kb + {c * ck}, q0, off, "
+                                f"sq, kv_len);"))
 
     # ---- read running stats (carried across kv blocks) -----------------------
     def ld_stats(env):
@@ -145,16 +143,13 @@ def make_program(*, bq: int, bk: int, n_chunks: int, d: int, sq: int,
         out["l_new"] = l_new
         return out
 
-    chunks = ", ".join(f"S{c}" for c in range(n_chunks))
     instrs.append(Instr(
         name="softmax", kind=Kind.COMPUTE,
         inputs=("m_prev", "l_prev") + tuple(f"sm{c}" for c in range(n_chunks))
                + tuple(f"mask{c}" for c in range(n_chunks)),
         outputs=("m_new", "l_new", "corr") + tuple(f"p{c}" for c in range(n_chunks)),
         fn=softmax_update, flops=6 * bq * bk,
-        src="softmax_rows(S, m_r, l_r, acc, kb, q0, off, sq, kv_len);" if mma
-        else f"{{ float* const sc[NCH] = {{{chunks}}}; softmax_rows(sc, m_s, "
-             f"l_s, c_s, kb, q0, off, sq, kv_len, acc); }}"))
+        src="softmax_rows(S, m_r, l_r, acc, kb, q0, off, sq, kv_len);"))
 
     # ---- PV and accumulator ---------------------------------------------------
     def pv(env, c):
@@ -165,15 +160,12 @@ def make_program(*, bq: int, bk: int, n_chunks: int, d: int, sq: int,
                             outputs=(f"v{c}",), fn=functools.partial(ld_v, c=c),
                             buffer="v", bytes=ck * d * esize,
                             src=f"load_rows<CK, CKP>(vp, V{c}, kb + {c * ck}, "
-                                f"skv); cp_async_commit();" if mma else
-                                f"load_rows<CK, D>(vp, V{c}, kb + {c * ck}, "
-                                f"skv);"))
+                                f"skv); cp_async_commit();"))
         instrs.append(Instr(name=f"pv{c}", kind=Kind.COMPUTE,
                             inputs=(f"p{c}", f"v{c}"), outputs=(f"pv{c}",),
                             fn=functools.partial(pv, c=c),
                             flops=2 * bq * ck * d,
-                            src=f"pv_tile(S[{c}], V{c}, acc);" if mma
-                            else f"pv_tile(S{c}, V{c}, acc);"))
+                            src=f"pv_tile(S[{c}], V{c}, acc);"))
 
     def accumulate(env):
         acc = env["corr"] * env["acc_prev"]
@@ -207,8 +199,7 @@ def make_program(*, bq: int, bk: int, n_chunks: int, d: int, sq: int,
                         inputs=("acc_new", "l_new"), outputs=(),
                         fn=st_o, buffer="o", is_store=True,
                         bytes=bq * d * esize,
-                        src="if (last) store_o(op, acc, l_r, q0, sq);" if mma
-                        else "if (last) store_o(op, acc, l_s, q0, sq);"))
+                        src="if (last) store_o(op, acc, l_r, q0, sq);"))
     return Program(instrs, replications=replications)
 
 
@@ -262,103 +253,63 @@ class FlashKernel:
         self._kernels: dict[int, _build.Kernel] = {}
 
     @property
-    def mma(self) -> bool:
-        """bf16 runs the tensor-core kernel (``csrc/flash_attention.cu``),
-        float32 the FMA kernel (``csrc/flash_attention_f32.cu``)."""
-        return self.dtype == "bfloat16"
-
-    @property
     def threads(self) -> int:
-        if self.mma:
-            return 2 * -(-self.bq // 16) * 16   # a warp per 16-row strip
-        return 256 if self.bq >= 16 else 128
+        return 2 * -(-self.bq // 16) * 16   # a warp per 16-row strip
 
     # ------------------------------------------------------------ CUDA face
     def source(self) -> tuple[str, int]:
         """The emitted CUDA text of this schedule and its shared memory in
-        bytes; raises ``UnassemblableSchedule`` when that exceeds a block or
-        (bf16) a warp's scores and output do not fit its registers."""
+        bytes; raises ``UnassemblableSchedule`` when that exceeds a block, a
+        warp's scores and output do not fit its registers, or head_dim is
+        not whole 16-byte copies."""
         if self._text is None:
-            self._text = self._source_mma() if self.mma \
-                else self._source_f32()
+            self._text = self._source()
         return self._text
 
-    def _defines(self) -> dict:
-        return {"T": CTYPES[self.dtype], "BQ": self.bq, "BK": self.bk,
-                "CK": self.bk // self.n_chunks, "NCH": self.n_chunks,
-                "D": self.d, "NT": self.threads, "CAUSAL": int(self.causal),
-                "WINDOW": self.window or 0,
-                "SCALE": cfloat(float(torch.tensor(self.d ** -0.5)))}
-
-    def _source_mma(self) -> tuple[str, int]:
+    def _source(self) -> tuple[str, int]:
         bq, d, nch = self.bq, self.d, self.n_chunks
-        if d % 8:
+        f32 = self.dtype == "float32"
+        esize = 4 if f32 else 2
+        per_copy = 16 // esize
+        if d % per_copy:
             raise UnassemblableSchedule(f"{FUNCTION}: head_dim {d} is not a "
-                                        f"multiple of 8 (16-byte copies)")
+                                        f"multiple of {per_copy} (16-byte "
+                                        f"copies of {self.dtype})")
         ck = self.bk // nch
-        bqp, ckp, dp = (-(-x // 16) * 16 for x in (bq, ck, d))
-        ld = dp + 8                   # a 16-byte pad per row: no conflicts
-        # a thread keeps two rows of every score chunk and of the output
-        _build.check_regs(FUNCTION, self.threads, nch * ckp // 2 + dp // 2)
+        # rows to whole 16-row strips; D and keys to the product's depth of
+        # 32 bytes (m16n8k16 bf16, m16n8k8 tf32)
+        depth = 32 // esize
+        bqp = -(-bq // 16) * 16
+        ckp, dp = (-(-x // depth) * depth for x in (ck, d))
+        ld = dp + per_copy            # a 16-byte pad per row: no conflicts
+        # a thread keeps two rows of every score chunk and of the output,
+        # and (3xTF32) the hi and lo halves of an A fragment
+        _build.check_regs(FUNCTION, self.threads,
+                          nch * ckp // 2 + dp // 2 + (8 if f32 else 0))
         buffer_of = {"q": "Q"}
         for c in range(nch):
             buffer_of.update({f"k{c}": f"K{c}", f"v{c}": f"V{c}"})
-        sizes = {"Q": bqp * ld * 2}
+        sizes = {"Q": bqp * ld * esize}
         for c in range(nch):
-            sizes.update({f"K{c}": ckp * ld * 2, f"V{c}": ckp * ld * 2})
+            sizes.update({f"K{c}": ckp * ld * esize,
+                          f"V{c}": ckp * ld * esize})
         plan = plan_shared(self.program, self.order, buffer_of, sizes,
                            pinned=("Q",))
         _build.check_smem(FUNCTION, plan.total)
         body = self.program.emit(self.order,
                                  before=AsyncPlanner(plan, buffer_of))
-        defines = {**self._defines(), "BQP": bqp, "CKP": ckp, "DP": dp,
-                   "LD": ld, "NTK": ckp // 8, "NTD": dp // 8}
+        defines = {"T": CTYPES[self.dtype], "TF32": int(f32), "BQ": bq,
+                   "BK": self.bk, "CK": ck, "NCH": nch, "D": d,
+                   "NT": self.threads, "CAUSAL": int(self.causal),
+                   "WINDOW": self.window or 0,
+                   "SCALE": cfloat(float(torch.tensor(d ** -0.5))),
+                   "BQP": bqp, "CKP": ckp, "DP": dp, "LD": ld,
+                   "NTK": ckp // 8, "NTD": dp // 8}
+        operands = _build.template("flash_attention_f32.cu") if f32 else ""
         text = emit_kernel(
-            _build.template("sip_common.cuh")
+            _build.template("sip_common.cuh") + operands
             + _build.template("flash_attention.cu"), defines,
             buffer_decls(plan, {b: "T" for b in sizes}), body)
-        return text, plan.total
-
-    def _source_f32(self) -> tuple[str, int]:
-        bq, d, nch = self.bq, self.d, self.n_chunks
-        ck = self.bk // nch
-        ldq = ldk = d + 1             # one word per row: no conflicts
-        lds = ck + 1
-        buffer_of = {"q": "Q"}
-        for c in range(nch):
-            buffer_of.update({f"k{c}": f"K{c}", f"v{c}": f"V{c}"})
-            for v in ("s", "sm", "mask", "p"):
-                buffer_of[f"{v}{c}"] = f"S{c}"
-        for v in ("m_prev", "l_prev", "m_new", "l_new", "corr"):
-            buffer_of[v] = "STATS"
-        sizes = {"Q": bq * ldq * 4, "STATS": 3 * bq * 4}
-        for c in range(nch):
-            sizes.update({f"K{c}": ck * ldk * 4, f"V{c}": ck * d * 4,
-                          f"S{c}": bq * lds * 4})
-        plan = plan_shared(self.program, self.order, buffer_of, sizes,
-                           pinned=("Q", "STATS"))
-        _build.check_smem(FUNCTION, plan.total)
-        body = self.program.emit(self.order,
-                                 before=SyncPlanner(plan, buffer_of))
-        nt = self.threads
-        # thread grids: (QK_TR x QK_TC) over a score chunk's (rows, keys),
-        # tiled only when it fills the block; (TR x TC) over the output's
-        # (rows, columns), which owns the acc registers
-        qk_tc = divisor_at_most(ck, 16)
-        qk_tr = divisor_at_most(bq, nt // qk_tc)
-        tc = divisor_at_most(d, 32)
-        tr = divisor_at_most(bq, nt // tc)
-        defines = {**self._defines(),
-                   "QK_TILED": int(qk_tr * qk_tc == nt), "QK_TR": qk_tr,
-                   "QK_TC": qk_tc, "QK_TM": bq // qk_tr, "QK_TN": ck // qk_tc,
-                   "TR": tr, "TC": tc, "TM": bq // tr, "TN": d // tc,
-                   "LDQ": ldq, "LDK": ldk, "LDS": lds}
-        ctype = {b: "float" if b.startswith(("S", "STATS")) else "T"
-                 for b in sizes}
-        text = emit_kernel(
-            _build.template("sip_common.cuh")
-            + _build.template("flash_attention_f32.cu"), defines,
-            buffer_decls(plan, ctype), body)
         return text, plan.total
 
     def _launch(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -367,7 +318,7 @@ class FlashKernel:
         _check(q, k, v, self.dtype, self.d)
         b, hq, sq, d = q.shape
         _, hkv, skv, _ = k.shape
-        if self.mma and any(t.data_ptr() % 16 for t in (q, k, v)):
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
             raise ValueError("flash_attention: q, k and v must start on "
                              "16-byte boundaries (the kernel copies 16 bytes "
                              "at a time)")
@@ -389,6 +340,7 @@ class FlashKernel:
                              ctypes.c_int(sq), ctypes.c_int(skv),
                              ctypes.c_int(kv_len)])
             launches += 1
+            dtype_launches[self.dtype] += 1
         return out
 
     # ------------------------------------------------------------- CPU face

@@ -13,8 +13,9 @@ the CPU face, on CUDA tensors it emits, builds (once per text) and launches
 the CUDA kernel, counting ``launches``.  :func:`paged_gather` is the model's
 entry point: the plain version on CPU tensors, the registry's shared
 instance (``ops.paged_gather``, serving the active cache's schedule) on
-CUDA tensors.  Page ids in [-P, 0) wrap to id + P on both faces, as the
-reference's ``jnp.take`` does.
+CUDA tensors.  Page ids follow the reference kernel's contract on every
+face (``ref.page_ids``): an id in [-P, 0) wraps to id + P, and then every
+id is clamped into [0, P - 1].
 """
 
 from __future__ import annotations
@@ -68,8 +69,7 @@ def make_program(*, ps: int, h: int, d: int, rows: int, n_chunks: int,
                 name=f"ld_r{r}c{c}", kind=Kind.MEM, inputs=(),
                 outputs=(f"t{r}_{c}",), fn=functools.partial(ld, r=r, c=c),
                 buffer="store", bytes=nbytes,
-                src=f"U t{r}_{c}[PER]; load_tile<{r}, {c}>(src, t{r}_{c}, "
-                    f"ok);"))
+                src=f"U t{r}_{c}[PER]; load_tile<{r}, {c}>(src, t{r}_{c});"))
             instrs.append(Instr(
                 name=f"st_r{r}c{c}", kind=Kind.MEM, inputs=(f"t{r}_{c}",),
                 outputs=(), fn=functools.partial(st, r=r, c=c),
@@ -170,10 +170,11 @@ class GatherKernel:
                  page_table: torch.Tensor) -> torch.Tensor:
         b, n = page_table.shape
         out = torch.empty((b, n) + tuple(store.shape[1:]), dtype=store.dtype)
+        pages = ref.page_ids(page_table, store.shape[0])
         for bi in range(b):
             for i in range(n):
                 self.program.execute(
-                    {"store_ref": store[int(page_table[bi, i])],
+                    {"store_ref": store[int(pages[bi, i])],
                      "out_ref": out[bi, i]}, self.order)
         return out
 

@@ -4,8 +4,8 @@ against its plain version at the default and at seeded random legal orders
 head groups do not divide, RMSNorm at every point of its knob space and at
 row counts its blocks do not divide, the tensor-core gemm at tiles smaller than its
 instructions and at the paper's shape with a hoisted order, bf16 flash at
-an ld_v-hoisted order, padded bidirectional flash calls),
-the gather's wrap of negative page ids, and a paged engine run on the card
+an ld_v-hoisted order in bf16 and float32, padded bidirectional flash
+calls), the gather's page-id contract (wrap and clamp), and a paged engine run on the card
 token-identical to the same run on the CPU.  Marked ``cuda``: they skip without a card.  On the GPU
 machine:
 
@@ -93,6 +93,20 @@ def test_paged_gather_wraps_negative_ids(cuda):
         assert torch.equal(got, pg_ref.paged_gather(store, pt))
         assert torch.equal(got[0, 0], store[8]) and torch.equal(got[0, 1],
                                                                 store[0])
+
+
+def test_paged_gather_clamps_ids_outside_the_store(cuda):
+    """Ids outside [-P, P) read the page the JAX kernel reads: P = 4, ids
+    0, -1, 5, -6 read pages 0, 3, 3, 0, as the plain version does."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    for dtype in (torch.float32, torch.bfloat16):
+        store = torch.randn((4, 8, 2, 32), generator=g, device=cuda).to(dtype)
+        pt = torch.tensor([[0, -1, 5, -6]], dtype=torch.int32, device=cuda)
+        before = pg.launches
+        got = pg.paged_gather(store, pt)
+        assert pg.launches == before + 1
+        assert torch.equal(got[0], store[[0, 3, 3, 0]])
+        assert torch.equal(got, pg_ref.paged_gather(store, pt))
 
 
 @pytest.mark.parametrize("seed", [None, 1, 2, 3])
@@ -319,12 +333,15 @@ def test_gemm_tile_that_no_block_can_hold_is_rejected(cuda):
     assert gf.launches == before
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("order", ["v_hoisted", 1, 2])
-def test_bf16_flash_matches_plain_at_reordered_loads(cuda, order):
+def test_bf16_flash_matches_plain_at_reordered_loads(cuda, order, dtype):
+    """bf16 within 2e-2, float32 (3xTF32) within 1e-4, at the order that
+    hoists each ld_v{c} and at random legal orders."""
     from repro_torch.core import Schedule
     from repro_torch.kernels.flash_attention import ops as fa_ops
     st = dict(b=4, hq=16, hkv=8, sq=128, skv=128, d=128, causal=True,
-              window=None, dtype="bfloat16")
+              window=None, dtype=str(dtype).removeprefix("torch."))
     prog = fa_ops.build(Schedule(), **st).program
     if order == "v_hoisted":
         names = [ins.name for ins in prog.instrs]
@@ -337,10 +354,10 @@ def test_bf16_flash_matches_plain_at_reordered_loads(cuda, order):
         o = random_legal_order(prog, order)
     kern = fa_ops.build(Schedule(order=tuple(o)), **st)
     g = torch.Generator(device=cuda).manual_seed(7)
-    q = torch.randn((4, 16, 128, 128), generator=g, device=cuda).bfloat16()
-    k = torch.randn((4, 8, 128, 128), generator=g, device=cuda).bfloat16()
-    v = torch.randn((4, 8, 128, 128), generator=g, device=cuda).bfloat16()
-    assert _close(kern(q, k, v), fa_ref.attention(q, k, v), torch.bfloat16)
+    q = torch.randn((4, 16, 128, 128), generator=g, device=cuda).to(dtype)
+    k = torch.randn((4, 8, 128, 128), generator=g, device=cuda).to(dtype)
+    v = torch.randn((4, 8, 128, 128), generator=g, device=cuda).to(dtype)
+    assert _close(kern(q, k, v), fa_ref.attention(q, k, v), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

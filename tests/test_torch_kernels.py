@@ -98,6 +98,24 @@ def test_paged_gather_plain_matches_jax_kernel(shape, table):
     assert tpg.launches == 0
 
 
+def test_paged_gather_page_ids_outside_the_store_follow_the_jax_kernel():
+    """Ids outside [0, P): the JAX kernel's index map wraps [-P, 0) by +P
+    and clamps the rest into [0, P - 1]; the port's plain version and the
+    kernel's CPU face read the same pages (P = 4: ids 0, -1, 5, -6 read
+    pages 0, 3, 3, 0), where the JAX oracle's jnp.take gives NaN rows."""
+    store = np.random.default_rng(4).standard_normal((4, 8, 2, 8))
+    store = store.astype(np.float32)
+    pt = np.asarray([[0, -1, 5, -6]], np.int32)
+    want = np.asarray(jpg.paged_gather(jnp.asarray(store), jnp.asarray(pt),
+                                       rows=2, n_chunks=2, interpret=True))
+    np.testing.assert_array_equal(want, store[[[0, 3, 3, 0]]])
+    face = tpg.GatherKernel(ps=8, h=2, d=8, rows=2, n_chunks=2)
+    for got in (tpg.paged_gather(torch.from_numpy(store), torch.from_numpy(pt)),
+                face(torch.from_numpy(store), torch.from_numpy(pt))):
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert tpg.launches == 0
+
+
 def test_wrappers_reject_mixed_devices():
     """A CPU tensor beside a non-CPU one is not a CPU call: the wrapper
     validates for its kernel and refuses, it never falls back."""

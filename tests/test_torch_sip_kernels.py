@@ -73,7 +73,8 @@ def test_flash_cpu_face_matches_interpret_kernel(seed, knobs):
     got = tk(*[torch.from_numpy(a) for a in args])
     want = jk(*[jnp.asarray(a) for a in args])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    _check_source(tk, ["softmax_rows(sc,", "store_o(op, acc"])
+    _check_source(tk, ["softmax_rows(S, m_r,", "store_o(op, acc",
+                       "mma_tf32_1688("])
 
 
 @pytest.mark.parametrize("knobs", [{}, {"rows": 4, "n_chunks": 2}])
@@ -87,7 +88,7 @@ def test_gather_cpu_face_matches_interpret_kernel(seed, knobs):
     want = jk(jnp.asarray(store), jnp.asarray(pt))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(got.numpy()[0, 1], store[7])
-    _check_source(tk, ["load_tile<0, 0>(src, t0_0, ok);"])
+    _check_source(tk, ["load_tile<0, 0>(src, t0_0);"])
 
 
 def test_scheduled_kernels_count_no_launches_on_cpu():
@@ -162,9 +163,9 @@ FLASH_SERVE = dict(b=4, hq=16, hkv=8, sq=128, skv=128, d=128, causal=True,
 def test_flash_schedules_assemble_or_reject_and_wait_for_their_groups(case,
                                                                       seed):
     """At every knob point, the default and 5 random legal orders: each
-    schedule assembles within a block or raises UnassemblableSchedule; the
-    bf16 kernel's cp.async groups are complete before every read (the
-    float32 kernel loads synchronously)."""
+    schedule assembles within a block or raises UnassemblableSchedule, and
+    its cp.async groups are complete before every read (bf16 and float32
+    both load with cp.async)."""
     from tests.test_torch_core import check_schedules
     if case == "serve_bf16":
         static = FLASH_SERVE
@@ -172,18 +173,19 @@ def test_flash_schedules_assemble_or_reject_and_wait_for_their_groups(case,
         _, static = _smoke("flash_attention_causal")
         static = {**static, "dtype": case.split("_")[1].replace(
             "bf16", "bfloat16").replace("f32", "float32")}
-    built, _ = check_schedules("flash_attention_causal", static, seed,
-                               replay=static["dtype"] == "bfloat16")
+    built, _ = check_schedules("flash_attention_causal", static, seed)
     assert built > 0
 
 
-def test_flash_ld_v_hoisted_order_overlaps_v_with_qk():
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_ld_v_hoisted_order_overlaps_v_with_qk(dtype):
     """Hoisting each ld_v{c} next to its ld_k{c} leaves V's group in flight
     through Q K^T and the softmax: the first wait keeps groups pending, and
     the order needs more shared memory than the default."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from tests.test_torch_core import replay_async_groups
-    base = fa_ops.build(tcore.Schedule(), **FLASH_SERVE)
+    static = {**FLASH_SERVE, "dtype": dtype}
+    base = fa_ops.build(tcore.Schedule(), **static)
     prog = base.program
     names = [ins.name for ins in prog.instrs]
     order = [i for i in prog.default_order()
@@ -192,11 +194,34 @@ def test_flash_ld_v_hoisted_order_overlaps_v_with_qk():
         order.insert(order.index(names.index(f"ld_k{c}")) + 1,
                      names.index(f"ld_v{c}"))
     assert prog.is_legal(order)
-    hoisted = fa_ops.build(tcore.Schedule(order=tuple(order)), **FLASH_SERVE)
+    hoisted = fa_ops.build(tcore.Schedule(order=tuple(order)), **static)
     text, smem = hoisted.source()
     assert smem > base.source()[1]
     assert replay_async_groups(prog, text) == 2 * base.n_chunks + 2
     assert "cp_async_wait<1>();" in text
+
+
+def _function(text, name):
+    """The body of the CUDA function ``name`` in ``text``: from its
+    signature to the first line that closes it."""
+    start = text.index(f" {name}(")
+    return text[start:text.index("\n}\n", start)]
+
+
+def test_f32_flash_products_run_on_the_tensor_cores():
+    """The float32 kernel's two products are 3xTF32 mma.sync (three
+    products a k8 step), its scores stay in registers, and no fp32 FMA
+    loop over shared memory is left."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    kern = fa_ops.build(tcore.Schedule(), **{**FLASH_SERVE,
+                                             "dtype": "float32"})
+    text, _ = kern.source()
+    for name in ("qk_tile", "pv_tile"):
+        body = _function(text, name)
+        assert body.count("mma_tf32_1688(") == 3, name
+        assert "split_trunc(" in body and "ldmatrix" not in body, name
+    assert "fmaf" not in text and "float S[NCH][NTK][4];" in text
+    assert "STATS" not in text
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
