@@ -18,6 +18,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import io
 import itertools
@@ -25,6 +26,7 @@ import json
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -34,6 +36,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs, kernels, obs  # noqa: E402
+from repro_torch.autotune import (AutotuneConfig, AutotuneService,  # noqa: E402
+                                  EventLog, load_events, recorder_source,
+                                  serve_targets, validate_events)
 from repro_torch.core import (Schedule, ScheduleCache, SipKernel,  # noqa: E402
                               TuneConfig, registry, schedule_cache)
 from repro_torch.core.energy import (UnassemblableSchedule,  # noqa: E402
@@ -56,6 +61,7 @@ from repro_torch.kernels.rmsnorm import ref as rk_ref  # noqa: E402
 from repro_torch.kernels.ssd import kernel as sk  # noqa: E402
 from repro_torch.kernels.ssd import ops as sk_ops  # noqa: E402
 from repro_torch.kernels.ssd import ref as sk_ref  # noqa: E402
+from repro_torch.launch import obsreport as obsreport_cli  # noqa: E402
 from repro_torch.launch import tune as tune_cli  # noqa: E402
 from repro_torch.launch import verify as verify_cli  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -75,6 +81,12 @@ BF16, F32 = torch.bfloat16, torch.float32
 #: every kernel module; each counts its launches
 KERNEL_MODULES = (gf, fa, pg, sk, rk)
 
+
+#: the live service's search per key: the JAX package's per-cycle round
+#: (one short guided anneal on the cost model), its best checked on the card
+#: by the final test and the gate's sweep instead of a step test per
+#: candidate, so that a cycle builds about one text per key
+LIVE_TUNE = dataclasses.replace(AutotuneConfig().tune, step_samples=0)
 
 T0 = time.perf_counter()
 
@@ -1201,6 +1213,164 @@ def phase_profile(params, cfg, scfg: ServeConfig,
     return out
 
 
+def _serve_pass(params, cfg, scfg: ServeConfig, store: ScheduleCache,
+                prompts, budgets, recorder) -> dict:
+    """The traffic once, on a fresh engine serving from ``store`` and
+    recording into ``recorder``: its tokens, tokens/s, schedule swaps, and
+    the decode step that follows each swap beside the step p50."""
+    tracer = obs.Tracer()
+    with schedule_cache(store), obs.tracing(tracer):
+        eng = ContinuousEngine(params, cfg, scfg, recorder=recorder)
+        t0 = time.perf_counter()
+        handles = [eng.submit(p, b) for p, b in zip(prompts, budgets)]
+        eng.run(max_steps=10_000)
+        # this thread's stream only: a tuning thread's work is not serving's
+        torch.cuda.current_stream().synchronize()
+        wall = time.perf_counter() - t0
+    events = tracer.events()
+    decode = [(e["ts"], e["dur"] / 1e3) for e in events
+              if e["name"] == "serve.decode"]
+    swaps = [e["ts"] for e in events if e["name"] == "serve.schedule_swap"]
+    tokens = [list(r.tokens) for r in handles]
+    return {"wall_s": wall, "tokens_per_s": sum(map(len, tokens)) / wall,
+            "schedule_swaps": eng.stats["schedule_swaps"],
+            "decode_step_p50_ms": float(np.percentile(
+                [d for _, d in decode], 50)),
+            "decode_step_after_swap_ms": [
+                next(d for t, d in decode if t >= ts) for ts in swaps
+                if any(t >= ts for t, _ in decode)],
+            "tokens": tokens}
+
+
+def _promoted_served(store: ScheduleCache, events: list[dict]) -> list[dict]:
+    """Each promotion in the journal: whether its schedule is the
+    signature's default, and how often the serving engines launched the
+    kernel built from it (the per-schedule count of the kernel object the
+    store's registry instance built for it; the tuning thread builds its
+    own)."""
+    rows = []
+    for ev in events:
+        if ev["kind"] != "promoted":
+            continue
+        spec = registry.spec(ev["kernel"])
+        static = json.loads(ev["signature"])
+        sched = Schedule.from_json(ev["schedule_sig"])
+        prog = spec.program_for(sched, **static)
+        kern = registry.get(ev["kernel"], store).built(static, sched)
+        rows.append({
+            "kernel": ev["kernel"], "workload": ev["workload"],
+            "b": static["b"], "sq": static.get("sq"),
+            "default": sched.resolve_order(prog) == prog.default_order()
+            and dict(sched.knobs) == spec.space_for(**static).default_knobs(),
+            "serving_launches": kern.launches if kern is not None else 0})
+    return rows
+
+
+def phase_autotune(params, cfg, workdir: Path) -> dict:
+    """Live autotuning on the main path: the ``serve`` phase's engine and
+    traffic, recorded into a fresh live store's AutotuneService running on
+    its own thread (and CUDA stream), as ``launch.serve --autotune`` runs
+    it.  After a warm-up, the traffic runs once without the service, then
+    again with it
+    (a fresh engine per run, same prompts) until a promotion has swapped
+    into a running engine and a promoted non-default schedule has served,
+    then once more after the service stopped.  Tokens must equal the
+    first run's in every run."""
+    scfg = ServeConfig(max_len=512, capacity=8, paged=True, page_size=16,
+                       prefill_chunk=128, prefix_cache=True)
+    prompts, budgets = _serve_requests(cfg.vocab)
+    d = workdir / "autotune"
+    d.mkdir()
+    # fresh: every entry of the live store is one of the service's
+    store = ScheduleCache(str(d / "live.json"))
+    recorder = obs.WorkloadRecorder(str(d / "live_mix.jsonl"))
+    journal = str(d / "live.json.autotune.jsonl")
+    svc = AutotuneService(
+        store, source=recorder_source(recorder),
+        target_for=serve_targets(cfg, scfg),
+        config=AutotuneConfig(interval_s=1.0, budget=2, tune=LIVE_TUNE),
+        log=EventLog(journal), device="cuda")
+    builds_before = dict(_build.STATS.compiles_by_thread)
+    # warm-up, not recorded or counted: the store's registry instances
+    # resolve and emit every signature's default text here (loaded, not
+    # compiled: the serve phase built them)
+    _serve_pass(params, cfg, scfg, store, prompts, [2] * len(prompts), None)
+    run = functools.partial(_serve_pass, params, cfg, scfg, store, prompts,
+                            budgets, recorder)
+    baseline = run()
+    passes = []
+    t_start = time.perf_counter()
+    svc.start()
+    try:
+        while True:
+            passes.append(run())
+            served = _promoted_served(store, list(svc.log.events))
+            if sum(p["schedule_swaps"] for p in passes) and any(
+                    r["serving_launches"] and not r["default"]
+                    for r in served):
+                break
+            if time.perf_counter() - t_start > 180:
+                raise AssertionError(
+                    f"no promoted non-default schedule served within 180 s: "
+                    f"swaps {[p['schedule_swaps'] for p in passes]}, "
+                    f"promotions {served}, service {svc.metrics()}")
+    finally:
+        svc.stop(timeout=None)
+        svc.log.close()
+        recorder.close()
+    with_service_s = time.perf_counter() - t_start
+    served = _promoted_served(store, svc.log.events)
+    after = run()
+    builds = {t: n - builds_before.get(t, 0)
+              for t, n in _build.STATS.compiles_by_thread.items()
+              if n != builds_before.get(t, 0)}
+
+    m = svc.metrics()
+    errors = [ev["error"] for ev in svc.log.events if ev["kind"] == "error"]
+    if m["errors"] or errors:
+        raise AssertionError(f"autotune cycles failed on the card: {errors}")
+    events = load_events(journal)
+    if validate_events(events):
+        raise AssertionError(f"journal invalid: {validate_events(events)}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = obsreport_cli.main([journal, "--kind", "autotune"])
+    report = buf.getvalue().splitlines()
+    if rc != 0 or not any("promoted=" in ln for ln in report):
+        raise AssertionError(f"obsreport --kind autotune: rc {rc} {report}")
+    tuned = [ev["kernel"] for ev in events if ev["kind"] == "tuned"]
+    if not set(tuned) & {fa_ops.variant_name(True, None), pg_ops.NAME}:
+        raise AssertionError(f"no flash or gather target tuned: {tuned}")
+    if m["promotions"] < 1 or not any(p["schedule_swaps"] for p in passes):
+        raise AssertionError(f"promotions {m['promotions']}, swaps "
+                             f"{[p['schedule_swaps'] for p in passes]}")
+    if builds.get(threading.main_thread().name, 0):
+        raise AssertionError(f"the serving thread ran nvcc: {builds}")
+    for i, p in enumerate(passes + [after]):
+        if p["tokens"] != baseline["tokens"]:
+            raise AssertionError(f"run {i + 1}: tokens differ from the run "
+                                 f"without the service")
+    cycles = [ev for ev in events if ev["kind"] == "cycle"]
+    keep = ("wall_s", "tokens_per_s", "schedule_swaps",
+            "decode_step_p50_ms", "decode_step_after_swap_ms")
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+           "requests": len(prompts), "token_identical": True,
+           "cycles": int(m["cycles"]), "tuned": int(m["tuned"]),
+           "promotions": int(m["promotions"]),
+           "quarantines": int(m["quarantines"]),
+           "rejections": int(m["rejections"]),
+           "cycle_s": [ev["seconds"] for ev in cycles],
+           "cycle_tuned": [ev["tuned"] for ev in cycles],
+           "builds_by_thread": builds,
+           "promoted": served, "with_service_s": with_service_s,
+           "without_service": {k: baseline[k] for k in keep},
+           "with_service": [{k: p[k] for k in keep} for p in passes],
+           "after_service": {k: after[k] for k in keep},
+           "journal_report": report}
+    emit("autotune", **out)
+    return out
+
+
 #: the kernels the serving engine dispatches through the registry
 SERVED = (fa_ops.variant_name(True, None), pg_ops.NAME)
 
@@ -1261,9 +1431,12 @@ def put_served_schedules(path: Path, served: dict[str, list]) -> dict:
 def phase_differential(sip_cache: str, workdir: Path) -> dict:
     """Full width, 4 layers, float32: the paged continuous engine is
     token-identical to single-request Engine.generate, in fifo and reversed
-    arrival, and under a tuned store: the card's smoke store plus a
-    non-default schedule at every signature the fifo run served, each of
-    which the tuned run must resolve."""
+    arrival, under a tuned store (the card's smoke store plus a non-default
+    schedule at every signature the fifo run served, each of which the
+    tuned run must resolve), and across a promotion mid-run: two requests
+    in flight, one AutotuneService cycle over the engine's recorded mix
+    commits into the store the engine serves from, then the other three
+    arrive and must be served by the promoted flash schedule."""
     cfg = dataclasses.replace(configs.get("qwen3-1.7b"), n_layers=4,
                               dtype="float32")
     params = M.init_lm(cfg, seed=1, device="cuda")
@@ -1325,10 +1498,50 @@ def phase_differential(sip_cache: str, workdir: Path) -> dict:
                              f"flash: {stats}")
     stats["tuned_cache"].update(schedules_put=put,
                                 non_default_resolved=resolved)
+    stats["autotune_swap"] = _differential_swap(params, cfg, scfg, prompts,
+                                                budgets, want)
     out = {"n_layers": cfg.n_layers, "dtype": cfg.dtype,
            "requests": len(prompts), "token_identical": True, **stats}
     emit("differential", **out)
     return out
+
+
+def _differential_swap(params, cfg, scfg: ServeConfig, prompts, budgets,
+                       want) -> dict:
+    """The swap run of ``differential``: a service cycle commits mid-run."""
+    store = ScheduleCache()
+    recorder = obs.WorkloadRecorder()
+    svc = AutotuneService(
+        store, source=recorder_source(recorder),
+        target_for=serve_targets(cfg, scfg),
+        config=AutotuneConfig(budget=2, tune=LIVE_TUNE), device="cuda")
+    reset_launches()
+    with schedule_cache(store):
+        eng = ContinuousEngine(params, cfg, scfg, recorder=recorder)
+        uids = {eng.submit(prompts[i], budgets[i]).uid: i for i in (0, 1)}
+        got = {}
+        for _ in range(3):
+            got.update({r.uid: r.output for r in eng.step()})
+        cycle = svc.run_once()              # commits while 0 and 1 decode
+        swaps_before = eng.stats["schedule_swaps"]
+        uids.update({eng.submit(prompts[i], budgets[i]).uid: i
+                     for i in (2, 3, 4)})
+        got.update(eng.run(max_steps=1000))
+    for uid, i in uids.items():
+        if not np.array_equal(got[uid], want[i]):
+            raise AssertionError(f"differential (autotune_swap): request {i} "
+                                 f"gave {got[uid].tolist()}, Engine gave "
+                                 f"{want[i].tolist()}")
+    served = _promoted_served(store, svc.log.events)
+    if svc.metrics()["errors"] or eng.stats["schedule_swaps"] != 1 \
+            or swaps_before != 0 or not any(
+                r["serving_launches"] and not r["default"] for r in served):
+        raise AssertionError(f"differential (autotune_swap): cycle {cycle}, "
+                             f"swaps {eng.stats['schedule_swaps']}, "
+                             f"promotions {served}, {svc.log.events[-1]}")
+    return {"cycle": cycle, "schedule_swaps": eng.stats["schedule_swaps"],
+            "promoted": served, "launches": {SERVED[0]: fa.launches,
+                                             SERVED[1]: pg.launches}}
 
 
 def _ssm_requests(vocab: int):
@@ -1516,6 +1729,7 @@ def main() -> int:
     phase_profile(params, cfg, ServeConfig(max_len=512, capacity=8,
                                            paged=True, page_size=16,
                                            prefill_chunk=128))
+    phase_autotune(params, cfg, workdir)
     del params
     torch.cuda.empty_cache()
     phase_differential(sip["cache"], workdir)

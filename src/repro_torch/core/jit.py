@@ -162,7 +162,18 @@ class SipKernel:
         """Run the schedule resolved for ``args``' signature; ``kwargs``
         (runtime scalars such as flash's ``kv_len``) go to the kernel and
         are not part of the signature."""
-        static = self.static_of(*args)
+        return self.kernel_for(self.static_of(*args))(*args, **kwargs)
+
+    def built(self, static: dict[str, Any],
+              schedule: Schedule) -> Callable[..., Any] | None:
+        """The kernel this instance built for ``static`` under ``schedule``,
+        or None if it never served that pair."""
+        return self._built.get((self.sig_str(static), schedule.signature()))
+
+    def kernel_for(self, static: dict[str, Any]) -> Callable[..., Any]:
+        """The built kernel that serves ``static``'s signature: the cache's
+        best schedule for it (the default when it has none), built once per
+        (signature, schedule)."""
         sig = self.sig_str(static)
         if self._resolved_version != self.cache.version:
             # the shared store gained entries — possibly tuned through a
@@ -179,7 +190,7 @@ class SipKernel:
                 fn = self._build(sched, **static)
                 self._built[key] = fn
             self._resolved[sig] = fn
-        return fn(*args, **kwargs)
+        return fn
 
     # ---------------------------------------------------------------- tuning
     def tune(self, example_args: Sequence[Any],

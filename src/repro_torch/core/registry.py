@@ -59,12 +59,29 @@ class Workload:
     ``make_args(rng)`` returns the example argument list ``SipKernel.tune``
     consumes; ``suites`` tags which tuning suites include it ("default" for
     real deployment shapes, "smoke" for the tiny CI shapes every kernel must
-    provide).
+    provide).  ``dtypes`` names, per argument, the dtype its tensor takes
+    (a bfloat16 argument is drawn as float32 numpy, which has no bfloat16,
+    and rounded when it becomes a tensor); an argument it does not cover
+    keeps its draw's dtype.
     """
 
     name: str
     make_args: Callable[[np.random.Generator], Sequence[Any]]
     suites: tuple[str, ...] = ("default",)
+    dtypes: tuple[str, ...] = ()
+
+    def arg_dtypes(self, args: Sequence[Any]) -> list[str]:
+        """The tensor dtype of each of ``args`` (a ``make_args`` draw)."""
+        return [self.dtypes[i] if i < len(self.dtypes)
+                else np.asarray(a).dtype.name for i, a in enumerate(args)]
+
+    def tensors(self, rng: np.random.Generator, device: Any = "cpu") -> list:
+        """One ``make_args`` draw as tensors of :meth:`arg_dtypes` on
+        ``device``: the arguments a tune or a correctness sweep runs on."""
+        from repro_torch.core.testing import to_tensor
+        args = list(self.make_args(rng))
+        return [to_tensor(a, dt, device)
+                for a, dt in zip(args, self.arg_dtypes(args))]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -47,12 +47,14 @@ _CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES = 8
 
 @dataclasses.dataclass
 class BuildStats:
-    """What the builds of this process cost: ``compiles`` nvcc runs and
-    their ``compile_s`` seconds, texts found on disk (``disk_hits``) or
-    already loaded (``memo_hits``), ``compile_failures``, and schedules
-    rejected before any compile because their shared memory exceeds
-    :data:`SMEM_LIMIT` (``smem_rejections``) or their accumulators do not
-    fit their threads' registers (``reg_rejections``)."""
+    """What the builds of this process cost: ``compiles`` nvcc runs (and
+    their count per thread by name, ``compiles_by_thread``: a serving
+    thread beside a tuning one) and their ``compile_s`` seconds, texts
+    found on disk (``disk_hits``) or already loaded (``memo_hits``),
+    ``compile_failures``, and schedules rejected before any compile because
+    their shared memory exceeds :data:`SMEM_LIMIT` (``smem_rejections``) or
+    their accumulators do not fit their threads' registers
+    (``reg_rejections``)."""
 
     compiles: int = 0
     compile_s: float = 0.0
@@ -61,6 +63,8 @@ class BuildStats:
     compile_failures: int = 0
     smem_rejections: int = 0
     reg_rejections: int = 0
+    compiles_by_thread: dict[str, int] = dataclasses.field(
+        default_factory=dict)
 
     def snapshot(self) -> dict:
         d = dataclasses.asdict(self)
@@ -70,12 +74,17 @@ class BuildStats:
 
     def reset(self) -> None:
         for f in dataclasses.fields(self):
-            setattr(self, f.name, f.default)
+            setattr(self, f.name, f.default
+                    if f.default_factory is dataclasses.MISSING
+                    else f.default_factory())
 
 
 STATS = BuildStats()
 _lock = threading.Lock()
 _kernels: dict[tuple[str, int], "Kernel"] = {}
+#: one lock per text being built, so a thread loading a text that is built
+#: already never waits on another thread's nvcc
+_building: dict[tuple[str, int], threading.Lock] = {}
 _templates: dict[str, str] = {}
 
 
@@ -148,7 +157,8 @@ def compile_many(texts: Sequence[tuple[str, str]]) -> list[Path]:
     todo, seen = [], set()
     for (name, src), path in zip(texts, paths):
         if path.exists() or path in seen:
-            STATS.disk_hits += path.exists()
+            with _lock:
+                STATS.disk_hits += path.exists()
             continue
         seen.add(path)
         todo.append((src, path))
@@ -179,9 +189,13 @@ def compile_many(texts: Sequence[tuple[str, str]]) -> list[Path]:
                 tmp.unlink(missing_ok=True)
                 failed.append(f"nvcc failed on {path.with_suffix('.cu')} "
                               f"(exit {proc.returncode}):\n{log}")
-    STATS.compiles += len(todo)
-    STATS.compile_s += time.perf_counter() - t0
-    STATS.compile_failures += len(failed)
+    thread = threading.current_thread().name
+    with _lock:
+        STATS.compiles += len(todo)
+        STATS.compiles_by_thread[thread] = \
+            STATS.compiles_by_thread.get(thread, 0) + len(todo)
+        STATS.compile_s += time.perf_counter() - t0
+        STATS.compile_failures += len(failed)
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths
@@ -296,6 +310,14 @@ def load(name: str, source: str, smem: int,
         if kern is not None:
             STATS.memo_hits += 1
             return kern
-        (path,) = compile_many([(name, source)])
-        kern = _kernels[key] = Kernel(path, name, smem, device)
-        return kern
+        building = _building.setdefault(key, threading.Lock())
+    with building:            # nvcc runs outside the memo's lock
+        with _lock:
+            kern = _kernels.get(key)
+        if kern is None:
+            (path,) = compile_many([(name, source)])
+            kern = Kernel(path, name, smem, device)
+            with _lock:
+                _kernels[key] = kern
+                _building.pop(key, None)
+    return kern

@@ -251,6 +251,9 @@ class FlashKernel:
             raise ValueError("illegal schedule order")
         self._text: tuple[str, int] | None = None
         self._kernels: dict[int, _build.Kernel] = {}
+        #: this schedule's own launches (the module's ``launches`` counts
+        #: every schedule's, from every thread)
+        self.launches = 0
 
     @property
     def threads(self) -> int:
@@ -341,6 +344,7 @@ class FlashKernel:
                              ctypes.c_int(kv_len)])
             launches += 1
             dtype_launches[self.dtype] += 1
+            self.launches += 1
         return out
 
     # ------------------------------------------------------------- CPU face

@@ -106,6 +106,9 @@ class GatherKernel:
         self._tile_units = tile_units
         self._text: str | None = None
         self._kernels: dict[int, _build.Kernel] = {}
+        #: this schedule's own launches (the module's ``launches`` counts
+        #: every schedule's, from every thread)
+        self.launches = 0
 
     # ------------------------------------------------------------ CUDA face
     def source(self) -> tuple[str, int]:
@@ -163,6 +166,7 @@ class GatherKernel:
                          ctypes.c_void_p(out.data_ptr()),
                          ctypes.c_int(store.shape[0])])
         launches += 1
+        self.launches += 1
         return out
 
     # ------------------------------------------------------------- CPU face

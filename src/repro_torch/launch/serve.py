@@ -27,7 +27,20 @@ interleaves long-prompt prefill with decode, ``--no-prefix-cache`` /
 ``--admission`` set sharing and overload policy.  ``--sip-cache PATH``
 serves inside ``schedule_cache(PATH)``, so the kernels run the schedules
 ``repro_torch.launch.tune`` persisted there (the default schedule for any
-shape the store lacks).
+shape the store lacks).  ``--record-workloads PATH`` streams the live
+(shape, dtype, occupancy) mix to a replayable JSONL
+(``repro_torch.obs.WorkloadRecorder``; ``repro_torch.launch.autotune``
+tails it from another process).
+
+``--autotune`` (requires ``--sip-cache``) runs the always-on tuning service
+(``repro_torch.autotune``) on a background thread: every
+``--autotune-interval`` seconds it drains the live mix, tunes up to
+``--autotune-budget`` workloads in a shadow store on ``--device`` (on the
+card, on a CUDA stream of its own), gates candidates through the
+correctness sweep and energy margin, and commits winners into the live
+store — the engine hot-swaps them before its next dispatch, no restart.
+Decisions journal to ``--autotune-log`` (summarize with
+``repro_torch.launch.obsreport --kind autotune``).
 """
 
 from __future__ import annotations
@@ -143,6 +156,9 @@ def main(argv: list[str] | None = None) -> None:
                     help="write a Chrome-trace JSON of the run")
     ap.add_argument("--metrics-json", default=None,
                     help="write the engine's metrics-registry snapshot")
+    ap.add_argument("--record-workloads", default=None,
+                    help="record the live workload mix to a replayable "
+                         "JSONL (repro_torch.obs.WorkloadRecorder)")
     ap.add_argument("--prompt-len-min", type=int, default=8)
     ap.add_argument("--prompt-len-max", type=int, default=48)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -173,7 +189,23 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--sip-cache", default=None,
                     help="serve the SIP-tuned schedules of this schedule "
                          "cache (repro_torch.launch.tune --cache)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="run the always-on autotune service alongside the "
+                         "engine: tune the live mix, gate, hot-swap winners "
+                         "into --sip-cache (see repro_torch.autotune)")
+    ap.add_argument("--autotune-interval", type=float, default=10.0,
+                    help="seconds between autotune cycles")
+    ap.add_argument("--autotune-budget", type=int, default=2,
+                    help="workloads tuned per autotune cycle")
+    ap.add_argument("--autotune-log", default=None,
+                    help="autotune decision journal JSONL (default: "
+                         "<sip-cache>.autotune.jsonl)")
     args = ap.parse_args(argv)
+    if args.autotune and not args.sip_cache:
+        ap.error("--autotune requires --sip-cache (a live store to promote "
+                 "into)")
+    if args.autotune and args.static:
+        ap.error("--autotune requires the continuous engine (drop --static)")
 
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
     params = M.init_lm(cfg, seed=args.seed, device=args.device)
@@ -194,7 +226,32 @@ def main(argv: list[str] | None = None) -> None:
                for t in traffic]
 
     tracer = obs.Tracer() if args.trace else None
+    # streaming mode: records hit the JSONL as they happen, so an external
+    # autotune daemon can tail the file while this process serves
+    recorder = (obs.WorkloadRecorder(args.record_workloads)
+                if args.record_workloads
+                else obs.WorkloadRecorder() if args.autotune else None)
     reg = obs.MetricsRegistry()
+    service = None
+    if args.autotune:
+        from repro_torch.autotune import (AutotuneConfig, AutotuneService,
+                                          EventLog, TuneHistory,
+                                          recorder_source, serve_targets)
+        from repro_torch.core.registry import cache_for_path
+        from repro_torch.tuning.state import SearchState
+        state_path = args.sip_cache + ".autotune.state.json"
+        service = AutotuneService(
+            cache_for_path(args.sip_cache),
+            source=recorder_source(recorder),
+            target_for=serve_targets(cfg, scfg),
+            config=AutotuneConfig(interval_s=args.autotune_interval,
+                                  budget=args.autotune_budget),
+            history=TuneHistory(args.sip_cache + ".history.json"),
+            state=(SearchState.load(state_path)
+                   or SearchState(path=state_path)),
+            log=EventLog(args.autotune_log
+                         or args.sip_cache + ".autotune.jsonl"),
+            obs=reg, device=args.device)
     with contextlib.ExitStack() as stack:
         if tracer is not None:
             stack.enter_context(obs.tracing(tracer))
@@ -205,15 +262,30 @@ def main(argv: list[str] | None = None) -> None:
                                   args.capacity)
             print(f"[serve:static] {json.dumps(report)}")
         else:
-            eng = ContinuousEngine(params, cfg, scfg, obs=reg)
-            report = drive_continuous(eng, traffic, prompts)
+            eng = ContinuousEngine(params, cfg, scfg, obs=reg,
+                                   recorder=recorder)
+            if service is not None:
+                service.start()
+            try:
+                report = drive_continuous(eng, traffic, prompts)
+            finally:
+                if service is not None:
+                    service.stop()
+                    service.log.close()
             print(f"[serve:continuous] {json.dumps(report)}")
+            if service is not None:
+                print(f"[serve] autotune: {json.dumps(service.metrics())}")
     if tracer is not None:
         tracer.save(args.trace)
         print(f"[serve] trace written to {args.trace}")
     if args.metrics_json:
         reg.save_json(args.metrics_json)
         print(f"[serve] metrics snapshot written to {args.metrics_json}")
+    if recorder is not None:
+        recorder.close()
+        if args.record_workloads:
+            print(f"[serve] workload mix ({len(recorder)} records) written "
+                  f"to {args.record_workloads}")
 
 
 if __name__ == "__main__":

@@ -25,7 +25,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core.registry import registry, schedule_cache, workload_seed
-from repro_torch.core.testing import InputSpec, probabilistic_test
+from repro_torch.core.testing import InputSpec, probabilistic_test, to_tensor
 
 
 def verify_workload(spec, workload, *, samples: int, seed: int,
@@ -39,8 +39,13 @@ def verify_workload(spec, workload, *, samples: int, seed: int,
     deployment path."""
     rng = np.random.default_rng(
         workload_seed(spec.name, workload.name, seed) ^ 0x5EED)
-    example = [np.asarray(a) for a in workload.make_args(rng)]
-    input_specs = [InputSpec(tuple(a.shape), a.dtype) for a in example]
+    draw = [np.asarray(a) for a in workload.make_args(rng)]
+    dtypes = workload.arg_dtypes(draw)
+    input_specs = [InputSpec(tuple(a.shape), dt)
+                   for a, dt in zip(draw, dtypes)]
+    # the signature of the tensors the sweep runs on (a bfloat16 argument's
+    # draw is float32 numpy)
+    example = [to_tensor(a, dt, "cpu") for a, dt in zip(draw, dtypes)]
     if schedule is not None:
         static = spec.signature_fn(*example)
         fn = spec.build(schedule, **static)

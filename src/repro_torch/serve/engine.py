@@ -26,9 +26,14 @@ conv and SSD states are spliced into slots as KV segments are, prompts must
 cover the conv's receptive field (``conv_width - 1`` tokens), and paged
 serving refuses the family, as the JAX engine does.
 
-The engines run on the device of the params.  Tensor-parallel serving, the
-schedule hot-swap and the workload recorder of the JAX package are not
-ported yet (ROADMAP.md, Queue 1).
+The engines run on the device of the params.  Kernels resolve their
+schedules from the ``repro_torch.core.registry.schedule_cache`` scope the
+engine is built in; a commit to that store mid-flight (an autotune
+promotion) is picked up before the next dispatch, restart-free
+(:meth:`ContinuousEngine._maybe_refresh_schedules`).  An optional
+:class:`~repro_torch.obs.recorder.WorkloadRecorder` logs the live
+(shape, dtype, occupancy) mix, record for record as the JAX engine does.
+Tensor-parallel serving is not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -41,10 +46,12 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.core.registry import active_schedule_cache
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig, check_supported
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.recorder import WorkloadRecorder
 from repro_torch.serve.pages import PagePool, PagesExhausted, PrefixCache
 from repro_torch.serve.slots import SlotPool
 
@@ -75,9 +82,11 @@ def _device_of(params) -> torch.device:
 
 
 def _sync(device: torch.device) -> None:
-    """Wait for the device's queued work (a dispatch's time ends here)."""
+    """Wait for the work this thread queued (a dispatch's time ends here):
+    the current stream only, so an autotune thread's kernels on its own
+    stream never stall serving."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 def _generator(device: torch.device, seed: int) -> torch.Generator:
@@ -212,14 +221,17 @@ class ContinuousEngine:
     ``Engine.generate`` for every request, whatever the arrival order.
 
     ``stats`` keeps every counter of the JAX engine: ``prefill_compiles``
-    counts distinct prefill shapes exactly as JAX counts its compiles, and
-    ``schedule_swaps`` stays 0 (no hot-swap in the port yet).
+    counts distinct prefill shapes exactly as JAX counts its compiles (and
+    restarts with a swap, as JAX's trace caches do), and ``schedule_swaps``
+    counts the store commits the engine picked up mid-flight.  ``recorder``
+    (optional) logs every submit, prefill and decode dispatch.
     """
 
     def __init__(self, params, cfg: ModelConfig,
                  scfg: ServeConfig | None = None,
                  on_token: Callable[[Request, int], None] | None = None,
                  obs: obs_metrics.MetricsRegistry | None = None,
+                 recorder: WorkloadRecorder | None = None,
                  mesh=None):
         check_supported(cfg)
         if mesh is not None:
@@ -233,6 +245,7 @@ class ContinuousEngine:
         self.device = _device_of(params)
         self.on_token = on_token
         self.obs = obs if obs is not None else obs_metrics.MetricsRegistry()
+        self.recorder = recorder
         self.pool = SlotPool(scfg.capacity)
         # conv-state shapes only stabilize once the prompt covers the conv
         # receptive field — shorter prompts would prefill a cache segment that
@@ -273,6 +286,12 @@ class ContinuousEngine:
         else:
             self.caches = M.alloc_slot_caches(cfg, scfg.capacity,
                                               scfg.max_len, device=self.device)
+        self._make_dispatchers()
+        # schedule hot-swap: the store the engine is built under and its
+        # version; _maybe_refresh_schedules() swaps when the version moves
+        self._sched_cache = active_schedule_cache()
+        self._sched_version = (self._sched_cache.version
+                               if self._sched_cache is not None else 0)
         self.tokens = np.zeros(scfg.capacity, np.int32)   # next decode inputs
         self._gen = _generator(self.device, scfg.seed)
         self._uid = 0
@@ -290,6 +309,38 @@ class ContinuousEngine:
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
+
+    def _make_dispatchers(self) -> None:
+        """(Re)build what the engine dispatches through; called at
+        construction and on every schedule swap.  The JAX engine re-creates
+        its jitted step functions here, since a jit trace would keep the
+        schedules it resolved.  Eager dispatch keeps nothing to drop: each
+        registry kernel re-resolves its schedule on its first call after
+        the store's version moves (``SipKernel.__call__``), so the next
+        dispatch already serves the new schedule.  Captured step graphs
+        would be re-captured here."""
+
+    def _maybe_refresh_schedules(self) -> None:
+        """Pick up a commit to the store the engine was built under (an
+        autotune promotion, or a tuning session sharing the store) without
+        a restart: count the swap, restart the compile accounting, rebuild
+        the dispatchers and mark the trace.  Caches, page tables, slots and
+        requests in flight are untouched.
+
+        Polled before EVERY dispatch (admission prefill, chunked prefill,
+        decode), not only at the top of :meth:`step`: a commit can land
+        mid-step (an autotune thread promoting between the admission
+        prefill and the decode, or an ``on_token`` callback committing
+        during emission), and the rest of that step must not run on stale
+        schedules."""
+        cache = self._sched_cache
+        if cache is None or not cache.changed_since(self._sched_version):
+            return
+        self._sched_version = cache.version
+        self._c["schedule_swaps"].inc()
+        self._prefill_shapes_seen.clear()
+        self._make_dispatchers()
+        obs_trace.instant("serve.schedule_swap", version=cache.version)
 
     # -------------------------------------------------------------- ingress
     def submit(self, prompt: np.ndarray, max_new_tokens: int,
@@ -340,6 +391,12 @@ class ContinuousEngine:
                       submitted_at=time.perf_counter())
         self._uid += 1
         self._c["submitted"].inc()
+        if self.recorder is not None:
+            self.recorder.record("submit", prompt_len=len(prompt),
+                                 dtype=self.cfg.dtype,
+                                 new_tokens=max_new_tokens,
+                                 occupancy=self.pool.occupancy,
+                                 queue_depth=self.pool.queue_depth)
         self.pool.submit(req)
         return req
 
@@ -349,6 +406,7 @@ class ContinuousEngine:
         """Admit + prefill waiting requests into free slots, then run one
         lockstep decode over the occupied batch.  Returns requests that
         finished during this step."""
+        self._maybe_refresh_schedules()
         finished: list[Request] = []
         if self.paged:
             self._admit_paged(finished)
@@ -388,24 +446,30 @@ class ContinuousEngine:
 
     # ------------------------------------------------------------ internals
     def _decode_contiguous(self, finished: list[Request]) -> None:
+        self._maybe_refresh_schedules()
         occ = self.pool.occupancy
         t0 = time.perf_counter()
         with obs_trace.span("serve.decode", occupancy=occ):
             logits, self.caches = M.decode_step(
                 self.params, self.caches, self._dev(self.tokens), self.cfg)
             tok = _pick(logits, self.scfg.temperature, self._gen).cpu().numpy()
-        self._record_decode(time.perf_counter() - t0)
+        self._record_decode(time.perf_counter() - t0, occ)
         for slot, req in list(self.pool.held()):
             self.tokens[slot] = int(tok[slot])
             self._emit(slot, req, int(tok[slot]), finished)
 
-    def _record_decode(self, dt: float) -> None:
+    def _record_decode(self, dt: float, occupancy: int) -> None:
         self._c["decode_s"].inc(dt)
         self._c["decode_steps"].inc()
         self._h_decode.record(dt)
+        if self.recorder is not None:
+            self.recorder.record("decode", batch=self.capacity,
+                                 dtype=self.cfg.dtype, occupancy=occupancy,
+                                 queue_depth=self.pool.queue_depth)
 
     def _admit_group(self, group: list[tuple[int, Request]],
                      finished: list[Request]) -> None:
+        self._maybe_refresh_schedules()
         t0 = time.perf_counter()
         slots = np.asarray([s for s, _ in group], np.int32)
         prompts = np.stack([r.prompt for _, r in group])
@@ -444,6 +508,11 @@ class ContinuousEngine:
         self._h_prefill.record(dt)
         self._c["prefill_tokens"].inc(int(prompts.size))
         self._c["admitted"].inc(len(group))
+        if self.recorder is not None:
+            self.recorder.record("prefill", prompt_len=int(prompts.shape[1]),
+                                 batch=len(group), dtype=self.cfg.dtype,
+                                 occupancy=self.pool.occupancy,
+                                 queue_depth=self.pool.queue_depth)
         now = time.perf_counter()
         for (slot, req), tok in zip(group, toks):
             req.admitted_at = now
@@ -534,6 +603,7 @@ class ContinuousEngine:
         """Advance the head chunk task by ONE chunk, so a long prompt cannot
         stall the decode batch for its whole length.  The final (short)
         chunk runs zero-padded at the fixed chunk shape."""
+        self._maybe_refresh_schedules()
         task = self._chunk_tasks[0]
         req, slot = task.req, task.slot
         remaining = len(req.prompt) - task.pos
@@ -557,6 +627,11 @@ class ContinuousEngine:
         self._h_prefill.record(dt)
         self._c["prefill_tokens"].inc(int(n))
         self._c["chunk_steps"].inc()
+        if self.recorder is not None:
+            self.recorder.record("prefill", prompt_len=int(cs), batch=1,
+                                 dtype=self.cfg.dtype,
+                                 occupancy=self.pool.occupancy,
+                                 queue_depth=self.pool.queue_depth)
         task.pos += n
         if task.pos < len(req.prompt):
             return
@@ -590,6 +665,7 @@ class ContinuousEngine:
                     if s not in self._prefilling]
         if not decoding:
             return
+        self._maybe_refresh_schedules()
         occ = len(decoding)
         active = np.zeros(self.capacity, bool)
         active[decoding] = True
@@ -599,7 +675,7 @@ class ContinuousEngine:
                 self.params, self.caches, self._dev(self.tokens), self.cfg,
                 pt=self._dev(self._pt), active=self._dev(active))
             tok = _pick(logits, self.scfg.temperature, self._gen).cpu().numpy()
-        self._record_decode(time.perf_counter() - t0)
+        self._record_decode(time.perf_counter() - t0, occ)
         for slot, req in list(self.pool.held()):
             if slot in self._prefilling:
                 continue

@@ -38,7 +38,6 @@ from repro_torch.core.jit import TuneConfig
 from repro_torch.core.registry import (KernelRegistry, Workload,
                                        cache_for_path, registry,
                                        workload_seed)
-from repro_torch.core.testing import to_tensor
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.tuning.state import SearchState
@@ -217,8 +216,7 @@ class TuningSession:
         the autotune service's history seam; it must be compatible with the
         workload's knob space (``SipKernel.tune`` raises otherwise)."""
         seed = workload_seed(kernel, workload.name, self.config.seed)
-        args = [to_tensor(a, np.asarray(a).dtype, self.device)
-                for a in workload.make_args(np.random.default_rng(seed))]
+        args = workload.tensors(np.random.default_rng(seed), self.device)
         kern = self._kernel(kernel)
         sig = kern.sig_str(kern.static_of(*args))
         quarantine: set[str] | None = None

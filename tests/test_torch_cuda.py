@@ -5,8 +5,9 @@ head groups do not divide, RMSNorm at every point of its knob space and at
 row counts its blocks do not divide, the tensor-core gemm at tiles smaller than its
 instructions and at the paper's shape with a hoisted order, bf16 flash at
 an ld_v-hoisted order in bf16 and float32, padded bidirectional flash
-calls), the gather's page-id contract (wrap and clamp), and a paged engine run on the card
-token-identical to the same run on the CPU.  Marked ``cuda``: they skip without a card.  On the GPU
+calls), the gather's page-id contract (wrap and clamp), a paged engine run on the card
+token-identical to the same run on the CPU, and an autotune promotion on the card that the
+running engine swaps to and launches.  Marked ``cuda``: they skip without a card.  On the GPU
 machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -171,6 +172,54 @@ def _leaf(tree, path):
     for key in path:
         tree = tree[key]
     return tree
+
+
+def test_autotune_promotion_swaps_into_the_engine_on_card(cuda):
+    """One service cycle on the card over a running engine's recorded mix
+    promotes a flash schedule; the engine swaps and launches the kernel
+    built from it, and its tokens equal the CPU's."""
+    import json
+    from repro_torch.autotune import (AutotuneConfig, AutotuneService,
+                                      recorder_source, serve_targets)
+    from repro_torch.core import Schedule, ScheduleCache, registry
+    from repro_torch.core import schedule_cache
+    from repro_torch.obs import WorkloadRecorder
+    cfg = ModelConfig(name="t", family="dense", n_layers=2, d_model=128,
+                      n_heads=4, n_kv_heads=2, head_dim=32, d_ff=256,
+                      vocab=256, qk_norm=True, dtype="float32").validate()
+    params = M.init_lm(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(1, cfg.vocab, n).astype(np.int32), 6)
+            for n in (20, 20, 30, 30)]
+    # two groups of two: the second prefills (2, 4, 64, 32) after the swap
+    scfg = ServeConfig(max_len=48, capacity=2, paged=True, page_size=8)
+    cpu = ContinuousEngine(params, cfg, scfg)
+    uids = [cpu.submit(t, n).uid for t, n in reqs]
+    got = cpu.run(max_steps=500)
+    want = [got[u] for u in uids]
+
+    p = M.map_params(lambda path, _: _leaf(params, path).to(cuda),
+                     M.param_shapes(cfg))
+    store, rec = ScheduleCache(), WorkloadRecorder()
+    svc = AutotuneService(store, source=recorder_source(rec),
+                          target_for=serve_targets(cfg, scfg),
+                          config=AutotuneConfig(budget=2), device="cuda")
+    with schedule_cache(store):
+        eng = ContinuousEngine(p, cfg, scfg, recorder=rec)
+        uids = [eng.submit(t, n).uid for t, n in reqs[:2]]
+        eng.step()
+        assert svc.run_once()["promoted"] >= 1
+        uids += [eng.submit(t, n).uid for t, n in reqs[2:]]
+        got = eng.run(max_steps=500)
+    assert eng.stats["schedule_swaps"] == 1 and svc.metrics()["errors"] == 0
+    for u, w in zip(uids, want):
+        np.testing.assert_array_equal(got[u], w)
+    (flash,) = [ev for ev in svc.log.events if ev["kind"] == "promoted"
+                and ev["kernel"] == "flash_attention_causal"]
+    kern = registry.get(flash["kernel"], store).built(
+        json.loads(flash["signature"]), Schedule.from_json(
+            flash["schedule_sig"]))
+    assert kern is not None and kern.launches >= cfg.n_layers
 
 
 @pytest.mark.parametrize("seed", [None, 1, 2])

@@ -4,8 +4,9 @@ tests_passed) as the JAX package's ``TuningSession`` over the same kernels;
 ``verify`` passes on the tuned store; a ``--die-after 1`` run resumed with
 ``--resume`` leaves a cache byte-identical to an uninterrupted run; ``--list``
 shows the registered kernels; serving reads the store with ``--sip-cache``;
-tune and verify refuse CUDA without a card; mamba2 serves on the CPU; and
-what is not ported raises."""
+tune, verify and the autotune daemon refuse CUDA without a card; mamba2
+serves on the CPU; the daemon tunes a stream the server recorded; and what
+is not ported raises."""
 
 import json
 import os
@@ -139,8 +140,67 @@ def test_serve_mamba2_smoke_on_cpu():
     assert "paged serving supports the dense family, not 'ssm'" in res.stderr
 
 
-@pytest.mark.parametrize("module", ["train", "autotune"])
+@pytest.mark.parametrize("module", ["train"])
 def test_unported_launchers_point_at_the_roadmap(module):
     res = _run(module, check=False)
     assert res.returncode != 0
     assert "NotImplementedError" in res.stderr and "ROADMAP" in res.stderr
+
+
+def test_autotune_daemon_tunes_a_recorded_stream(tmp_path):
+    """``launch.serve --record-workloads`` streams the mix; the daemon tails
+    it for one cycle, promotes into its store and journals what it did."""
+    mix, cache = tmp_path / "mix.jsonl", tmp_path / "live.json"
+    _run("serve", "--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+         "--paged", "--requests", "3", "--capacity", "2", "--new-tokens",
+         "2", "--record-workloads", str(mix))
+    res = _run("autotune", "--arch", "qwen3-1.7b", "--smoke", "--device",
+               "cpu", "--cycles", "1", "--paged", "--capacity", "2",
+               "--cache", str(cache), "--recorder", str(mix))
+    (line,) = [ln for ln in res.stdout.splitlines()
+               if ln.startswith("[autotune] {")]
+    summary = json.loads(line.split(" ", 1)[1])
+    assert summary["tuned"] == summary["promoted"] == 2
+    journal = str(cache) + ".autotune.jsonl"
+    rep = _run("obsreport", journal, "--kind", "autotune", "--validate")
+    assert rep.stdout.strip().endswith(": OK")
+    assert len(json.loads(cache.read_text())) == 2
+
+
+def test_serve_runs_the_autotune_service(tmp_path):
+    """``launch.serve --autotune`` tunes the live mix on a background thread
+    while it serves, journals every decision and streams the mix."""
+    live, mix = tmp_path / "live.json", tmp_path / "mix.jsonl"
+    res = _run("serve", "--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+               "--paged", "--prefill-chunk", "16", "--requests", "8",
+               "--capacity", "3", "--sip-cache", str(live), "--autotune",
+               "--autotune-interval", "0.2", "--record-workloads", str(mix))
+    (line,) = [ln for ln in res.stdout.splitlines()
+               if ln.startswith("[serve] autotune: ")]
+    metrics = json.loads(line.split(": ", 1)[1])
+    assert metrics["cycles"] >= 1 and metrics["errors"] == 0
+    journal = str(live) + ".autotune.jsonl"
+    assert _run("obsreport", journal, "--kind", "autotune",
+                "--validate").returncode == 0
+    assert _run("obsreport", str(mix), "--kind", "workloads",
+                "--validate").returncode == 0
+
+
+@pytest.mark.parametrize("extra,error", [
+    ([], "--autotune requires --sip-cache"),
+    (["--sip-cache", "x.json", "--static"],
+     "--autotune requires the continuous engine")])
+def test_serve_refuses_autotune_without_a_live_engine(extra, error):
+    res = _run("serve", "--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+               "--autotune", *extra, check=False)
+    assert res.returncode != 0 and error in res.stderr
+
+
+def test_autotune_daemon_refuses_cuda_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default succeeds")
+    res = _run("autotune", "--arch", "qwen3-1.7b", "--smoke", "--cycles",
+               "1", "--cache", str(tmp_path / "c.json"), "--recorder",
+               str(tmp_path / "mix.jsonl"), check=False)
+    assert res.returncode != 0
+    assert "CUDA" in res.stderr and "[autotune] {" not in res.stdout
