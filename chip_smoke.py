@@ -2,8 +2,9 @@
 against its plain version at its default schedule and at seeded random legal
 orders, run the SIP loop on the card (smoke tune, verify, a wall-clock tune
 of each kernel), serve qwen3-1.7b at full width through the paged
-continuous engine and mamba2-2.7b at full width through the contiguous one,
-and print one JSON line per phase.
+continuous engine, and mamba2-2.7b, zamba2-7b (hybrid) and h2o-danube-1.8b
+(sliding window) at full width through the contiguous one, and print one
+JSON line per phase.
 
     python3 chip_smoke.py
 
@@ -310,17 +311,21 @@ FLASH_CASES = [(1, 2, 2, 16, 16, 8, True, None),
     (2, 16, 8, 37, 100, 128, True, None),
     (8, 16, 8, 100, 100, 128, True, None),
     (3, 16, 8, 45, 45, 32, True, None),
-    (1, 16, 8, 70, 70, 64, True, None)]
+    (1, 16, 8, 70, 70, 64, True, None),
+    (1, 32, 32, 128, 128, 112, True, None),     # zamba2's shared block
+    (1, 32, 8, 300, 300, 80, True, 64)]         # h2o-danube's, windowed
 #: (p, ps, h, d, b, n): smoke, deploy and the serve phase's store and table
 GATHER_SHAPES = [(8, 8, 2, 8, 2, 4), (64, 16, 4, 32, 8, 8),
                  (257, 16, 8, 128, 8, 32)]
 #: (g, q, h, p, n), float32 as on the model's path: the smoke and deploy
 #: workloads, a 384-token prompt padded to chunks of 64, the serve
-#: prefill's 256-token chunk, two such chunks, and a head count that the
-#: kernel's head groups do not divide
+#: prefill's 256-token chunk, two such chunks, a head count that the
+#: kernel's head groups do not divide, and zamba2's 256-token chunk and
+#: padded 384-token prompt (112 heads, state 64)
 SSD_SHAPES = [(2, 8, 2, 4, 8), (4, 16, 4, 8, 16), (6, 64, 80, 64, 128),
               (1, 256, 80, 64, 128), (2, 256, 80, 64, 128),
-              (2, 128, 3, 64, 128)]
+              (2, 128, 3, 64, 128), (1, 256, 112, 64, 64),
+              (6, 64, 112, 64, 64)]
 #: (rows, d): the smoke and deploy workloads and the model's width
 RMS_SHAPES = [(16, 32), (64, 128), (4096, 2560)]
 
@@ -662,7 +667,8 @@ def phase_flash(gen) -> dict:
     timed_f32 = flash_timed_f32(gen)
     out = {"cases": results, "max_abs_err_f32": worst[F32],
            "max_abs_err_bf16": worst[BF16], "timed_bf16_causal": timed,
-           "timed_f32_causal": timed_f32}
+           "timed_f32_causal": timed_f32,
+           "timed_bf16_serve_shapes": flash_serve_shapes(gen)}
     emit("flash_attention", **out)
     return {**out, **timed["b4_s128"], "max_abs_err": worst[BF16],
             "f32": {**timed_f32["b4_s128"], "max_abs_err": worst[F32]}}
@@ -690,6 +696,100 @@ def flash_orders(dtype, gen) -> dict:
         times[key].append(cuda_ms(lambda: pair[key](q, k, v)))
     orders.update({f"{key}_ms": float(np.mean(t)) for key, t in times.items()})
     return orders
+
+
+#: bf16 flash at the new serve paths' prefill shapes: label -> (b, hq, hkv,
+#: s, d, window); zamba2's 384-token prompt (MHA, D 112) and h2o-danube's
+#: 4,500-token prompt padded to 4,544 (GQA 4:1, D 80, window 4096)
+FLASH_SERVE_SHAPES = {"zamba2_b1_s384_d112": (1, 32, 32, 384, 112, None),
+                      "danube_b1_s4544_d80_w4096": (1, 32, 8, 4544, 80,
+                                                    4096)}
+
+
+#: the limit on a serve-shape flash call's largest per-row relative error
+#: ||got - want|| / ||want|| over the head dim.  Over 4,096 keys of
+#: unit-normal logits a typical output element is about 0.02, as small as
+#: the fixed atol of ``TOL``, so that check alone misses a dropped tile;
+#: bf16 rounds P and the output at 2**-8 each, a few 1e-3 of a row
+ROW_RTOL = 1e-2
+
+
+def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max over rows of ||got - want|| / ||want|| along the last axis."""
+    g, w = got.float(), want.float()
+    return ((g - w).norm(dim=-1) / w.norm(dim=-1)).max().item()
+
+
+def _zero_last_tile(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, H, S, D) with its last ``fa.SEQ_TILE`` keys zeroed."""
+    x = x.clone()
+    x[:, :, -fa.SEQ_TILE:] = 0
+    return x
+
+
+def flash_serve_shapes(gen) -> dict:
+    """bf16 flash through the model's entry point at the hybrid's and the
+    sliding-window model's serve prefills, against its plain version, the
+    bound for the work inside the masks, and SDPA (kv heads repeated and a
+    window's boolean mask made outside the timed region).  Besides
+    ``compare``, each row's relative error must be within ``ROW_RTOL``,
+    and two wrong calls must fail that check: the last key tile zeroed,
+    and (windowed) no window."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timed = {}
+    for label, (b, hq, hkv, s, d, window) in FLASH_SERVE_SHAPES.items():
+        q = _randn((b, hq, s, d), BF16, gen)
+        k = _randn((b, hkv, s, d), BF16, gen)
+        v = _randn((b, hkv, s, d), BF16, gen)
+        kr = k.repeat_interleave(hq // hkv, dim=1)
+        vr = v.repeat_interleave(hq // hkv, dim=1)
+
+        def kern():
+            return fa.flash_attention(q, k, v, causal=True, window=window)
+
+        def plain():
+            return fa_ref.attention(q, k, v, causal=True, window=window)
+
+        if window is None:
+            def library():
+                return sdpa(q, kr, vr, is_causal=True)
+        else:
+            rows = torch.arange(s, device="cuda")[:, None]
+            cols = torch.arange(s, device="cuda")[None, :]
+            mask = (cols <= rows) & (cols > rows - window)
+
+            def library():
+                return sdpa(q, kr, vr, attn_mask=mask)
+        before = fa.launches
+        got, want = kern(), plain()
+        if fa.launches != before + 1:
+            raise AssertionError(f"flash {label}: the kernel did not launch")
+        err = compare(got, want, BF16, f"flash {label}")
+        rel = row_rel_err(got, want)
+        # what a wrong kernel gives must fail the same check
+        controls = {"last_kv_tile_zeroed": row_rel_err(fa.flash_attention(
+            q, _zero_last_tile(k), _zero_last_tile(v), causal=True,
+            window=window), want)}
+        if window is not None:
+            controls["no_window"] = row_rel_err(fa.flash_attention(
+                q, k, v, causal=True, window=None), want)
+        del got
+        if rel > ROW_RTOL or min(controls.values()) <= ROW_RTOL:
+            raise AssertionError(f"flash {label}: row error {rel} against "
+                                 f"{ROW_RTOL}, controls {controls}")
+        bound_ms, bound_by = attention_bound_ms(b, hq, hkv, s, s, d, 2, True,
+                                                window, PEAK_FLOPS[BF16])
+        timed[label] = {
+            "shape": [b, hq, hkv, s, d], "window": window,
+            "max_abs_err": err, "max_abs_want": want.abs().max().item(),
+            "row_rel_err": rel, "row_rtol": ROW_RTOL,
+            "controls_row_rel_err": controls, "ms": cuda_ms(kern, iters=20),
+            "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+            "library_ms": cuda_ms(library, iters=20),
+            "library_max_abs_err": (library().float()
+                                    - want.float()).abs().max().item(),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    return timed
 
 
 #: float32 flash timed at a serve prefill, a longer one and the registry's
@@ -837,7 +937,8 @@ def phase_ssd(gen) -> dict:
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     vs_cpu = (got - want).abs().max().item()
     timed = {}
-    for shape in (SSD_SHAPES[3], SSD_SHAPES[2]):
+    for shape in (SSD_SHAPES[3], SSD_SHAPES[2], SSD_SHAPES[6],
+                  SSD_SHAPES[7]):
         args = ssd_inputs(*shape, gen)
         normal = ssd_inputs(*shape, gen, decaying=False)
         kern = ssd_kernel(ssd_static(*shape))
@@ -1554,14 +1655,17 @@ def _ssm_requests(vocab: int):
     return prompts, [int(n) for n in rng.integers(16, 33, len(prompts))]
 
 
-def phase_serve_ssm(params, cfg) -> dict:
-    """The SSM path: mamba2-2.7b at full width, bf16, on the contiguous
-    continuous engine with per-slot conv and SSD states."""
-    scfg = ServeConfig(max_len=512, capacity=8)
-    prompts, budgets = _ssm_requests(cfg.vocab)
-    # warm-up, not counted: the same prompts with 2 new tokens each builds
-    # the SSD schedule of every chunk length (256, and 64 for the padded
-    # rest) and warms cuBLAS and the allocator
+def _serve_contiguous(phase: str, params, cfg, scfg: ServeConfig, prompts,
+                      budgets, per_prefill: dict[str, int],
+                      names: dict[str, str]) -> dict:
+    """The traffic once on the contiguous continuous engine, timed, after a
+    warm-up that is not counted (the same prompts with 2 new tokens each:
+    it builds the schedule of every prefill shape and warms cuBLAS and the
+    allocator).  Checks that every request emits its budget, that each
+    kernel launched ``per_prefill[FUNCTION]`` times per prefill dispatch
+    (every other kernel 0 times) and that the timed run built nothing;
+    ``names`` maps an output field to the registry name whose served
+    signatures it lists."""
     warm = ContinuousEngine(params, cfg, scfg)
     for p in prompts:
         warm.submit(p, 2)
@@ -1578,7 +1682,8 @@ def phase_serve_ssm(params, cfg) -> dict:
     with obs.tracing(tracer), schedule_cache(ScheduleCache()) as store:
         handles = [eng.submit(p, b) for p, b in zip(prompts, budgets)]
         eng.run(max_steps=10_000)
-        served = registry.get(sk_ops.NAME, store).served_signatures()
+        served = {field: registry.get(name, store).served_signatures()
+                  for field, name in names.items()}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {m.FUNCTION: m.launches for m in KERNEL_MODULES}
@@ -1589,103 +1694,237 @@ def phase_serve_ssm(params, cfg) -> dict:
     s = eng.stats
     for r, b in zip(handles, budgets):
         if len(r.tokens) != b:
-            raise AssertionError(f"request {r.uid} emitted {len(r.tokens)} "
-                                 f"of {b} tokens")
+            raise AssertionError(f"{phase}: request {r.uid} emitted "
+                                 f"{len(r.tokens)} of {b} tokens")
         if not all(0 <= t < cfg.vocab for t in r.tokens):
-            raise AssertionError(f"request {r.uid}: token out of range")
-    want = {m.FUNCTION: 0 for m in KERNEL_MODULES}
-    want[sk.FUNCTION] = cfg.n_layers * n_prefill
+            raise AssertionError(f"{phase}: request {r.uid}: token out of "
+                                 f"range")
+    want = {m.FUNCTION: per_prefill.get(m.FUNCTION, 0) * n_prefill
+            for m in KERNEL_MODULES}
     if launches != want or n_prefill < 1:
-        raise AssertionError(f"launches {launches}, expected {want}")
-    chunks = sorted({sig["q"] for sig in served})
-    if 256 not in chunks:
-        raise AssertionError(f"no prefill ran the q = 256 chunk: {served}")
+        raise AssertionError(f"{phase}: launches {launches}, expected {want}")
+    builds = _build.STATS.compiles - compiles_before
+    if builds:
+        raise AssertionError(f"{phase}: {builds} nvcc builds in the timed run")
     ttft = [r.admitted_at - r.submitted_at for r in handles]
     tokens = sum(len(r.tokens) for r in handles)
-    out = {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
-           "requests": len(handles), "tokens": tokens, "wall_s": wall,
-           "tokens_per_s": tokens / wall,
-           "ttft_p50_ms": _pct_ms(ttft, 50), "ttft_p99_ms": _pct_ms(ttft, 99),
-           "decode_step_p50_ms": float(np.percentile(decode_us, 50)) / 1e3,
-           "prefill_s": s["prefill_s"], "decode_s": s["decode_s"],
-           "prefill_frac": eng.metrics()["prefill_frac"],
-           "prefill_dispatches": n_prefill, "decode_steps": s["decode_steps"],
-           "prefill_compiles": s["prefill_compiles"],
-           "ssd_signatures": served, "launches": launches,
-           "kernel_builds_in_timed_window":
-               _build.STATS.compiles - compiles_before,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+            "requests": len(handles), "tokens": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall,
+            "ttft_p50_ms": _pct_ms(ttft, 50), "ttft_p99_ms": _pct_ms(ttft, 99),
+            "decode_step_p50_ms": float(np.percentile(decode_us, 50)) / 1e3,
+            "prefill_s": s["prefill_s"], "decode_s": s["decode_s"],
+            "prefill_frac": eng.metrics()["prefill_frac"],
+            "prefill_dispatches": n_prefill, "decode_steps": s["decode_steps"],
+            "prefill_compiles": s["prefill_compiles"], **served,
+            "launches": launches,
+            "flash_launches_by_dtype": dict(fa.dtype_launches),
+            "kernel_builds_in_timed_window": builds,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_serve_ssm(params, cfg) -> dict:
+    """The SSM path: mamba2-2.7b at full width, bf16, on the contiguous
+    continuous engine with per-slot conv and SSD states."""
+    prompts, budgets = _ssm_requests(cfg.vocab)
+    out = _serve_contiguous(
+        "serve_ssm", params, cfg, ServeConfig(max_len=512, capacity=8),
+        prompts, budgets, {sk.FUNCTION: cfg.n_layers},
+        {"ssd_signatures": sk_ops.NAME})
+    chunks = sorted({sig["q"] for sig in out["ssd_signatures"]})
+    if 256 not in chunks:
+        raise AssertionError(f"no prefill ran the q = 256 chunk: "
+                             f"{out['ssd_signatures']}")
     emit("serve_ssm", **out)
+    return out
+
+
+def phase_serve_hybrid(params, cfg) -> dict:
+    """The hybrid path: zamba2-7b at full width and depth, bf16, on the
+    contiguous engine: per prefill the SSD kernel in each of the 81 mamba
+    blocks and flash (D 112, MHA) in the shared block of each group that
+    runs it."""
+    n_on = sum(M.hybrid_flags(cfg))
+    prompts, budgets = _ssm_requests(cfg.vocab)
+    out = _serve_contiguous(
+        "serve_hybrid", params, cfg, ServeConfig(max_len=512, capacity=8),
+        prompts, budgets, {sk.FUNCTION: cfg.n_layers, fa.FUNCTION: n_on},
+        {"ssd_signatures": sk_ops.NAME,
+         "flash_signatures": fa_ops.variant_name(True, None)})
+    if 256 not in {sig["q"] for sig in out["ssd_signatures"]}:
+        raise AssertionError(f"no prefill ran the q = 256 chunk: "
+                             f"{out['ssd_signatures']}")
+    if {(sig["h"], sig["n"], sig["p"]) for sig in out["ssd_signatures"]} \
+            != {(cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim)} or {
+                (sig["hq"], sig["hkv"], sig["d"], sig["dtype"])
+                for sig in out["flash_signatures"]} != {
+                (cfg.n_heads, cfg.n_kv_heads, cfg.hd, "bfloat16")}:
+        raise AssertionError(f"serve_hybrid: served signatures {out}")
+    out["attention_groups"] = n_on
+    emit("serve_hybrid", **out)
+    return out
+
+
+def _swa_requests(vocab: int):
+    """7 requests with prompts uniform in 16-384 and 16-32 new tokens, one
+    of 4,500 tokens (longer than the 4,096 window) with 16, and one of
+    4,070 with 48, whose decode wraps the 4,096-slot ring."""
+    rng = np.random.default_rng(6)
+    lens = [int(n) for n in rng.integers(16, 385, 7)] + [4500, 4070]
+    budgets = [int(n) for n in rng.integers(16, 33, 7)] + [16, 48]
+    prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+    return prompts, budgets
+
+
+def phase_serve_swa(params, cfg) -> dict:
+    """The sliding-window path: h2o-danube-1.8b at full width and depth,
+    bf16, on the contiguous engine with a 4,096-slot KV ring per slot:
+    flash (D 80, GQA 4:1, window 4096) in each layer of every prefill."""
+    prompts, budgets = _swa_requests(cfg.vocab)
+    out = _serve_contiguous(
+        "serve_swa", params, cfg, ServeConfig(max_len=4608, capacity=4),
+        prompts, budgets, {fa.FUNCTION: cfg.n_layers},
+        {"flash_signatures": fa_ops.variant_name(True, cfg.window)})
+    sigs = out["flash_signatures"]
+    if {(sig["hq"], sig["hkv"], sig["d"], sig["window"], sig["dtype"])
+            for sig in sigs} != {(cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                  cfg.window, "bfloat16")} \
+            or max(sig["sq"] for sig in sigs) <= cfg.window:
+        raise AssertionError(f"serve_swa: served signatures {sigs}")
+    out["kv_ring"] = M.kv_cache_len(cfg, 4608)
+    emit("serve_swa", **out)
+    return out
+
+
+def _differential_contiguous(phase: str, cfg, prompts, budgets,
+                             max_len: int, names: tuple[str, ...],
+                             sip_cache: str, workdir: Path) -> dict:
+    """``cfg`` (float32, seed 1) on the contiguous continuous engine,
+    token-identical to single-request Engine.generate, in fifo and
+    reversed arrival, and under the card's smoke store plus a non-default
+    schedule at every signature of ``names`` the fifo run served, each of
+    which the tuned run must resolve and launch."""
+    params = M.init_lm(cfg, seed=1, device="cuda")
+    ref = Engine(params, cfg, ServeConfig(max_len=max_len))
+    want = [ref.generate(p[None], b)[0] for p, b in zip(prompts, budgets)]
+    scfg = ServeConfig(max_len=max_len, capacity=3)
+    stats = {}
+
+    def run(order: str, cache: ScheduleCache | str):
+        idxs = list(range(len(prompts)))[::-1 if order == "reversed" else 1]
+        reset_launches()
+        with schedule_cache(cache) as store:
+            eng = ContinuousEngine(params, cfg, scfg)
+            uids = {eng.submit(prompts[i], budgets[i]).uid: i for i in idxs}
+            got = eng.run(max_steps=1000)
+            kerns = {name: registry.get(name, store) for name in names}
+            served = {name: k.served_signatures() for name, k in kerns.items()}
+        for uid, i in uids.items():
+            if not np.array_equal(got[uid], want[i]):
+                raise AssertionError(f"{phase} ({order}): request {i} gave "
+                                     f"{got[uid].tolist()}, Engine gave "
+                                     f"{want[i].tolist()}")
+        stats[order] = {k: eng.stats[k] for k in (
+            "decode_steps", "prefill_compiles")}
+        stats[order]["launches"] = {m.FUNCTION: m.launches
+                                    for m in KERNEL_MODULES}
+        return served, kerns
+
+    served, _ = run("fifo", ScheduleCache())
+    if not all(served.values()):
+        raise AssertionError(f"{phase}: the engine served no signature of a "
+                             f"kernel: { {k: len(v) for k, v in served.items()} }")
+    run("reversed", ScheduleCache())
+    tuned = workdir / f"sip_served_{phase}.json"
+    shutil.copy(sip_cache, tuned)
+    put = put_served_schedules(tuned, served)
+    served_tuned, kerns = run("tuned_cache", str(tuned))
+    store = ScheduleCache(str(tuned))
+    launched = {}
+    for name, sigs in served_tuned.items():
+        for static in sigs:
+            best = store.best(name, SipKernel.sig_str(static))
+            if best is None or best.order is None:
+                raise AssertionError(f"{phase} tuned run: {name} {static} "
+                                     f"resolved the default schedule")
+            kern = kerns[name].built(static, best)
+            if kern is None or kern.launches < 1:
+                raise AssertionError(f"{phase} tuned run: {name} {static} "
+                                     f"never launched its schedule")
+        launched[name] = len(sigs)
+    stats["tuned_cache"].update(schedules_put=put,
+                                non_default_resolved_and_launched=launched)
+    out = {"n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "requests": len(prompts), "token_identical": True,
+           "served": served, **stats}
     return out
 
 
 def phase_differential_ssm(sip_cache: str, workdir: Path) -> dict:
     """mamba2 at full width cut to 4 layers, float32: the contiguous
-    continuous engine is token-identical to single-request
-    Engine.generate, in fifo and reversed arrival, and under the card's
-    smoke store plus a non-default SSD schedule at every signature the fifo
-    run served, each of which the tuned run must resolve."""
+    continuous engine against Engine.generate (``_differential_contiguous``)
+    at the SSD's served signatures."""
     cfg = dataclasses.replace(configs.get("mamba2-2.7b"), n_layers=4,
                               dtype="float32")
-    params = M.init_lm(cfg, seed=1, device="cuda")
     rng = np.random.default_rng(5)
     # 256: a whole configured chunk; two prompts of 70 share one prefill
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
                for n in (23, 70, 256, 45, 70)]
-    budgets = [10, 8, 12, 9, 11]
-    ref = Engine(params, cfg, ServeConfig(max_len=512))
-    want = [ref.generate(p[None], b)[0] for p, b in zip(prompts, budgets)]
-    scfg = ServeConfig(max_len=512, capacity=3)
-    stats = {}
-
-    def run(order: str, cache: ScheduleCache | str) -> dict[str, list]:
-        idxs = list(range(len(prompts)))[::-1 if order == "reversed" else 1]
-        sk.launches = 0
-        with schedule_cache(cache) as store:
-            eng = ContinuousEngine(params, cfg, scfg)
-            uids = {eng.submit(prompts[i], budgets[i]).uid: i for i in idxs}
-            got = eng.run(max_steps=1000)
-            served = {sk_ops.NAME:
-                      registry.get(sk_ops.NAME, store).served_signatures()}
-        for uid, i in uids.items():
-            if not np.array_equal(got[uid], want[i]):
-                raise AssertionError(f"differential_ssm ({order}): request "
-                                     f"{i} gave {got[uid].tolist()}, Engine "
-                                     f"gave {want[i].tolist()}")
-        stats[order] = {k: eng.stats[k] for k in (
-            "decode_steps", "prefill_compiles")}
-        stats[order]["launches"] = {sk_ops.NAME: sk.launches}
-        return served
-
-    served = run("fifo", ScheduleCache())
-    if not served[sk_ops.NAME]:
-        raise AssertionError("the engine served no SSD signature")
-    run("reversed", ScheduleCache())
-    tuned = workdir / "sip_served_ssm.json"
-    shutil.copy(sip_cache, tuned)
-    put = put_served_schedules(tuned, served)
-    served_tuned = run("tuned_cache", str(tuned))
-    store = ScheduleCache(str(tuned))
-    for static in served_tuned[sk_ops.NAME]:
-        best = store.best(sk_ops.NAME, SipKernel.sig_str(static))
-        if best is None or best.order is None:
-            raise AssertionError(f"tuned run: {static} resolved the default "
-                                 f"schedule")
-    if stats["tuned_cache"]["launches"][sk_ops.NAME] < 1:
-        raise AssertionError(f"tuned run launched no SSD kernel: {stats}")
-    stats["tuned_cache"].update(
-        schedules_put=put,
-        non_default_resolved={sk_ops.NAME: len(served_tuned[sk_ops.NAME])})
-    out = {"n_layers": cfg.n_layers, "dtype": cfg.dtype,
-           "requests": len(prompts), "token_identical": True, **stats}
+    out = _differential_contiguous(
+        "differential_ssm", cfg, prompts, [10, 8, 12, 9, 11], 512,
+        (sk_ops.NAME,), sip_cache, workdir)
     emit("differential_ssm", **out)
     return out
 
 
+def phase_differential_hybrid(sip_cache: str, workdir: Path) -> dict:
+    """zamba2 at full width cut to 13 layers with the shared block on every
+    2nd group (groups [off, on] and one trailing layer), float32, against
+    Engine.generate at the SSD's and flash's served signatures."""
+    cfg = dataclasses.replace(configs.get("zamba2-7b"), n_layers=13,
+                              hybrid_attn_every=2, dtype="float32")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (23, 70, 256, 45, 70)]
+    out = _differential_contiguous(
+        "differential_hybrid", cfg, prompts, [10, 8, 12, 9, 11], 512,
+        (sk_ops.NAME, fa_ops.variant_name(True, None)), sip_cache, workdir)
+    out["attention_flags"] = M.hybrid_flags(cfg)
+    emit("differential_hybrid", **out)
+    return out
+
+
+def phase_differential_swa(sip_cache: str, workdir: Path) -> dict:
+    """h2o-danube at full width cut to 4 layers, float32, window 4096 kept:
+    a prompt past the window and a decode that wraps the ring, against
+    Engine.generate at flash's served signatures."""
+    cfg = dataclasses.replace(configs.get("h2o-danube-1.8b"), n_layers=4,
+                              dtype="float32")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (23, 4500, 70, 4070, 45)]
+    out = _differential_contiguous(
+        "differential_swa", cfg, prompts, [10, 8, 12, 40, 9], 4608,
+        (fa_ops.variant_name(True, cfg.window),), sip_cache, workdir)
+    emit("differential_swa", **out)
+    return out
+
+
+def _path_launches(path: dict, name: str) -> int:
+    """A kernels-line row's launches on a serve path: flash by dtype."""
+    if name.startswith(fa.FUNCTION):
+        return path["flash_launches_by_dtype"][
+            "float32" if name.endswith("_f32") else "bfloat16"]
+    return path["launches"][name]
+
+
 def kernels_line(gemm: dict, flash: dict, gather: dict, ssd: dict,
-                 rms: dict, sip: dict, serve: dict, serve_ssm: dict) -> dict:
+                 rms: dict, sip: dict, serve: dict, serve_ssm: dict,
+                 serve_hybrid: dict, serve_swa: dict) -> dict:
     """One row per kernel, its launches from its own main path: the bf16
-    flash kernel's from ``serve``, the float32 one's from ``sip``."""
+    flash kernel's from ``serve``, the float32 one's from ``sip``; beside
+    them each row's launches on the hybrid and sliding-window serve
+    paths."""
     rows = []
     for mod, source, name, res, path in (
             (gf, gf.SOURCE, "gemm_fused_leaky_relu", gemm, sip),
@@ -1698,6 +1937,8 @@ def kernels_line(gemm: dict, flash: dict, gather: dict, ssd: dict,
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": mod.REPLACES,
                      "launches": path["launches"][name],
+                     "launches_hybrid": _path_launches(serve_hybrid, name),
+                     "launches_swa": _path_launches(serve_swa, name),
                      "max_abs_err": res["max_abs_err"],
                      "ms": res["ms"], "plain_ms": res["plain_ms"],
                      "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
@@ -1741,8 +1982,25 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_differential_ssm(sip["cache"], workdir)
+    cfg = configs.get("zamba2-7b")
+    params = M.init_lm(cfg, seed=0, device="cuda")
+    serve_hybrid = phase_serve_hybrid(params, cfg)
+    phase_profile(params, cfg, ServeConfig(max_len=512, capacity=8),
+                  phase="profile_hybrid")
+    del params
+    torch.cuda.empty_cache()
+    phase_differential_hybrid(sip["cache"], workdir)
+    cfg = configs.get("h2o-danube-1.8b")
+    params = M.init_lm(cfg, seed=0, device="cuda")
+    serve_swa = phase_serve_swa(params, cfg)
+    phase_profile(params, cfg, ServeConfig(max_len=4608, capacity=4),
+                  phase="profile_swa")
+    del params
+    torch.cuda.empty_cache()
+    phase_differential_swa(sip["cache"], workdir)
     print(json.dumps(kernels_line(gemm, flash, gather, ssd, rms, sip, serve,
-                                  serve_ssm)), flush=True)
+                                  serve_ssm, serve_hybrid, serve_swa)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}))
     return 0

@@ -195,6 +195,9 @@ class SsdKernel:
         self.br = divisor_at_most(q, MAX_TILE)
         self._text: tuple[str, int] | None = None
         self._kernels: dict[int, _build.Kernel] = {}
+        #: this schedule's own launches (the module's ``launches`` counts
+        #: every schedule's)
+        self.launches = 0
 
     @functools.cached_property
     def layout(self) -> dict[str, int]:
@@ -291,6 +294,7 @@ class SsdKernel:
                              ctypes.c_void_p(out.data_ptr()),
                              ctypes.c_int(h)])
             launches += 1
+            self.launches += 1
         return out
 
     # ------------------------------------------------------------- CPU face

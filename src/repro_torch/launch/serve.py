@@ -8,13 +8,23 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
         --requests 17 --capacity 8 --prompt-len-min 16 --prompt-len-max 384
 
-serves the SSM family through the contiguous engine (``--paged`` refuses
-it).  Generates a mixed-prompt-length request stream (uniform lengths in
-[--prompt-len-min, --prompt-len-max], Poisson arrivals at --arrival-rate
-req/s; 0 = all at once), or replays ``--replay FILE`` — a JSON list of
-``{"prompt_len": int, "new_tokens": int, "arrival": float}`` records — and
-prints one ``[serve:continuous] {...}`` JSON line: throughput, latency and
-TTFT percentiles, and the engine's queue/occupancy/prefill-decode stats.
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --requests 17 --capacity 8 --prompt-len-min 16 --prompt-len-max 384
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch h2o-danube-1.8b --requests 9 --capacity 4 \
+        --prompt-len-min 16 --prompt-len-max 4500
+
+serve the SSM family (mamba2-2.7b), the hybrid family (zamba2-7b) and
+sliding-window attention (h2o-danube-1.8b, a ring of 4096 positions per
+slot) through the contiguous engine; ``--paged`` refuses all three, as the
+reference does.  Generates a mixed-prompt-length request stream (uniform
+lengths in [--prompt-len-min, --prompt-len-max], Poisson arrivals at
+--arrival-rate req/s; 0 = all at once), or replays ``--replay FILE`` — a
+JSON list of ``{"prompt_len": int, "new_tokens": int, "arrival": float}``
+records — and prints one ``[serve:continuous] {...}`` JSON line:
+throughput, latency and TTFT percentiles, and the engine's
+queue/occupancy/prefill-decode stats.
 Weights are random, from ``--seed``.
 
 Runs on ``--device`` (default ``cuda``; asking for CUDA where there is none

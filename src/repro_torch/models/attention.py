@@ -4,7 +4,9 @@
   kernel (``kernels/flash_attention``; its plain version on CPU tensors);
 * per-slot contiguous decode (``cache={'k', 'v', 'len'}``): the new tokens
   are written into the preallocated cache in place and read back by the
-  plain masked ``_sdpa``;
+  plain masked ``_sdpa``.  A sliding-window model's cache of at most
+  ``window`` positions is a ring: position p lives at slot p % size, and
+  every slot below ``len`` is in the window;
 * paged (``cache`` also holds ``pt``): writes go through the page table into
   the shared page store, reads through the ``paged_gather`` kernel.
 
@@ -60,13 +62,23 @@ def _qkv(p, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor):
     return rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta), v
 
 
-def _sdpa(q, k, v, *, causal: bool,
+def prefill_kv(p, x: torch.Tensor, cfg: ModelConfig) -> dict[str, Any]:
+    """The cache a prefill of ``x`` (B, S, d) returns, without the
+    attention: K (qk-normed, rotated) and V at positions 0..S-1."""
+    s = x.shape[1]
+    _, k, v = _qkv(p, x, cfg, torch.arange(s, device=x.device))
+    return {"k": k, "v": v,
+            "len": torch.tensor(s, dtype=torch.int32, device=x.device)}
+
+
+def _sdpa(q, k, v, *, causal: bool, window: int | None = None,
           kv_len: torch.Tensor | None = None) -> torch.Tensor:
     """q: (B,Sq,H,D); k,v: (B,Skv,Hkv,D) -> (B,Sq,H,D), plain PyTorch (GQA).
 
     ``kv_len``: optional scalar — only cache positions < kv_len are valid —
     or a (B,) vector for per-slot decode (every slot has its own valid
-    prefix)."""
+    prefix).  ``window``: keys more than ``window - 1`` positions behind
+    the query are masked too."""
     b, sq, h, dh = q.shape
     _, skv, hkv, _ = k.shape
     group = h // hkv
@@ -81,6 +93,8 @@ def _sdpa(q, k, v, *, causal: bool,
         mask = (cols[None, None, :] < kv_len[:, None, None]).expand(b, sq, skv)
         if causal:
             mask = mask & (cols[None, None, :] <= rows)
+        if window is not None:
+            mask = mask & (cols[None, None, :] > rows - window)
         s = torch.where(mask[:, None, None], s, NEG_INF)
     else:
         base = skv if kv_len is None else kv_len
@@ -88,6 +102,8 @@ def _sdpa(q, k, v, *, causal: bool,
         mask = torch.ones((sq, skv), dtype=torch.bool, device=dev)
         if causal:
             mask = mask & (cols[None, :] <= rows)
+        if window is not None:
+            mask = mask & (cols[None, :] > rows - window)
         if kv_len is not None:
             mask = mask & (cols[None, :] < kv_len)
         s = torch.where(mask, s, NEG_INF)
@@ -123,6 +139,9 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
         idx = cache["len"]
         ck, cv = cache["k"], cache["v"]
         size = ck.shape[1]
+        # sliding-window ring: slot(p) = p % size once the cache is at most
+        # window-sized
+        rolling = cfg.window is not None and size <= cfg.window
         # in place where the JAX package donates the cache buffers
         if idx.dim() > 0:
             # per-slot (s == 1): each slot's token at its own position.  A
@@ -130,15 +149,21 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
             # JAX drops such out-of-range writes, here they land on the row's
             # last position, and the next admission overwrites the whole row
             rows_b = torch.arange(b, device=x.device)
-            w_idx = idx.long().clamp(max=size - 1)
+            w_idx = idx.long() % size if rolling \
+                else idx.long().clamp(max=size - 1)
             ck[rows_b, w_idx] = k[:, 0].to(ck.dtype)
             cv[rows_b, w_idx] = v[:, 0].to(cv.dtype)
         else:
             positions = idx.long() + ar
+            if rolling:
+                positions = positions % size
             ck.index_copy_(1, positions, k.to(ck.dtype))
             cv.index_copy_(1, positions, v.to(cv.dtype))
         new_cache = {"k": ck, "v": cv, "len": idx + s}
-        o = _sdpa(q, ck, cv, causal=causal, kv_len=idx + s)
+        # a ring's slots are not positions: the causal and window masks do
+        # not apply, and every slot below min(len, size) is in the window
+        o = _sdpa(q, ck, cv, causal=causal and not rolling,
+                  window=None if rolling else cfg.window, kv_len=idx + s)
     else:
         o = fa_kernel.flash_attention(
             q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),

@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 #: the model families the port runs
-SUPPORTED_FAMILIES = ("dense", "ssm")
+SUPPORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,19 +147,15 @@ def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> ModelConfig:
     """Raise ``NotImplementedError`` for what the port does not run yet
-    (see ROADMAP.md, Queue 1): families other than dense and ssm, padded
-    heads and sliding-window attention."""
+    (see ROADMAP.md, Queue 1): families other than dense (sliding-window
+    attention included), ssm and hybrid, and padded heads."""
     if cfg.family not in SUPPORTED_FAMILIES:
         raise NotImplementedError(
-            f"repro_torch runs the {' and '.join(SUPPORTED_FAMILIES)} "
+            f"repro_torch runs the {', '.join(SUPPORTED_FAMILIES)} "
             f"families only; {cfg.name} is {cfg.family!r} (ROADMAP.md, "
             f"Queue 1: other model families)")
     if cfg.padded_heads:
         raise NotImplementedError(
             f"repro_torch does not pad heads (padded_heads="
             f"{cfg.padded_heads}); see ROADMAP.md, Queue 1")
-    if cfg.window is not None:
-        raise NotImplementedError(
-            f"repro_torch has no sliding-window attention yet (window="
-            f"{cfg.window}); see ROADMAP.md, Queue 1")
     return cfg.validate()

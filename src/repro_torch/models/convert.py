@@ -2,8 +2,8 @@
 
 ``params_from_numpy`` takes ``repro``'s params as numpy arrays —
 ``jax.tree.map(np.asarray, nn.unwrap(M.init_lm(key, cfg)))``, layers stacked
-on axis 0 — and returns the port's param tree, so both packages compute the
-same function.  Norm gains and the SSM leaves the reference reads in
+on axis 0 (a hybrid's groups on two, see ``model.param_shapes``) — and
+returns the port's param tree, so both packages compute the same function.  Norm gains and the SSM leaves the reference reads in
 float32 stay float32.
 """
 

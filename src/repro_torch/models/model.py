@@ -1,24 +1,36 @@
-"""The dense decoder LM and the Mamba-2 LM: init, forward, prefill and
-decode entry points, and the per-slot and paged cache helpers the serving
-engines use.
+"""The dense decoder LM (sliding-window attention included), the Mamba-2
+LM and the Zamba-2 hybrid: init, forward, prefill and decode entry points,
+and the per-slot and paged cache helpers the serving engines use.
 
 Params are a nested dict of tensors with ``repro``'s tree, leaf names and
-layouts (``nn.unwrap(init_lm(...))``), per-layer leaves stacked on axis 0.
-The layer stack is a Python loop over per-layer views.  The JAX package
-keeps params in float32 and casts each weight to ``cfg.dtype`` at every use;
-the port stores every weight in the compute dtype once, at load, which gives
-the same values and halves the weight memory in bf16.  Norm gains stay
+layouts (``nn.unwrap(init_lm(...))``), per-layer leaves stacked on axis 0
+(a hybrid's groups on two axes, see :func:`param_shapes`).  The layer stack
+is a Python loop over per-layer views.  The JAX package keeps params in
+float32 and casts each weight to ``cfg.dtype`` at every use; the port
+stores every weight in the compute dtype once, at load, which gives the
+same values and halves the weight memory in bf16.  Norm gains stay
 float32: RMSNorm casts its gain to float32, so storing them rounded would
 change the result.  The same holds for the SSM leaves the reference reads
 in float32 (``ssm.F32_LEAVES``).
 
 Cache layouts, written out (``repro`` finds them structurally with
-``jax.eval_shape``): dense ``k``/``v`` (L, B | P, S | ps, Hkv, D) in the
-compute dtype and ``len`` int32 — (L,) from :func:`prefill`, (L, slots) for
-the serving caches; ssm ``conv`` (L, B | slots, W-1, C) in the compute
-dtype and ``ssd`` (L, B | slots, H, N, P) float32, with no ``len`` and no
-paged store.  The decode paths update caches in place where the JAX
-package donates them, and return the same dict.
+``jax.eval_shape``), with B the prefill batch or the serving slots:
+
+* dense: ``k``/``v`` (L, B | P, S | ps, Hkv, D) in the compute dtype and
+  ``len`` int32 — (L,) from :func:`prefill`, (L, slots) for the serving
+  caches.  A sliding-window model's S is ``kv_cache_len`` = min(max_len,
+  window): a ring in which position p sits at slot p % S, filled by a
+  longer prompt with its last S positions.  It is never paged;
+* ssm: ``conv`` (L, B, W-1, C) in the compute dtype and ``ssd`` (L, B, H,
+  N, P) float32, with no ``len`` and no paged store;
+* hybrid: ``mamba.conv`` (G, g, B, W-1, C) and ``mamba.ssd`` (G, g, B, H,
+  N, P) for the groups' blocks, ``attn`` the shared block's dense K/V per
+  group (G, B, S, Hkv, D) with ``len`` (G,) | (G, slots), and
+  ``trailing.conv``/``trailing.ssd`` in the ssm layout when n_layers %
+  hybrid_group > 0.  Never paged.
+
+The decode paths update caches in place where the JAX package donates
+them, and return the same dict.
 """
 
 from __future__ import annotations
@@ -54,28 +66,51 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 # ===================================================================== init
-def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
-    """The param tree's leaf shapes (layers stacked on axis 0)."""
-    n, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
-    top = {"embed": (cfg.vocab, d), "ln_f": (d,), "lm_head": (d, cfg.vocab)}
-    if cfg.family == "ssm":
-        mixer = {k: (n,) + v for k, v in ssm.mixer_shapes(cfg).items()}
-        return {**top, "blocks": {"ln": (n, d), "mixer": mixer}}
-    attn = {"wq": (n, d, cfg.n_heads, hd), "wk": (n, d, cfg.n_kv_heads, hd),
-            "wv": (n, d, cfg.n_kv_heads, hd), "wo": (n, cfg.n_heads, hd, d)}
+def _decoder_shapes(cfg: ModelConfig, lead: tuple[int, ...]) -> dict:
+    """A decoder block's leaves, each with the leading axes ``lead``."""
+    d, hd = cfg.d_model, cfg.hd
+    attn = {"wq": (d, cfg.n_heads, hd), "wk": (d, cfg.n_kv_heads, hd),
+            "wv": (d, cfg.n_kv_heads, hd), "wo": (cfg.n_heads, hd, d)}
     if cfg.qk_norm:
-        attn["q_norm"] = (n, hd)
-        attn["k_norm"] = (n, hd)
-    ffn = {"w_down": (n, cfg.d_ff, d)}
+        attn["q_norm"] = (hd,)
+        attn["k_norm"] = (hd,)
+    ffn = {"w_down": (cfg.d_ff, d)}
     if cfg.mlp_type in ("swiglu", "geglu"):
-        ffn["w_gate"] = (n, d, cfg.d_ff)
-        ffn["w_up"] = (n, d, cfg.d_ff)
+        ffn["w_gate"] = (d, cfg.d_ff)
+        ffn["w_up"] = (d, cfg.d_ff)
     elif cfg.mlp_type == "gelu":
-        ffn["w_up"] = (n, d, cfg.d_ff)
+        ffn["w_up"] = (d, cfg.d_ff)
     else:
         raise ValueError(cfg.mlp_type)
-    return {**top, "blocks": {"ln1": (n, d), "attn": attn, "ln2": (n, d),
-                              "ffn": ffn}}
+    block = {"ln1": (d,), "attn": attn, "ln2": (d,), "ffn": ffn}
+    return map_params(lambda _, shape: lead + shape, block)
+
+
+def _mamba_shapes(cfg: ModelConfig, lead: tuple[int, ...]) -> dict:
+    """A mamba block's leaves, each with the leading axes ``lead``."""
+    block = {"ln": (cfg.d_model,), "mixer": ssm.mixer_shapes(cfg)}
+    return map_params(lambda _, shape: lead + shape, block)
+
+
+def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
+    """The param tree's leaf shapes, as the reference's ``init_lm`` lays
+    them out: ``blocks`` stacked on a layer axis (dense, ssm); a hybrid's
+    ``groups`` on (n_groups, hybrid_group), the one ``shared_attn``
+    decoder block with no layer axis, and ``trailing`` mamba blocks on
+    (n_layers % hybrid_group,) when there are any."""
+    n, d = cfg.n_layers, cfg.d_model
+    top = {"embed": (cfg.vocab, d), "ln_f": (d,), "lm_head": (d, cfg.vocab)}
+    if cfg.family == "ssm":
+        return {**top, "blocks": _mamba_shapes(cfg, (n,))}
+    if cfg.family == "hybrid":
+        n_groups, trailing = divmod(n, cfg.hybrid_group)
+        tree = {**top,
+                "groups": _mamba_shapes(cfg, (n_groups, cfg.hybrid_group)),
+                "shared_attn": _decoder_shapes(cfg, ())}
+        if trailing:
+            tree["trailing"] = _mamba_shapes(cfg, (trailing,))
+        return tree
+    return {**top, "blocks": _decoder_shapes(cfg, (n,))}
 
 
 def map_params(fn, shapes: dict[str, Any], path: tuple[str, ...] = ()):
@@ -117,23 +152,6 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
     return map_params(make, param_shapes(cfg))
 
 
-def _layers(stacked: dict[str, Any]) -> list[dict[str, Any]]:
-    """Per-layer views of the stacked block params."""
-    def unbind(tree):
-        return {k: unbind(v) if isinstance(v, dict) else v.unbind(0)
-                for k, v in tree.items()}
-
-    def pick(tree, i):
-        return {k: pick(v, i) if isinstance(v, dict) else v[i]
-                for k, v in tree.items()}
-
-    per_leaf = unbind(stacked)
-    first = stacked
-    while isinstance(first, dict):
-        first = next(iter(first.values()))
-    return [pick(per_leaf, i) for i in range(first.shape[0])]
-
-
 def _embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return p["embed"][tokens.long()].to(compute_dtype(cfg))
 
@@ -143,13 +161,27 @@ def _logits(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 # ============================================================== forward
+def hybrid_flags(cfg: ModelConfig) -> list[bool]:
+    """Whether each group runs the shared block: group i does when
+    ``i % hybrid_attn_every == hybrid_attn_every - 1``."""
+    every = cfg.hybrid_attn_every
+    return [i % every == every - 1
+            for i in range(cfg.n_layers // cfg.hybrid_group)]
+
+
 def forward(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig):
     """Eval forward over ``inputs['tokens']`` (B, S) -> (logits, aux)."""
     x = _embed(p, inputs["tokens"], cfg)
-    for lp in _layers(p["blocks"]):
-        if cfg.family == "ssm":
-            x, _ = blocks.mamba_block(lp, x, cfg)
-        else:
+    if cfg.family == "ssm":
+        x, _ = blocks.mamba_stack(p["blocks"], x, cfg)
+    elif cfg.family == "hybrid":
+        groups = blocks.layer_views(p["groups"])
+        for gp, flag in zip(groups, hybrid_flags(cfg)):
+            x, _, _ = blocks.hybrid_group(gp, p["shared_attn"], x, cfg, flag)
+        if "trailing" in p:
+            x, _ = blocks.mamba_stack(p["trailing"], x, cfg)
+    else:
+        for lp in blocks.layer_views(p["blocks"]):
             x, _ = blocks.decoder_block(lp, x, cfg, causal=True)
     x = nn.rmsnorm_apply(p["ln_f"], x)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -157,34 +189,75 @@ def forward(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig):
 
 
 # ============================================================ prefill / decode
+def kv_cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """Positions a KV cache holds: ``max_len``, or a sliding-window model's
+    ring of at most ``window``."""
+    return min(max_len, cfg.window) if cfg.window else max_len
+
+
+def _kv_caches(n: int, b: int, s: int, max_len: int, cfg: ModelConfig,
+               like: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Zero K/V caches for ``n`` layers of a batch-``b`` prefill of ``s``
+    tokens, with ``len`` = s."""
+    m = kv_cache_len(cfg, max_len)
+    if s > m and cfg.window is None:
+        raise ValueError(f"prompt length {s} exceeds max_len {max_len}")
+    shape = (n, b, m, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=like.dtype, device=like.device),
+            "v": torch.zeros(shape, dtype=like.dtype, device=like.device),
+            "len": torch.full((n,), s, dtype=torch.int32,
+                              device=like.device)}
+
+
+def _put_kv(caches: dict[str, torch.Tensor], i: int,
+            cache: dict[str, torch.Tensor]) -> None:
+    """Write layer ``i``'s prefill K/V (B, S, H, D) into its cache rows.  A
+    prompt longer than the cache (a sliding-window ring) keeps its last
+    ``size`` positions, rolled so that position p sits at slot p % size."""
+    size = caches["k"].shape[2]
+    for name in ("k", "v"):
+        kv = cache[name]
+        s = kv.shape[1]
+        if s > size:
+            kv = torch.roll(kv[:, s - size:], s % size, dims=1)
+        caches[name][i, :, :kv.shape[1]] = kv
+
+
 def prefill(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig,
             max_len: int):
-    """Forward over the prompt, building decode caches sized ``max_len``.
-    Returns (last_token_logits, caches).  An ssm model's caches are its
-    per-layer conv and SSD states, whatever ``max_len``."""
+    """Forward over the prompt, building decode caches sized ``max_len``
+    (a sliding-window model's: ``kv_cache_len``).  Returns
+    (last_token_logits, caches).  An ssm model's caches are its per-layer
+    conv and SSD states, whatever ``max_len``; a hybrid's are its groups'
+    states (``mamba``), the shared block's K/V per group (``attn``) and the
+    trailing blocks' states (``trailing``)."""
     x = _embed(p, inputs["tokens"], cfg)
-    if cfg.family == "ssm":
-        states = []
-        for lp in _layers(p["blocks"]):
-            x, st = blocks.mamba_block(lp, x, cfg, return_state=True)
-            states.append(st)
-        caches = {k: torch.stack([st[k] for st in states]) for k in states[0]}
-        x = nn.rmsnorm_apply(p["ln_f"], x[:, -1:])
-        return _logits(p, x)[:, 0], caches
     b, s, _ = x.shape
-    if s > max_len:
-        raise ValueError(f"prompt length {s} exceeds max_len {max_len}")
-    layers = _layers(p["blocks"])
-    shape = (len(layers), b, max_len, cfg.n_kv_heads, cfg.hd)
-    caches = {"k": torch.zeros(shape, dtype=x.dtype, device=x.device),
-              "v": torch.zeros(shape, dtype=x.dtype, device=x.device),
-              "len": torch.full((len(layers),), s, dtype=torch.int32,
-                                device=x.device)}
-    for i, lp in enumerate(layers):
-        x, cache = blocks.decoder_block(lp, x, cfg, causal=True,
-                                        return_cache=True)
-        caches["k"][i, :, :s] = cache["k"]
-        caches["v"][i, :, :s] = cache["v"]
+    if cfg.family == "ssm":
+        x, caches = blocks.mamba_stack(p["blocks"], x, cfg,
+                                       return_state=True)
+    elif cfg.family == "hybrid":
+        flags = hybrid_flags(cfg)
+        kv = _kv_caches(len(flags), b, s, max_len, cfg, x)
+        states = []
+        groups = blocks.layer_views(p["groups"])
+        for i, (gp, flag) in enumerate(zip(groups, flags)):
+            x, st, cache = blocks.hybrid_group(gp, p["shared_attn"], x, cfg,
+                                               flag, return_state=True)
+            states.append(st)
+            _put_kv(kv, i, cache)
+        caches = {"mamba": {k: torch.stack([st[k] for st in states])
+                            for k in states[0]}, "attn": kv}
+        if "trailing" in p:
+            x, caches["trailing"] = blocks.mamba_stack(
+                p["trailing"], x, cfg, return_state=True)
+    else:
+        layers = blocks.layer_views(p["blocks"])
+        caches = _kv_caches(len(layers), b, s, max_len, cfg, x)
+        for i, lp in enumerate(layers):
+            x, cache = blocks.decoder_block(lp, x, cfg, causal=True,
+                                            return_cache=True)
+            _put_kv(caches, i, cache)
     x = nn.rmsnorm_apply(p["ln_f"], x[:, -1:])
     return _logits(p, x)[:, 0], caches
 
@@ -197,23 +270,34 @@ def decode_step(p: Params, caches, tokens: torch.Tensor, cfg: ModelConfig, *,
     ``pt`` (B, n_pages) routes cache traffic through a paged store (see
     :func:`alloc_paged_caches`); ``active`` (B,) masks rows that must neither
     write real pages nor advance (idle slots, slots mid chunked prefill) —
-    their scatters land in the trash page.  An ssm model takes neither: its
-    caches are dense per-slot states, advanced in place."""
+    their scatters land in the trash page.  An ssm or hybrid model takes
+    neither: its caches are dense per-slot states and K/V, advanced in
+    place."""
+    if cfg.family == "dense":
+        logits, caches = decode_tokens(p, caches, tokens[:, None], cfg,
+                                       pt=pt, active=active)
+        return logits[:, 0], caches
+    if pt is not None:
+        raise ValueError(f"paged decode supports attention families "
+                         f"(dense/moe/vlm), not {cfg.family!r}")
+    x = _embed(p, tokens[:, None], cfg)
     if cfg.family == "ssm":
-        if pt is not None:
-            raise ValueError(f"paged decode supports attention families "
-                             f"(dense/moe/vlm), not {cfg.family!r}")
-        x = _embed(p, tokens[:, None], cfg)
-        for i, lp in enumerate(_layers(p["blocks"])):
-            st = {"conv": caches["conv"][i], "ssd": caches["ssd"][i]}
-            x, new = blocks.mamba_block(lp, x, cfg, state=st)
-            caches["conv"][i] = new["conv"]
-            caches["ssd"][i] = new["ssd"]
-        x = nn.rmsnorm_apply(p["ln_f"], x)
-        return _logits(p, x)[:, 0], caches
-    logits, caches = decode_tokens(p, caches, tokens[:, None], cfg, pt=pt,
-                                   active=active)
-    return logits[:, 0], caches
+        x, _ = blocks.mamba_stack(p["blocks"], x, cfg, states=caches)
+    else:
+        kv = caches["attn"]
+        groups = zip(blocks.layer_views(p["groups"]),
+                     blocks.layer_views(caches["mamba"]), hybrid_flags(cfg))
+        for i, (gp, states, flag) in enumerate(groups):
+            cache = {"k": kv["k"][i], "v": kv["v"][i], "len": kv["len"][i]}
+            x, _, new = blocks.hybrid_group(
+                gp, p["shared_attn"], x, cfg, flag, states=states,
+                attn_cache=cache, pos_offset=cache["len"])
+            kv["len"][i] = new["len"]   # k/v were written in place
+        if "trailing" in p:
+            x, _ = blocks.mamba_stack(p["trailing"], x, cfg,
+                                      states=caches["trailing"])
+    x = nn.rmsnorm_apply(p["ln_f"], x)
+    return _logits(p, x)[:, 0], caches
 
 
 def decode_tokens(p: Params, caches, tokens: torch.Tensor, cfg: ModelConfig,
@@ -231,7 +315,7 @@ def decode_tokens(p: Params, caches, tokens: torch.Tensor, cfg: ModelConfig,
     chunk advances ``len`` by n_valid)."""
     x = _embed(p, tokens, cfg)
     lens = caches["len"]
-    for i, lp in enumerate(_layers(p["blocks"])):
+    for i, lp in enumerate(blocks.layer_views(p["blocks"])):
         cache = {"k": caches["k"][i], "v": caches["v"][i], "len": lens[i]}
         if pt is not None:
             cache["pt"] = pt
@@ -253,30 +337,76 @@ def decode_tokens(p: Params, caches, tokens: torch.Tensor, cfg: ModelConfig,
 # a per-slot (L, capacity) tensor so masks and rope run at each slot's own
 # offset.
 
+def _slot_axis(path: tuple[str, ...]) -> int | None:
+    """The batch axis of the serving cache leaf at ``path``: 2 for a
+    hybrid group's states (behind the group and member axes), 1 for every
+    other leaf; None for a ``len``, whose slot axis is its last."""
+    if path[-1] == "len":
+        return None
+    return 2 if path[0] == "mamba" else 1
+
+
+def _leaves(tree, path: tuple[str, ...] = ()):
+    """(path, leaf) over a cache tree."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _at(tree, path: tuple[str, ...]):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def alloc_slot_caches(cfg: ModelConfig, capacity: int, max_len: int, *,
-                      device: str | torch.device) -> dict[str, torch.Tensor]:
-    """Zero decode caches for ``capacity`` slots of ``max_len`` positions
-    (an ssm model's per-slot states do not depend on ``max_len``)."""
+                      device: str | torch.device) -> dict[str, Any]:
+    """Zero decode caches for ``capacity`` slots of ``max_len`` positions:
+    the tree :func:`prefill` returns, batch ``capacity`` on each leaf's
+    :func:`_slot_axis`, and a ``len`` per layer and slot.  A sliding-window
+    model's K/V hold ``kv_cache_len`` positions; mamba states do not depend
+    on ``max_len``."""
     dt, dev = compute_dtype(cfg), torch.device(device)
-    if cfg.family == "ssm":
+
+    def states(lead):
         st = ssm.init_mamba_state(cfg, capacity, dt, dev)
-        return {k: torch.zeros((cfg.n_layers,) + tuple(v.shape),
-                               dtype=v.dtype, device=dev)
-                for k, v in st.items()}
-    shape = (cfg.n_layers, capacity, max_len, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev),
-            "len": torch.zeros((cfg.n_layers, capacity), dtype=torch.int32,
-                               device=dev)}
+        return {k: torch.zeros(lead + tuple(v.shape), dtype=v.dtype,
+                               device=dev) for k, v in st.items()}
+
+    def kv(n):
+        shape = (n, capacity, kv_cache_len(cfg, max_len), cfg.n_kv_heads,
+                 cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev),
+                "len": torch.zeros((n, capacity), dtype=torch.int32,
+                                   device=dev)}
+
+    if cfg.family == "ssm":
+        return states((cfg.n_layers,))
+    if cfg.family == "hybrid":
+        n_groups, trailing = divmod(cfg.n_layers, cfg.hybrid_group)
+        caches = {"mamba": states((n_groups, cfg.hybrid_group)),
+                  "attn": kv(n_groups)}
+        if trailing:
+            caches["trailing"] = states((trailing,))
+        return caches
+    return kv(cfg.n_layers)
 
 
 def insert_slots(caches, group_caches, slots: torch.Tensor):
     """Splice a batch-G prefill cache into slots ``slots`` ((G,) ints) in
-    place — one scatter per leaf.  The group shares one prompt length."""
+    place — one scatter per leaf, on its :func:`_slot_axis`.  The group
+    shares one prompt length."""
     slots = slots.long()
-    for name, leaf in caches.items():
-        grp = group_caches[name]
-        leaf[:, slots] = grp[:, None] if name == "len" else grp.to(leaf.dtype)
+    for path, leaf in _leaves(caches):
+        grp = _at(group_caches, path)
+        ax = _slot_axis(path)
+        if ax is None:
+            leaf[:, slots] = grp[:, None].to(leaf.dtype)
+        else:
+            leaf.index_copy_(ax, slots, grp.to(leaf.dtype))
     return caches
 
 
@@ -284,8 +414,9 @@ def evict_slot(caches, slot: int):
     """Invalidate slot ``slot``: zero its lengths so attention sees an empty
     prefix.  State leaves (k/v rows, ssm states) are left in place: the next
     insert into the slot overwrites them wholesale."""
-    if "len" in caches:
-        caches["len"][:, slot] = 0
+    for path, leaf in _leaves(caches):
+        if _slot_axis(path) is None:
+            leaf[:, slot] = 0
     return caches
 
 

@@ -21,10 +21,13 @@
   interleaved with decode (``prefill_chunk``).  Greedy outputs stay
   token-identical to the static engine.
 
-An ssm model (mamba2) serves through the contiguous engine: its per-slot
-conv and SSD states are spliced into slots as KV segments are, prompts must
-cover the conv's receptive field (``conv_width - 1`` tokens), and paged
-serving refuses the family, as the JAX engine does.
+An ssm model (mamba2) and a hybrid (zamba2) serve through the contiguous
+engine: their per-slot conv and SSD states (and a hybrid's shared-block
+K/V) are spliced into slots as KV segments are, prompts must cover the
+conv's receptive field (``conv_width - 1`` tokens), and paged serving
+refuses both families, as the JAX engine does.  So does a sliding-window
+model (h2o-danube): its per-slot KV is a ring of ``window`` positions
+(``models/model.py``), and paging it raises the reference's error.
 
 The engines run on the device of the params.  Kernels resolve their
 schedules from the ``repro_torch.core.registry.schedule_cache`` scope the
@@ -250,7 +253,8 @@ class ContinuousEngine:
         # conv-state shapes only stabilize once the prompt covers the conv
         # receptive field — shorter prompts would prefill a cache segment that
         # cannot be spliced into the fixed-shape slot batch
-        self._min_prompt = cfg.conv_width - 1 if cfg.family == "ssm" else 1
+        self._min_prompt = (cfg.conv_width - 1
+                            if cfg.family in ("ssm", "hybrid") else 1)
         self.paged = scfg.paged
         if self.paged:
             # the port's one attention family (the reference also pages moe

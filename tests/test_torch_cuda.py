@@ -5,8 +5,10 @@ head groups do not divide, RMSNorm at every point of its knob space and at
 row counts its blocks do not divide, the tensor-core gemm at tiles smaller than its
 instructions and at the paper's shape with a hoisted order, bf16 flash at
 an ld_v-hoisted order in bf16 and float32, padded bidirectional flash
-calls), the gather's page-id contract (wrap and clamp), a paged engine run on the card
-token-identical to the same run on the CPU, and an autotune promotion on the card that the
+calls, flash at the hybrid's and the sliding-window model's head dims), the
+gather's page-id contract (wrap and clamp), a paged engine run and
+contiguous hybrid and sliding-window runs on the card token-identical to
+the same runs on the CPU, and an autotune promotion on the card that the
 running engine swaps to and launches.  Marked ``cuda``: they skip without a card.  On the GPU
 machine:
 
@@ -59,6 +61,26 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, sq, skv, causal,
     before = fa.launches
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     want = fa_ref.attention(q, k, v, causal=causal, window=window)
+    assert fa.launches == before + 1
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hq,hkv,s,window,d", [(4, 4, 130, None, 112),
+                                               (8, 2, 150, 16, 80)])
+def test_flash_kernel_at_the_hybrid_and_window_head_dims(cuda, dtype, tol,
+                                                         hq, hkv, s, window,
+                                                         d):
+    """zamba2's shared block (MHA at head_dim 112: 7 k16 steps) and
+    h2o-danube's (GQA 4:1 at head_dim 80, a window shorter than S)."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn((2, hq, s, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((2, hkv, s, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((2, hkv, s, d), generator=g, device=cuda).to(dtype)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    want = fa_ref.attention(q, k, v, causal=True, window=window)
     assert fa.launches == before + 1
     assert (got.float() - want.float()).abs().max().item() <= tol
 
@@ -168,6 +190,37 @@ def test_paged_engine_on_card_matches_cpu(cuda):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("arch", ["zamba2-7b", "h2o-danube-1.8b"])
+def test_contiguous_engine_on_card_matches_cpu(cuda, arch):
+    """The hybrid (SSD and flash kernels) and the sliding-window model
+    (flash at its window; prompts past the 32-token window, decodes that
+    wrap its ring) at smoke width: the card's tokens equal the CPU's."""
+    from repro_torch import configs
+    cfg = configs.get_smoke(arch)
+    params = M.init_lm(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(2)
+    reqs = [(rng.integers(1, cfg.vocab, n).astype(np.int32), b)
+            for n, b in ((5, 6), (45, 4), (28, 12), (70, 5), (45, 7))]
+    scfg = ServeConfig(max_len=96, capacity=3)
+    outs = []
+    for device in ("cpu", cuda):
+        p = M.map_params(lambda path, _: _leaf(params, path).to(device),
+                         M.param_shapes(cfg))
+        before = (fa.launches, sk.launches)
+        eng = ContinuousEngine(p, cfg, scfg)
+        uids = [eng.submit(t, n).uid for t, n in reqs]
+        got = eng.run(max_steps=500)
+        outs.append([got[u] for u in uids])
+        launched = (fa.launches - before[0], sk.launches - before[1])
+        if device == "cpu":
+            assert launched == (0, 0)
+        else:
+            assert launched[0] > 0
+            assert (launched[1] > 0) == (cfg.family == "hybrid")
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
 def _leaf(tree, path):
     for key in path:
         tree = tree[key]
@@ -224,7 +277,9 @@ def test_autotune_promotion_swaps_into_the_engine_on_card(cuda):
 
 @pytest.mark.parametrize("seed", [None, 1, 2])
 @pytest.mark.parametrize("g,q,h,p,n", [(2, 8, 2, 4, 8), (3, 64, 80, 64, 128),
-                                       (1, 256, 80, 64, 128)])
+                                       (1, 256, 80, 64, 128),
+                                       (1, 256, 112, 64, 64),
+                                       (6, 64, 112, 64, 64)])
 def test_ssd_kernel_matches_plain(cuda, g, q, h, p, n, seed):
     gen = torch.Generator(device=cuda).manual_seed(q)
     xb = torch.randn((g, q, h, p), generator=gen, device=cuda)

@@ -66,8 +66,9 @@ class TestConfigs:
             assert dataclasses.asdict(tconfigs.get_smoke(name)) == \
                 dataclasses.asdict(jconfigs.get_smoke(name))
 
-    @pytest.mark.parametrize("name", ["zamba2-7b", "h2o-danube-1.8b",
-                                      "dbrx-132b"])
+    @pytest.mark.parametrize("name", ["llama4-scout-17b-16e",
+                                      "llava-next-34b",
+                                      "seamless-m4t-large-v2", "dbrx-132b"])
     def test_unsupported_raise(self, name):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TM.init_lm(tconfigs.get_smoke(name), device="cpu")
