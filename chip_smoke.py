@@ -1,7 +1,8 @@
 """Chip smoke of the PyTorch/CUDA port: build every emitted kernel, hold each
 against its plain version at its default schedule and at seeded random legal
 orders, run the SIP loop on the card (smoke tune, verify, a wall-clock tune
-of each kernel), serve qwen3-1.7b at full width through the paged
+of each kernel), serve qwen3-1.7b, dbrx-132b (MoE, 8 of its 40 layers) and
+llava-next-34b (VLM, embedding prompts) at full width through the paged
 continuous engine, and mamba2-2.7b, zamba2-7b (hybrid) and h2o-danube-1.8b
 (sliding window) at full width through the contiguous one, and print one
 JSON line per phase.
@@ -16,6 +17,7 @@ there is no card or any phase fails.  The last line is the contract line
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -66,6 +68,7 @@ from repro_torch.launch import obsreport as obsreport_cli  # noqa: E402
 from repro_torch.launch import tune as tune_cli  # noqa: E402
 from repro_torch.launch import verify as verify_cli  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.serve.engine import (ContinuousEngine, Engine,  # noqa: E402
                                       ServeConfig)
 
@@ -699,11 +702,15 @@ def flash_orders(dtype, gen) -> dict:
 
 
 #: bf16 flash at the new serve paths' prefill shapes: label -> (b, hq, hkv,
-#: s, d, window); zamba2's 384-token prompt (MHA, D 112) and h2o-danube's
-#: 4,500-token prompt padded to 4,544 (GQA 4:1, D 80, window 4096)
+#: s, d, window); zamba2's 384-token prompt (MHA, D 112), h2o-danube's
+#: 4,500-token prompt padded to 4,544 (GQA 4:1, D 80, window 4096), and
+#: dbrx's and llava's longest whole-prompt prefill on the paged engine
+#: (the 128-token chunk; GQA 6:1 and 7:1, D 128)
 FLASH_SERVE_SHAPES = {"zamba2_b1_s384_d112": (1, 32, 32, 384, 112, None),
                       "danube_b1_s4544_d80_w4096": (1, 32, 8, 4544, 80,
-                                                    4096)}
+                                                    4096),
+                      "dbrx_b1_s128_gqa48_8": (1, 48, 8, 128, 128, None),
+                      "llava_b1_s128_gqa56_8": (1, 56, 8, 128, 128, None)}
 
 
 #: the limit on a serve-shape flash call's largest per-row relative error
@@ -1187,36 +1194,90 @@ def _pct_ms(xs, q) -> float:
     return float(np.percentile(xs, q)) * 1e3
 
 
-def phase_serve(params, cfg) -> dict:
-    """The main path: qwen3-1.7b at full width, bf16, on the paged
-    continuous engine with prefix sharing and chunked prefill."""
-    scfg = ServeConfig(max_len=512, capacity=8, paged=True, page_size=16,
-                       prefill_chunk=128, prefix_cache=True)
-    prompts, budgets = _serve_requests(cfg.vocab)
-    # warm-up, not counted: the same prompts with 2 new tokens each, so
-    # every prefill shape of the run (prompt lengths padded to a multiple of
-    # fa.SEQ_TILE) builds its flash schedule here; it also warms cuBLAS and
-    # the allocator
-    warm = ContinuousEngine(params, cfg, scfg)
-    for p in prompts:
-        warm.submit(p, 2)
+#: the paged engine every paged serve phase runs (qwen3, dbrx, llava)
+SERVE_PAGED = ServeConfig(max_len=512, capacity=8, paged=True, page_size=16,
+                          prefill_chunk=128, prefix_cache=True)
+
+
+class MoeCopies:
+    """Counts, inside a ``with`` block, the expert copies every MoE dispatch
+    routes and the copies a capacity-bound one (a whole-prompt prefill)
+    drops past capacity: ``moe._dispatch_ffn`` wrapped.  The drop count
+    stays on the device until read; the wrapper adds a few small kernels
+    to each capacity-bound dispatch and none to the others (decode and
+    chunked prefill are dropless)."""
+
+    def __init__(self):
+        self.routed = self.bound_routed = self.dispatches = 0
+        self._dropped = 0
+
+    def __enter__(self):
+        inner = self._inner = moe_mod._dispatch_ffn
+
+        def counted(p, xt, gate_vals, expert_idx, cfg, cap):
+            flat = expert_idx.reshape(-1)
+            self.routed += flat.numel()
+            self.dispatches += 1
+            if cap < xt.shape[0]:
+                counts = torch.zeros(cfg.n_experts, dtype=torch.int64,
+                                     device=flat.device).index_add_(
+                    0, flat, torch.ones_like(flat))
+                self.bound_routed += flat.numel()
+                self._dropped = self._dropped + (counts - cap).clamp_min(
+                    0).sum()
+            return inner(p, xt, gate_vals, expert_idx, cfg, cap)
+        moe_mod._dispatch_ffn = counted
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod._dispatch_ffn = self._inner
+
+    @property
+    def dropped(self) -> int:
+        return int(self._dropped)
+
+    def report(self) -> dict:
+        return {"copies_routed": self.routed,
+                "copies_routed_capacity_bound": self.bound_routed,
+                "copies_dropped": self.dropped,
+                "moe_dispatches": self.dispatches}
+
+
+def _serve_paged(phase: str, params, cfg, prompts, budgets,
+                 extras=None) -> dict:
+    """The traffic once on the paged continuous engine (``SERVE_PAGED``),
+    timed, after a warm-up that is not counted (the same prompts with 2
+    new tokens each: it builds every prefill shape's flash schedule and
+    warms cuBLAS and the allocator).  Checks that every request emits its
+    budget, that flash launched once per layer and whole-prompt prefill
+    and the gather twice per layer and decode or chunk step (every other
+    kernel never), that chunked prefill ran, that the timed run built
+    nothing, and that no page leaked past the prefix cache's refs.  An
+    MoE model's copies are counted (``MoeCopies``)."""
+    extras = extras or [None] * len(prompts)
+    warm = ContinuousEngine(params, cfg, SERVE_PAGED)
+    for p, e in zip(prompts, extras):
+        warm.submit(p, 2, extra=e)
     warm.run(max_steps=10_000)
     del warm
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
-    eng = ContinuousEngine(params, cfg, scfg)
+    eng = ContinuousEngine(params, cfg, SERVE_PAGED)
     tracer = obs.Tracer()
+    copies = MoeCopies()
     compiles_before = _build.STATS.compiles
     reset_launches()
     t0 = time.perf_counter()
-    with obs.tracing(tracer):
-        handles = [eng.submit(p, b) for p, b in zip(prompts, budgets)]
+    with obs.tracing(tracer), copies:
+        handles = [eng.submit(p, b, extra=e)
+                   for p, b, e in zip(prompts, budgets, extras)]
         eng.run(max_steps=10_000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_attention_causal": fa.launches,
-                "paged_gather": pg.launches,
-                "gemm_fused_leaky_relu": gf.launches}
+                "paged_gather": pg.launches, **{
+                    m.FUNCTION: m.launches for m in (gf, sk, rk)}}
     by_dtype = dict(fa.dtype_launches)
 
     events = tracer.events()
@@ -1225,24 +1286,28 @@ def phase_serve(params, cfg) -> dict:
     s = eng.stats
     for r, b in zip(handles, budgets):
         if len(r.tokens) != b:
-            raise AssertionError(f"request {r.uid} emitted {len(r.tokens)} "
-                                 f"of {b} tokens")
+            raise AssertionError(f"{phase}: request {r.uid} emitted "
+                                 f"{len(r.tokens)} of {b} tokens")
         if not all(0 <= t < cfg.vocab for t in r.tokens):
-            raise AssertionError(f"request {r.uid}: token out of range")
-    if s["prefix_hits"] < 1 or s["chunk_steps"] < 1:
-        raise AssertionError(f"prefix_hits {s['prefix_hits']}, chunk_steps "
-                             f"{s['chunk_steps']}: the path was not covered")
-    want_pg = 2 * cfg.n_layers * (s["decode_steps"] + s["chunk_steps"])
-    want_fa = cfg.n_layers * n_prefill
-    if launches != {"flash_attention_causal": want_fa, "paged_gather": want_pg,
-                    "gemm_fused_leaky_relu": 0} or by_dtype["float32"]:
-        raise AssertionError(f"launches {launches} (flash {by_dtype}), "
-                             f"expected bf16 flash {want_fa} and gather "
-                             f"{want_pg}")
-    if n_prefill < 1:
-        raise AssertionError("no whole-prompt prefill dispatch ran")
+            raise AssertionError(f"{phase}: request {r.uid}: token out of "
+                                 f"range")
+    if s["chunk_steps"] < 1 or n_prefill < 1:
+        raise AssertionError(f"{phase}: chunk_steps {s['chunk_steps']}, "
+                             f"whole-prompt prefills {n_prefill}: the path "
+                             f"was not covered")
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention_causal"] = cfg.n_layers * n_prefill
+    want["paged_gather"] = 2 * cfg.n_layers * (s["decode_steps"]
+                                               + s["chunk_steps"])
+    if launches != want or by_dtype["float32"]:
+        raise AssertionError(f"{phase}: launches {launches} (flash "
+                             f"{by_dtype}), expected {want} in bf16")
+    builds = _build.STATS.compiles - compiles_before
+    if builds:
+        raise AssertionError(f"{phase}: {builds} nvcc builds in the timed run")
     if eng.pages.used_pages != len(eng.prefix):
-        raise AssertionError("pages leaked past the prefix cache's refs")
+        raise AssertionError(f"{phase}: pages leaked past the prefix "
+                             f"cache's refs")
     ttft = [r.admitted_at - r.submitted_at for r in handles]
     tokens = sum(len(r.tokens) for r in handles)
     out = {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
@@ -1258,28 +1323,127 @@ def phase_serve(params, cfg) -> dict:
            "prefix_tokens_saved": s["prefix_tokens_saved"],
            "prefill_compiles": s["prefill_compiles"], "launches": launches,
            "flash_launches_by_dtype": by_dtype,
-           "kernel_builds_in_timed_window":
-               _build.STATS.compiles - compiles_before,
+           "kernel_builds_in_timed_window": builds,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if cfg.family == "moe":
+        out.update(copies.report())
+    return out
+
+
+def phase_serve(params, cfg) -> dict:
+    """The main path: qwen3-1.7b at full width, bf16, on the paged
+    continuous engine with prefix sharing and chunked prefill."""
+    out = _serve_paged("serve", params, cfg, *_serve_requests(cfg.vocab))
+    if out["prefix_hits"] < 1:
+        raise AssertionError("serve: no prefix hit: the path was not covered")
     emit("serve", **out)
     return out
+
+
+def phase_serve_moe(params, cfg, full_layers: int) -> dict:
+    """The MoE path: dbrx-132b at full width, cut to ``cfg.n_layers`` of
+    ``full_layers`` layers, bf16, on the paged engine: top-4 of 16 experts,
+    whole-prompt prefills capacity-bound (copies must drop), chunked
+    prefill and decode dropless."""
+    out = _serve_paged("serve_moe", params, cfg, *_serve_requests(cfg.vocab))
+    if out["prefix_hits"] < 1 or out["copies_dropped"] < 1:
+        raise AssertionError(f"serve_moe: prefix hits {out['prefix_hits']}, "
+                             f"copies dropped {out['copies_dropped']}: the "
+                             f"path was not covered")
+    out["reduced"] = {"n_layers": f"{cfg.n_layers} of {full_layers}"}
+    emit("serve_moe", **out)
+    return out
+
+
+def _vlm_embeds(prompts, d: int, seed: int) -> list[dict]:
+    """One standard-normal (len, d) float32 embedding per prompt."""
+    rng = np.random.default_rng(seed)
+    return [{"embeds": rng.standard_normal((len(p), d)).astype(np.float32)}
+            for p in prompts]
+
+
+def phase_serve_vlm(params, cfg) -> dict:
+    """The VLM path: llava-next-34b at full width and depth, bf16, on the
+    paged engine, every prompt precomputed embeddings (seed 0): no prefix
+    hit, though the 17th request shares the first's token ids."""
+    prompts, budgets = _serve_requests(cfg.vocab)
+    out = _serve_paged("serve_vlm", params, cfg, prompts, budgets,
+                       _vlm_embeds(prompts, cfg.d_model, 0))
+    if out["prefix_hits"] != 0:
+        raise AssertionError(f"serve_vlm: {out['prefix_hits']} prefix hits "
+                             f"for embedding prompts")
+    emit("serve_vlm", **out)
+    return out
+
+
+def trace_totals(prof) -> tuple[list, list]:
+    """(device rows, host rows) of a finished ``torch.profiler`` run, each
+    ``(us, calls, name)`` sorted by time: every device event's time (kernels,
+    copies, fills) summed by name, and every ATen op's self time on the
+    host (its span less its direct children's on its thread) summed by
+    name.  The sums ``key_averages()`` gives, read from the raw trace
+    without building its event tree (which takes tens of µs an event, and
+    a serve window has hundreds of thousands)."""
+    dev: dict[str, list] = collections.defaultdict(lambda: [0.0, 0])
+    host: dict[str, list] = collections.defaultdict(lambda: [0.0, 0])
+    threads = collections.defaultdict(list)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            row = dev[e.name()]
+            row[0] += e.duration_ns() / 1e3
+            row[1] += 1
+        elif e.device_type() == torch.autograd.DeviceType.CPU \
+                and not e.is_async():
+            threads[e.start_thread_id()].append(
+                (e.start_ns(), e.end_ns(), e.name()))
+
+    def close(frame):
+        end, name, children, start, n_children, child_name = frame
+        if name.startswith("aten::"):
+            row = host[name]
+            row[0] += (end - start - children) / 1e3
+            # key_averages folds an op's only child of the same name (a
+            # redispatch) into it: one call, the same summed self time
+            row[1] += 0 if n_children == 1 and child_name == name else 1
+
+    for evs in threads.values():
+        evs.sort(key=lambda ev: (ev[0], -ev[1]))
+        # [end, name, children's ns, start, children, last child's name]
+        stack = []
+        for start, end, name in evs:
+            while stack and stack[-1][0] <= start:
+                close(stack.pop())
+            if stack:
+                stack[-1][2] += end - start
+                stack[-1][4] += 1
+                stack[-1][5] = name
+            stack.append([end, name, 0, start, 0, None])
+        while stack:
+            close(stack.pop())
+    return ([(us, n, k[:90]) for k, (us, n) in sorted(
+                dev.items(), key=lambda kv: -kv[1][0]) if us > 0],
+            [(us, n, k) for k, (us, n) in sorted(
+                host.items(), key=lambda kv: -kv[1][0])])
 
 
 def phase_profile(params, cfg, scfg: ServeConfig,
                   phase: str = "profile") -> dict:
     """Device time by kernel over a short serving window (8 requests of 100
-    tokens, 16 new each), from torch.profiler."""
+    tokens, 16 new each; a VLM's prompts as embeddings), from
+    torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     eng = ContinuousEngine(params, cfg, scfg)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, 100).astype(np.int32)
                for _ in range(8)]
+    extras = (_vlm_embeds(prompts, cfg.d_model, 1)
+              if cfg.input_mode == "embeddings" else [None] * len(prompts))
     warm = ContinuousEngine(params, cfg, eng.scfg)    # builds, not profiled
-    warm.submit(prompts[0], 2)
+    warm.submit(prompts[0], 2, extra=extras[0])
     warm.run(max_steps=100)
     del warm
-    for p in prompts:
-        eng.submit(p, 16)
+    for p, e in zip(prompts, extras):
+        eng.submit(p, 16, extra=e)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1287,16 +1451,7 @@ def phase_profile(params, cfg, scfg: ServeConfig,
         eng.run(max_steps=1000)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows, host_ops = [], []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us > 0 and ev.device_type.name == "CUDA":
-            rows.append((dev_us, ev.count, ev.key[:90]))
-        elif ev.device_type.name == "CPU" and ev.key.startswith("aten::"):
-            host_ops.append((ev.self_cpu_time_total, ev.count, ev.key))
-    rows.sort(reverse=True)
-    host_ops.sort(reverse=True)
+    rows, host_ops = trace_totals(prof)
     busy_s = sum(r[0] for r in rows) / 1e6
     s = eng.stats
     out = {"arch": cfg.name, "n_layers": cfg.n_layers,
@@ -1377,8 +1532,7 @@ def phase_autotune(params, cfg, workdir: Path) -> dict:
     into a running engine and a promoted non-default schedule has served,
     then once more after the service stopped.  Tokens must equal the
     first run's in every run."""
-    scfg = ServeConfig(max_len=512, capacity=8, paged=True, page_size=16,
-                       prefill_chunk=128, prefix_cache=True)
+    scfg = SERVE_PAGED
     prompts, budgets = _serve_requests(cfg.vocab)
     d = workdir / "autotune"
     d.mkdir()
@@ -1796,18 +1950,22 @@ def phase_serve_swa(params, cfg) -> dict:
     return out
 
 
-def _differential_contiguous(phase: str, cfg, prompts, budgets,
-                             max_len: int, names: tuple[str, ...],
-                             sip_cache: str, workdir: Path) -> dict:
-    """``cfg`` (float32, seed 1) on the contiguous continuous engine,
-    token-identical to single-request Engine.generate, in fifo and
-    reversed arrival, and under the card's smoke store plus a non-default
-    schedule at every signature of ``names`` the fifo run served, each of
-    which the tuned run must resolve and launch."""
-    params = M.init_lm(cfg, seed=1, device="cuda")
-    ref = Engine(params, cfg, ServeConfig(max_len=max_len))
-    want = [ref.generate(p[None], b)[0] for p, b in zip(prompts, budgets)]
-    scfg = ServeConfig(max_len=max_len, capacity=3)
+def _differential(phase: str, cfg, prompts, budgets, scfg: ServeConfig,
+                  names: tuple[str, ...], sip_cache: str, workdir: Path, *,
+                  extras=None, params=None) -> dict:
+    """``cfg`` (float32; ``params``, or seed 1's) on the continuous engine
+    ``scfg``, token-identical to single-request Engine.generate, in fifo
+    and reversed arrival, and under the card's smoke store plus a
+    non-default schedule at every signature of ``names`` the fifo run
+    served, each of which the tuned run must resolve and launch.
+    ``extras`` gives each request its extra inputs (a VLM's embeddings)."""
+    if params is None:
+        params = M.init_lm(cfg, seed=1, device="cuda")
+    extras = extras or [None] * len(prompts)
+    ref = Engine(params, cfg, ServeConfig(max_len=scfg.max_len))
+    want = [ref.generate(p[None], b, extra_inputs=e and {
+        k: v[None] for k, v in e.items()})[0]
+        for p, b, e in zip(prompts, budgets, extras)]
     stats = {}
 
     def run(order: str, cache: ScheduleCache | str):
@@ -1815,7 +1973,8 @@ def _differential_contiguous(phase: str, cfg, prompts, budgets,
         reset_launches()
         with schedule_cache(cache) as store:
             eng = ContinuousEngine(params, cfg, scfg)
-            uids = {eng.submit(prompts[i], budgets[i]).uid: i for i in idxs}
+            uids = {eng.submit(prompts[i], budgets[i], extra=extras[i]).uid: i
+                    for i in idxs}
             got = eng.run(max_steps=1000)
             kerns = {name: registry.get(name, store) for name in names}
             served = {name: k.served_signatures() for name, k in kerns.items()}
@@ -1825,9 +1984,11 @@ def _differential_contiguous(phase: str, cfg, prompts, budgets,
                                      f"{got[uid].tolist()}, Engine gave "
                                      f"{want[i].tolist()}")
         stats[order] = {k: eng.stats[k] for k in (
-            "decode_steps", "prefill_compiles")}
+            "decode_steps", "prefill_compiles") + (
+            ("prefix_hits", "chunk_steps") if scfg.paged else ())}
         stats[order]["launches"] = {m.FUNCTION: m.launches
                                     for m in KERNEL_MODULES}
+        stats[order]["flash_launches_by_dtype"] = dict(fa.dtype_launches)
         return served, kerns
 
     served, _ = run("fifo", ScheduleCache())
@@ -1862,17 +2023,18 @@ def _differential_contiguous(phase: str, cfg, prompts, budgets,
 
 def phase_differential_ssm(sip_cache: str, workdir: Path) -> dict:
     """mamba2 at full width cut to 4 layers, float32: the contiguous
-    continuous engine against Engine.generate (``_differential_contiguous``)
-    at the SSD's served signatures."""
+    continuous engine against Engine.generate (``_differential``) at the
+    SSD's served signatures."""
     cfg = dataclasses.replace(configs.get("mamba2-2.7b"), n_layers=4,
                               dtype="float32")
     rng = np.random.default_rng(5)
     # 256: a whole configured chunk; two prompts of 70 share one prefill
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
                for n in (23, 70, 256, 45, 70)]
-    out = _differential_contiguous(
-        "differential_ssm", cfg, prompts, [10, 8, 12, 9, 11], 512,
-        (sk_ops.NAME,), sip_cache, workdir)
+    out = _differential(
+        "differential_ssm", cfg, prompts, [10, 8, 12, 9, 11],
+        ServeConfig(max_len=512, capacity=3), (sk_ops.NAME,), sip_cache,
+        workdir)
     emit("differential_ssm", **out)
     return out
 
@@ -1886,8 +2048,9 @@ def phase_differential_hybrid(sip_cache: str, workdir: Path) -> dict:
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
                for n in (23, 70, 256, 45, 70)]
-    out = _differential_contiguous(
-        "differential_hybrid", cfg, prompts, [10, 8, 12, 9, 11], 512,
+    out = _differential(
+        "differential_hybrid", cfg, prompts, [10, 8, 12, 9, 11],
+        ServeConfig(max_len=512, capacity=3),
         (sk_ops.NAME, fa_ops.variant_name(True, None)), sip_cache, workdir)
     out["attention_flags"] = M.hybrid_flags(cfg)
     emit("differential_hybrid", **out)
@@ -1903,10 +2066,90 @@ def phase_differential_swa(sip_cache: str, workdir: Path) -> dict:
     rng = np.random.default_rng(8)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
                for n in (23, 4500, 70, 4070, 45)]
-    out = _differential_contiguous(
-        "differential_swa", cfg, prompts, [10, 8, 12, 40, 9], 4608,
+    out = _differential(
+        "differential_swa", cfg, prompts, [10, 8, 12, 40, 9],
+        ServeConfig(max_len=4608, capacity=3),
         (fa_ops.variant_name(True, cfg.window),), sip_cache, workdir)
     emit("differential_swa", **out)
+    return out
+
+
+#: the paged differentials' engine: capacity 3, chunks of 64, prefix
+#: sharing; the kernels the paged engine dispatches through the registry
+DIFF_PAGED = ServeConfig(max_len=128, capacity=3, paged=True, page_size=16,
+                         prefill_chunk=64, prefix_cache=True)
+
+
+def _diff_paged_prompts(vocab: int, seed: int):
+    """Prompts of 23, 70, 23, 45 and 70 tokens: the two 23s prefill as one
+    group, the 45 alone, the 70s in chunks, the last sharing the second's
+    first 40 tokens (a prefix hit); 8-12 new tokens."""
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, vocab, n).astype(np.int32)
+               for n in (23, 70, 23, 45, 70)]
+    prompts[4] = np.concatenate([prompts[1][:40],
+                                 prompts[4][40:]]).astype(np.int32)
+    return prompts, [10, 8, 12, 9, 11]
+
+
+def phase_differential_moe(sip_cache: str, workdir: Path) -> dict:
+    """dbrx at full width cut to 2 layers, float32, on the paged engine.
+    (a) At capacity_factor = n_experts / top_k (4.0) no dispatch drops a
+    copy: the engine against Engine.generate (``_differential``) at
+    flash's and the gather's served signatures.  (b) At the config's own
+    1.25 grouped and single prefills drop copies (counted), so the engine
+    is held to itself: the traffic twice through one engine (no prefix
+    cache, so both passes dispatch alike) gives bitwise equal tokens."""
+    full = configs.get("dbrx-132b")
+    cfg = dataclasses.replace(full, n_layers=2, dtype="float32")
+    params = M.init_lm(cfg, seed=1, device="cuda")
+    prompts, budgets = _diff_paged_prompts(cfg.vocab, 9)
+    dropless = dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    out = _differential("differential_moe", dropless, prompts, budgets,
+                        DIFF_PAGED, SERVED, sip_cache, workdir,
+                        params=params)
+    eng = ContinuousEngine(params, cfg, dataclasses.replace(
+        DIFF_PAGED, prefix_cache=False))
+    passes = []
+    for _ in range(2):
+        with MoeCopies() as copies:
+            uids = [eng.submit(p, b).uid for p, b in zip(prompts, budgets)]
+            got = eng.run(max_steps=1000)
+        passes.append({"tokens": [got[u].tolist() for u in uids],
+                       **copies.report()})
+    if passes[0]["tokens"] != passes[1]["tokens"] \
+            or min(p["copies_dropped"] for p in passes) < 1:
+        raise AssertionError(f"differential_moe (b): tokens equal "
+                             f"{passes[0]['tokens'] == passes[1]['tokens']}, "
+                             f"copies dropped "
+                             f"{[p['copies_dropped'] for p in passes]}")
+    out.update(capacity_factor=dropless.capacity_factor,
+               reduced={"n_layers": f"{cfg.n_layers} of {full.n_layers}"},
+               at_1_25={"bitwise_repeatable": True, "passes": [
+                   {k: v for k, v in p.items() if k != "tokens"}
+                   for p in passes]})
+    emit("differential_moe", **out)
+    return out
+
+
+def phase_differential_vlm(sip_cache: str, workdir: Path) -> dict:
+    """llava at full width cut to 4 layers, float32, embedding prompts
+    (seed 1) on the paged engine against Engine.generate at flash's and
+    the gather's served signatures: the prefix-sharing request gets no
+    hit."""
+    full = configs.get("llava-next-34b")
+    cfg = dataclasses.replace(full, n_layers=4, dtype="float32")
+    prompts, budgets = _diff_paged_prompts(cfg.vocab, 10)
+    out = _differential("differential_vlm", cfg, prompts, budgets,
+                        DIFF_PAGED, SERVED, sip_cache, workdir,
+                        extras=_vlm_embeds(prompts, cfg.d_model, 1))
+    hits = [st["prefix_hits"] for st in out.values()
+            if isinstance(st, dict) and "prefix_hits" in st]
+    if any(hits):
+        raise AssertionError(f"differential_vlm: prefix hits {hits}")
+    out["reduced"] = {"n_layers": f"{cfg.n_layers} of {full.n_layers}"}
+    emit("differential_vlm", **out)
     return out
 
 
@@ -1920,11 +2163,12 @@ def _path_launches(path: dict, name: str) -> int:
 
 def kernels_line(gemm: dict, flash: dict, gather: dict, ssd: dict,
                  rms: dict, sip: dict, serve: dict, serve_ssm: dict,
-                 serve_hybrid: dict, serve_swa: dict) -> dict:
+                 serve_hybrid: dict, serve_swa: dict, serve_moe: dict,
+                 serve_vlm: dict) -> dict:
     """One row per kernel, its launches from its own main path: the bf16
     flash kernel's from ``serve``, the float32 one's from ``sip``; beside
-    them each row's launches on the hybrid and sliding-window serve
-    paths."""
+    them each row's launches on the hybrid, sliding-window, MoE and VLM
+    serve paths."""
     rows = []
     for mod, source, name, res, path in (
             (gf, gf.SOURCE, "gemm_fused_leaky_relu", gemm, sip),
@@ -1939,6 +2183,8 @@ def kernels_line(gemm: dict, flash: dict, gather: dict, ssd: dict,
                      "launches": path["launches"][name],
                      "launches_hybrid": _path_launches(serve_hybrid, name),
                      "launches_swa": _path_launches(serve_swa, name),
+                     "launches_moe": _path_launches(serve_moe, name),
+                     "launches_vlm": _path_launches(serve_vlm, name),
                      "max_abs_err": res["max_abs_err"],
                      "ms": res["ms"], "plain_ms": res["plain_ms"],
                      "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
@@ -1967,9 +2213,7 @@ def main() -> int:
     cfg = configs.get("qwen3-1.7b")
     params = M.init_lm(cfg, seed=0, device="cuda")
     serve = phase_serve(params, cfg)
-    phase_profile(params, cfg, ServeConfig(max_len=512, capacity=8,
-                                           paged=True, page_size=16,
-                                           prefill_chunk=128))
+    phase_profile(params, cfg, SERVE_PAGED)
     phase_autotune(params, cfg, workdir)
     del params
     torch.cuda.empty_cache()
@@ -1998,9 +2242,24 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_differential_swa(sip["cache"], workdir)
+    cfg = configs.get("dbrx-132b")
+    n_full, cfg = cfg.n_layers, dataclasses.replace(cfg, n_layers=8)
+    params = M.init_lm(cfg, seed=0, device="cuda")
+    serve_moe = phase_serve_moe(params, cfg, n_full)
+    phase_profile(params, cfg, SERVE_PAGED, phase="profile_moe")
+    del params
+    torch.cuda.empty_cache()
+    phase_differential_moe(sip["cache"], workdir)
+    cfg = configs.get("llava-next-34b")
+    params = M.init_lm(cfg, seed=0, device="cuda")
+    serve_vlm = phase_serve_vlm(params, cfg)
+    phase_profile(params, cfg, SERVE_PAGED, phase="profile_vlm")
+    del params
+    torch.cuda.empty_cache()
+    phase_differential_vlm(sip["cache"], workdir)
     print(json.dumps(kernels_line(gemm, flash, gather, ssd, rms, sip, serve,
-                                  serve_ssm, serve_hybrid, serve_swa)),
-          flush=True)
+                                  serve_ssm, serve_hybrid, serve_swa,
+                                  serve_moe, serve_vlm)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}))
     return 0

@@ -18,8 +18,14 @@
 serve the SSM family (mamba2-2.7b), the hybrid family (zamba2-7b) and
 sliding-window attention (h2o-danube-1.8b, a ring of 4096 positions per
 slot) through the contiguous engine; ``--paged`` refuses all three, as the
-reference does.  Generates a mixed-prompt-length request stream (uniform
-lengths in [--prompt-len-min, --prompt-len-max], Poisson arrivals at
+reference does.  The MoE family (dbrx-132b, llama4-scout-17b-16e) and the
+VLM (llava-next-34b) serve through either engine, ``--paged`` included;
+a VLM request's prompt is a standard-normal (prompt_len, d_model) float32
+embedding drawn from the traffic rng (the vision frontend is a stub, as in
+the reference).  At full width neither dbrx-132b nor llama4-scout fits one
+80 GB card; ``chip_smoke.py`` serves dbrx cut to 8 layers.  Generates a
+mixed-prompt-length request stream (uniform lengths in
+[--prompt-len-min, --prompt-len-max], Poisson arrivals at
 --arrival-rate req/s; 0 = all at once), or replays ``--replay FILE`` — a
 JSON list of ``{"prompt_len": int, "new_tokens": int, "arrival": float}``
 records — and prints one ``[serve:continuous] {...}`` JSON line:
@@ -102,7 +108,7 @@ def _pct(xs: list[float]) -> dict[str, float]:
 
 
 def drive_continuous(eng: ContinuousEngine, traffic: list[TrafficSpec],
-                     prompts: list[np.ndarray]) -> dict:
+                     prompts: list[np.ndarray], extras=None) -> dict:
     order = sorted(range(len(traffic)), key=lambda i: traffic[i].arrival)
     handles = []
     t0 = time.perf_counter()
@@ -111,7 +117,8 @@ def drive_continuous(eng: ContinuousEngine, traffic: list[TrafficSpec],
         now = time.perf_counter() - t0
         while i < len(order) and traffic[order[i]].arrival <= now:
             j = order[i]
-            handles.append(eng.submit(prompts[j], traffic[j].new_tokens))
+            handles.append(eng.submit(prompts[j], traffic[j].new_tokens,
+                                      extra=extras[j] if extras else None))
             i += 1
         if eng.pool.idle:
             # nothing in flight: sleep until the next arrival is due
@@ -132,7 +139,7 @@ def drive_continuous(eng: ContinuousEngine, traffic: list[TrafficSpec],
 
 
 def drive_static(eng: Engine, traffic: list[TrafficSpec],
-                 prompts: list[np.ndarray], capacity: int) -> dict:
+                 prompts: list[np.ndarray], extras, capacity: int) -> dict:
     """Baseline: batches of ``capacity`` in arrival order, prompts padded to
     the batch max, every batch decoding to its longest request."""
     order = sorted(range(len(traffic)), key=lambda i: traffic[i].arrival)
@@ -141,11 +148,28 @@ def drive_static(eng: Engine, traffic: list[TrafficSpec],
     t0 = time.perf_counter()
     toks = 0
     for padded, new, idxs in static_batches(aprompts, abudgets, capacity):
-        eng.generate(padded, new)
+        ei = None
+        if extras:
+            ei = {k: _stack_extra(k, [extras[order[j]][k] for j in idxs],
+                                  padded.shape[1])
+                  for k in extras[0]}
+        eng.generate(padded, new, extra_inputs=ei)
         toks += sum(abudgets[j] for j in idxs)              # useful tokens
     wall = time.perf_counter() - t0
     return {"wall_s": round(wall, 3), "tokens": toks,
             "tokens_per_s": round(toks / wall, 1)}
+
+
+def _stack_extra(key: str, values: list[np.ndarray], plen: int) -> np.ndarray:
+    """Batch per-request extra inputs; prompt-aligned extras (VLM embeds)
+    are left-padded to the batch prompt length like the tokens."""
+    if key != "embeds":
+        return np.stack(values)
+    out = np.zeros((len(values), plen) + values[0].shape[1:],
+                   values[0].dtype)
+    for r, v in enumerate(values):
+        out[r, plen - v.shape[0]:] = v
+    return out
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -234,6 +258,12 @@ def main(argv: list[str] | None = None) -> None:
                        admission=args.admission)
     prompts = [rng.integers(0, cfg.vocab, t.prompt_len).astype(np.int32)
                for t in traffic]
+    extras = None
+    if cfg.input_mode == "embeddings":
+        # VLM: the prompt is precomputed patch+text embeddings (frontend stub)
+        extras = [{"embeds": rng.standard_normal(
+            (t.prompt_len, cfg.d_model)).astype(np.float32)}
+            for t in traffic]
 
     tracer = obs.Tracer() if args.trace else None
     # streaming mode: records hit the JSONL as they happen, so an external
@@ -269,7 +299,7 @@ def main(argv: list[str] | None = None) -> None:
             stack.enter_context(schedule_cache(args.sip_cache))
         if args.static:
             report = drive_static(Engine(params, cfg, scfg), traffic, prompts,
-                                  args.capacity)
+                                  extras, args.capacity)
             print(f"[serve:static] {json.dumps(report)}")
         else:
             eng = ContinuousEngine(params, cfg, scfg, obs=reg,
@@ -277,7 +307,7 @@ def main(argv: list[str] | None = None) -> None:
             if service is not None:
                 service.start()
             try:
-                report = drive_continuous(eng, traffic, prompts)
+                report = drive_continuous(eng, traffic, prompts, extras)
             finally:
                 if service is not None:
                     service.stop()

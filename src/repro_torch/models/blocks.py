@@ -1,6 +1,6 @@
-"""The dense decoder block (pre-norm attention and MLP with residuals), the
-Mamba-2 block (pre-norm SSM mixer with a residual) and the Zamba-2 hybrid
-group (mamba blocks, then the one shared decoder block)."""
+"""The decoder block (pre-norm attention and an MLP or MoE, with
+residuals), the Mamba-2 block (pre-norm SSM mixer with a residual) and the
+Zamba-2 hybrid group (mamba blocks, then the one shared decoder block)."""
 
 from __future__ import annotations
 
@@ -11,8 +11,21 @@ import torch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import modules as nn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
+
+
+def zero_aux() -> dict[str, float]:
+    """A dense block's aux losses (the reference's ``ZERO_AUX``), as
+    Python zeros: no device work on the serving path."""
+    return dict.fromkeys(moe_mod.AUX_KEYS, 0.0)
+
+
+def _ffn(p, x: torch.Tensor, cfg: ModelConfig, dropless: bool):
+    if cfg.family == "moe":
+        return moe_mod.moe(p["ffn"], x, cfg, dropless=dropless)
+    return mlp_mod.mlp(p["ffn"], x, cfg), zero_aux()
 
 
 def decoder_block(p, x: torch.Tensor, cfg: ModelConfig, *,
@@ -20,15 +33,17 @@ def decoder_block(p, x: torch.Tensor, cfg: ModelConfig, *,
                   pos_offset: int | torch.Tensor = 0,
                   cache: dict[str, Any] | None = None,
                   return_cache: bool = False):
-    """-> (x, new_cache); ``new_cache`` is None unless ``cache`` is given or
-    ``return_cache`` is set."""
+    """-> (x, aux, new_cache); ``new_cache`` is None unless ``cache`` is
+    given or ``return_cache`` is set.  An MoE layer is dropless when it
+    reads a cache (decode, chunked prefill), as the reference's is."""
     h = nn.rmsnorm_apply(p["ln1"], x)
     a, new_cache = attn_mod.attention(p["attn"], h, cfg, causal=causal,
                                       pos_offset=pos_offset, cache=cache,
                                       return_cache=return_cache)
     x = x + a
     h2 = nn.rmsnorm_apply(p["ln2"], x)
-    return x + mlp_mod.mlp(p["ffn"], h2, cfg), new_cache
+    y, aux = _ffn(p, h2, cfg, dropless=cache is not None)
+    return x + y, aux, new_cache
 
 
 def mamba_block(p, x: torch.Tensor, cfg: ModelConfig, *, state=None,
@@ -100,13 +115,14 @@ def hybrid_group(gp, shared, x: torch.Tensor, cfg: ModelConfig,
                             return_state=return_state)
     if return_state and attn_cache is None:          # prefill
         if apply_attn:
-            x, cache = decoder_block(shared, x, cfg, causal=True,
-                                     return_cache=True)
+            x, _, cache = decoder_block(shared, x, cfg, causal=True,
+                                        return_cache=True)
         else:
             cache = attn_mod.prefill_kv(
                 shared["attn"], nn.rmsnorm_apply(shared["ln1"], x), cfg)
         return x, states, cache
     if apply_attn:
-        x, attn_cache = decoder_block(shared, x, cfg, causal=True,
-                                      pos_offset=pos_offset, cache=attn_cache)
+        x, _, attn_cache = decoder_block(shared, x, cfg, causal=True,
+                                         pos_offset=pos_offset,
+                                         cache=attn_cache)
     return x, states, attn_cache

@@ -1,12 +1,15 @@
 """Model configuration — one dataclass covers all 10 assigned families.
 
 Kept field for field with ``repro.models.config`` so a JAX config converts
-with ``dataclasses.asdict``.  The TPU execution levers (``remat*``,
+with ``dataclasses.asdict``.  The TPU layout levers (``remat*``,
 ``scan_layers``, ``seq_shard``, ``force_microbatches``,
-``logits_microbatch``, ``moe_groups``) and ``use_pallas`` are accepted and
-have no effect in the port: on a CUDA tensor the kernel always runs, on a
-CPU tensor its plain version.  :func:`check_supported` names what the port
-does not run yet.
+``logits_microbatch``) and ``use_pallas`` are accepted and have no effect
+in the port: on a CUDA tensor the kernel always runs, on a CPU tensor its
+plain version.  ``moe_groups`` is not one of them: it changes which tokens
+an MoE layer drops, and the port routes within its groups as the reference
+does (``models/moe.py``).  The port runs the dense (sliding-window
+attention included), moe, vlm, ssm and hybrid families;
+:func:`check_supported` names what it does not run yet.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 
 #: the model families the port runs
-SUPPORTED_FAMILIES = ("dense", "ssm", "hybrid")
+SUPPORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,8 +150,7 @@ def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> ModelConfig:
     """Raise ``NotImplementedError`` for what the port does not run yet
-    (see ROADMAP.md, Queue 1): families other than dense (sliding-window
-    attention included), ssm and hybrid, and padded heads."""
+    (see ROADMAP.md, Queue 1): the enc_dec family and padded heads."""
     if cfg.family not in SUPPORTED_FAMILIES:
         raise NotImplementedError(
             f"repro_torch runs the {', '.join(SUPPORTED_FAMILIES)} "

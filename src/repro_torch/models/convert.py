@@ -3,8 +3,10 @@
 ``params_from_numpy`` takes ``repro``'s params as numpy arrays —
 ``jax.tree.map(np.asarray, nn.unwrap(M.init_lm(key, cfg)))``, layers stacked
 on axis 0 (a hybrid's groups on two, see ``model.param_shapes``) — and
-returns the port's param tree, so both packages compute the same function.  Norm gains and the SSM leaves the reference reads in
-float32 stay float32.
+returns the port's param tree, so both packages compute the same function.
+A moe layer's ``ffn`` subtree is the reference's ``init_moe`` tree.  Norm
+gains, the SSM leaves the reference reads in float32 and an MoE router
+(whose product the reference runs in float32) stay float32.
 """
 
 from __future__ import annotations

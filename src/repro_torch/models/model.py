@@ -1,6 +1,7 @@
-"""The dense decoder LM (sliding-window attention included), the Mamba-2
-LM and the Zamba-2 hybrid: init, forward, prefill and decode entry points,
-and the per-slot and paged cache helpers the serving engines use.
+"""The decoder LMs (dense with sliding-window attention included, MoE, and
+VLM: a dense backbone whose prompt may be precomputed embeddings), the
+Mamba-2 LM and the Zamba-2 hybrid: init, forward, prefill and decode entry
+points, and the per-slot and paged cache helpers the serving engines use.
 
 Params are a nested dict of tensors with ``repro``'s tree, leaf names and
 layouts (``nn.unwrap(init_lm(...))``), per-layer leaves stacked on axis 0
@@ -11,16 +12,18 @@ stores every weight in the compute dtype once, at load, which gives the
 same values and halves the weight memory in bf16.  Norm gains stay
 float32: RMSNorm casts its gain to float32, so storing them rounded would
 change the result.  The same holds for the SSM leaves the reference reads
-in float32 (``ssm.F32_LEAVES``).
+in float32 (``ssm.F32_LEAVES``) and for an MoE router, whose product the
+reference runs in float32.
 
 Cache layouts, written out (``repro`` finds them structurally with
 ``jax.eval_shape``), with B the prefill batch or the serving slots:
 
-* dense: ``k``/``v`` (L, B | P, S | ps, Hkv, D) in the compute dtype and
-  ``len`` int32 — (L,) from :func:`prefill`, (L, slots) for the serving
-  caches.  A sliding-window model's S is ``kv_cache_len`` = min(max_len,
-  window): a ring in which position p sits at slot p % S, filled by a
-  longer prompt with its last S positions.  It is never paged;
+* dense, moe, vlm: ``k``/``v`` (L, B | P, S | ps, Hkv, D) in the compute
+  dtype and ``len`` int32 — (L,) from :func:`prefill`, (L, slots) for the
+  serving caches.  A sliding-window model's S is ``kv_cache_len`` =
+  min(max_len, window): a ring in which position p sits at slot p % S,
+  filled by a longer prompt with its last S positions.  It is never
+  paged;
 * ssm: ``conv`` (L, B, W-1, C) in the compute dtype and ``ssd`` (L, B, H,
   N, P) float32, with no ``len`` and no paged store;
 * hybrid: ``mamba.conv`` (G, g, B, W-1, C) and ``mamba.ssd`` (G, g, B, H,
@@ -41,6 +44,7 @@ import torch
 
 from repro_torch.models import blocks
 from repro_torch.models import modules as nn
+from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig, check_supported
 
@@ -48,7 +52,13 @@ Params = dict[str, Any]
 #: leaves that hold RMSNorm gains (kept in float32)
 NORM_LEAVES = ("ln1", "ln2", "ln", "ln_f", "q_norm", "k_norm")
 #: every leaf kept in float32
-F32_LEAVES = NORM_LEAVES + ssm.F32_LEAVES
+F32_LEAVES = NORM_LEAVES + ssm.F32_LEAVES + ("router",)
+#: the attention families: K/V caches, paged serving, ``decode_tokens``
+ATTENTION_FAMILIES = ("dense", "moe", "vlm")
+#: a stacked leaf with more elements than this is drawn one slice of its
+#: leading axis at a time (4 GiB in float32), so init never holds a
+#: full-width float32 copy of a large leaf
+DRAW_WHOLE = 2 ** 30
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -74,12 +84,13 @@ def _decoder_shapes(cfg: ModelConfig, lead: tuple[int, ...]) -> dict:
     if cfg.qk_norm:
         attn["q_norm"] = (hd,)
         attn["k_norm"] = (hd,)
-    ffn = {"w_down": (cfg.d_ff, d)}
-    if cfg.mlp_type in ("swiglu", "geglu"):
-        ffn["w_gate"] = (d, cfg.d_ff)
-        ffn["w_up"] = (d, cfg.d_ff)
+    if cfg.family == "moe":
+        ffn = moe.moe_shapes(cfg)
+    elif cfg.mlp_type in ("swiglu", "geglu"):
+        ffn = {"w_down": (cfg.d_ff, d), "w_gate": (d, cfg.d_ff),
+               "w_up": (d, cfg.d_ff)}
     elif cfg.mlp_type == "gelu":
-        ffn["w_up"] = (d, cfg.d_ff)
+        ffn = {"w_down": (cfg.d_ff, d), "w_up": (d, cfg.d_ff)}
     else:
         raise ValueError(cfg.mlp_type)
     block = {"ln1": (d,), "attn": attn, "ln2": (d,), "ffn": ffn}
@@ -97,7 +108,8 @@ def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
     them out: ``blocks`` stacked on a layer axis (dense, ssm); a hybrid's
     ``groups`` on (n_groups, hybrid_group), the one ``shared_attn``
     decoder block with no layer axis, and ``trailing`` mamba blocks on
-    (n_layers % hybrid_group,) when there are any."""
+    (n_layers % hybrid_group,) when there are any.  A moe layer's ``ffn``
+    is ``moe.moe_shapes``; a vlm's tree is the dense one."""
     n, d = cfg.n_layers, cfg.d_model
     top = {"embed": (cfg.vocab, d), "ln_f": (d,), "lm_head": (d, cfg.vocab)}
     if cfg.family == "ssm":
@@ -122,9 +134,11 @@ def map_params(fn, shapes: dict[str, Any], path: tuple[str, ...] = ()):
 def init_lm(cfg: ModelConfig, *, seed: int = 0,
             device: str | torch.device = "cuda") -> Params:
     """Random weights from ``seed``, with ``repro``'s init scales: normal
-    times 1 (embed), d**-0.5 (lm_head, wq, wk, wv, w_gate, w_up),
+    times 1 (embed), d**-0.5 (lm_head, wq, wk, wv, w_gate, w_up, router),
     (n_heads*hd)**-0.5 (wo), d_ff**-0.5 (w_down); norm gains are ones; the
-    ssm mixer's as ``ssm.INIT`` says."""
+    ssm mixer's as ``ssm.INIT`` says.  Each leaf is allocated in its
+    stored dtype and drawn in float32, a stacked leaf past
+    :data:`DRAW_WHOLE` elements one slice of its leading axis at a time."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = compute_dtype(cfg)
@@ -133,7 +147,16 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
     # the fan-in each normal weight is scaled by (its ** -0.5)
     fan_in = {"embed": 1, "lm_head": d, "wq": d, "wk": d, "wv": d,
               "wo": cfg.n_heads * cfg.hd, "w_gate": d, "w_up": d,
-              "w_down": cfg.d_ff}
+              "w_down": cfg.d_ff, "router": d}
+
+    def draw(out: torch.Tensor, scale: float) -> torch.Tensor:
+        if out.dim() > 2 and out.numel() > DRAW_WHOLE:
+            for part in out.unbind(0):
+                draw(part, scale)
+        else:
+            out.copy_(torch.randn(out.shape, generator=gen,
+                                  device=dev).mul_(scale))
+        return out
 
     def make(path, shape):
         name = path[-1]
@@ -146,14 +169,25 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
             scale = ssm.init_scale(cfg, name)
         else:
             scale = fan_in[name] ** -0.5
-        w = torch.randn(shape, generator=gen, device=dev)
-        return (w * scale).to(dt)
+        return draw(torch.empty(shape, dtype=torch.float32
+                                if name in F32_LEAVES else dt, device=dev),
+                    scale)
 
     return map_params(make, param_shapes(cfg))
 
 
 def _embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return p["embed"][tokens.long()].to(compute_dtype(cfg))
+
+
+def embed_inputs(p: Params, inputs: dict[str, torch.Tensor],
+                 cfg: ModelConfig) -> torch.Tensor:
+    """The first layer's input: ``inputs['embeds']`` (B, S, d) for an
+    embeddings-mode model (a VLM's precomputed patch and text embeddings)
+    that is given them, else the token embeddings."""
+    if cfg.input_mode == "embeddings" and "embeds" in inputs:
+        return inputs["embeds"].to(compute_dtype(cfg))
+    return _embed(p, inputs["tokens"], cfg)
 
 
 def _logits(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -169,9 +203,18 @@ def hybrid_flags(cfg: ModelConfig) -> list[bool]:
             for i in range(cfg.n_layers // cfg.hybrid_group)]
 
 
+def _sum_aux(auxes: list[dict], device: torch.device) -> dict:
+    """The layers' aux losses summed, as float32 scalars on ``device``."""
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return {k: sum((a[k] for a in auxes), zero) for k in moe.AUX_KEYS}
+
+
 def forward(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig):
-    """Eval forward over ``inputs['tokens']`` (B, S) -> (logits, aux)."""
-    x = _embed(p, inputs["tokens"], cfg)
+    """Eval forward over ``inputs['tokens']`` (B, S) (or an embeddings-mode
+    model's ``inputs['embeds']``) -> (logits, aux): aux the MoE layers'
+    losses summed over layers, zeros for every other family."""
+    x = embed_inputs(p, inputs, cfg)
+    auxes = []
     if cfg.family == "ssm":
         x, _ = blocks.mamba_stack(p["blocks"], x, cfg)
     elif cfg.family == "hybrid":
@@ -182,10 +225,10 @@ def forward(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig):
             x, _ = blocks.mamba_stack(p["trailing"], x, cfg)
     else:
         for lp in blocks.layer_views(p["blocks"]):
-            x, _ = blocks.decoder_block(lp, x, cfg, causal=True)
+            x, aux, _ = blocks.decoder_block(lp, x, cfg, causal=True)
+            auxes.append(aux)
     x = nn.rmsnorm_apply(p["ln_f"], x)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _logits(p, x), {"load_balance": zero, "router_z": zero}
+    return _logits(p, x), _sum_aux(auxes, x.device)
 
 
 # ============================================================ prefill / decode
@@ -230,8 +273,10 @@ def prefill(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig,
     (last_token_logits, caches).  An ssm model's caches are its per-layer
     conv and SSD states, whatever ``max_len``; a hybrid's are its groups'
     states (``mamba``), the shared block's K/V per group (``attn``) and the
-    trailing blocks' states (``trailing``)."""
-    x = _embed(p, inputs["tokens"], cfg)
+    trailing blocks' states (``trailing``).  An embeddings-mode model given
+    ``inputs['embeds']`` prefills from them (see :func:`embed_inputs`), and
+    an MoE prefill is not dropless."""
+    x = embed_inputs(p, inputs, cfg)
     b, s, _ = x.shape
     if cfg.family == "ssm":
         x, caches = blocks.mamba_stack(p["blocks"], x, cfg,
@@ -255,8 +300,8 @@ def prefill(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig,
         layers = blocks.layer_views(p["blocks"])
         caches = _kv_caches(len(layers), b, s, max_len, cfg, x)
         for i, lp in enumerate(layers):
-            x, cache = blocks.decoder_block(lp, x, cfg, causal=True,
-                                            return_cache=True)
+            x, _, cache = blocks.decoder_block(lp, x, cfg, causal=True,
+                                               return_cache=True)
             _put_kv(caches, i, cache)
     x = nn.rmsnorm_apply(p["ln_f"], x[:, -1:])
     return _logits(p, x)[:, 0], caches
@@ -273,7 +318,7 @@ def decode_step(p: Params, caches, tokens: torch.Tensor, cfg: ModelConfig, *,
     their scatters land in the trash page.  An ssm or hybrid model takes
     neither: its caches are dense per-slot states and K/V, advanced in
     place."""
-    if cfg.family == "dense":
+    if cfg.family in ATTENTION_FAMILIES:
         logits, caches = decode_tokens(p, caches, tokens[:, None], cfg,
                                        pt=pt, active=active)
         return logits[:, 0], caches
@@ -303,17 +348,24 @@ def decode_step(p: Params, caches, tokens: torch.Tensor, cfg: ModelConfig, *,
 def decode_tokens(p: Params, caches, tokens: torch.Tensor, cfg: ModelConfig,
                   *, pt: torch.Tensor | None = None,
                   active: torch.Tensor | None = None,
-                  n_valid: int | None = None):
-    """Cache-advancing forward over ``tokens`` (B, S) -> (logits (B, S,
-    vocab), caches).
+                  n_valid: int | None = None,
+                  embeds: torch.Tensor | None = None):
+    """Cache-advancing forward of an attention family over ``tokens`` (B,
+    S) -> (logits (B, S, vocab), caches).
 
     S == 1 is the lockstep decode step; S > 1 is a chunked-prefill step.
     The paged routing keys go into each layer's cache dict for
     ``attention``'s paged branch: ``pt`` (B, n_pages) int32 page tables,
     ``active`` (B,) bool rows that may write real pages and advance, and
     ``n_valid`` — how many of the S positions are real (a padded final
-    chunk advances ``len`` by n_valid)."""
-    x = _embed(p, tokens, cfg)
+    chunk advances ``len`` by n_valid).  ``embeds`` (B, S, d) replaces the
+    token embeddings (a VLM prompt's chunk).  MoE layers are dropless
+    here."""
+    if cfg.family not in ATTENTION_FAMILIES:
+        raise ValueError(f"decode_tokens supports attention families "
+                         f"(dense/moe/vlm), not {cfg.family!r}")
+    x = embeds.to(compute_dtype(cfg)) if embeds is not None \
+        else _embed(p, tokens, cfg)
     lens = caches["len"]
     for i, lp in enumerate(blocks.layer_views(p["blocks"])):
         cache = {"k": caches["k"][i], "v": caches["v"][i], "len": lens[i]}
@@ -323,8 +375,9 @@ def decode_tokens(p: Params, caches, tokens: torch.Tensor, cfg: ModelConfig,
                 cache["active"] = active
             if n_valid is not None:
                 cache["n_valid"] = n_valid
-        x, new = blocks.decoder_block(lp, x, cfg, causal=True,
-                                      pos_offset=cache["len"], cache=cache)
+        x, _, new = blocks.decoder_block(lp, x, cfg, causal=True,
+                                         pos_offset=cache["len"],
+                                         cache=cache)
         lens[i] = new["len"]        # in place: k/v were written in place too
     x = nn.rmsnorm_apply(p["ln_f"], x)
     return _logits(p, x), caches
@@ -484,14 +537,15 @@ def merge_slot(caches, view, slot: int):
 
 def prefill_chunk(p: Params, caches, tokens: torch.Tensor,
                   pt_row: torch.Tensor, slot: int, n_valid: int,
-                  cfg: ModelConfig):
+                  cfg: ModelConfig, embeds: torch.Tensor | None = None):
     """One chunked-prefill step for one slot over the paged cache.
 
     ``tokens`` (1, chunk) is the next prompt chunk, zero-padded past
-    ``n_valid`` on the final chunk; ``pt_row`` (1, n_pages) is the slot's
+    ``n_valid`` on the final chunk (``embeds`` (1, chunk, d), when given,
+    in their place, padded alike); ``pt_row`` (1, n_pages) is the slot's
     page table.  Returns the logits at the last valid position ((1, vocab),
     only meaningful on the final chunk) and the updated caches."""
     view = slot_view(caches, slot)
     logits, view = decode_tokens(p, view, tokens, cfg, pt=pt_row,
-                                 n_valid=n_valid)
+                                 n_valid=n_valid, embeds=embeds)
     return logits[:, n_valid - 1], merge_slot(caches, view, slot)

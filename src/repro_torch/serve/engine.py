@@ -18,8 +18,19 @@
   reserves worst-case pages up front (decode never allocates), identical
   prompt prefixes share pages read-only through a content-hashed prefix
   cache, and long prompts optionally prefill in fixed-size chunks
-  interleaved with decode (``prefill_chunk``).  Greedy outputs stay
-  token-identical to the static engine.
+  interleaved with decode (``prefill_chunk``).  The attention families
+  page: dense, moe and vlm.  Greedy outputs of a dense model stay
+  token-identical to the static engine.  An MoE model's may not, in the
+  reference as here: a whole-prompt prefill drops expert copies past
+  capacity over all the tokens of its group, while single-request
+  generation drops over one prompt's and chunked prefill drops none
+  (``models/moe.py``).
+
+A VLM request carries its prompt as precomputed embeddings,
+``submit(..., extra={"embeds": (S, d)})``, beside S token ids; prefill and
+chunked prefill read the embeddings, decode embeds the sampled tokens, and
+such a request never looks up or registers prefix pages (the prefix hash
+sees only the token ids).
 
 An ssm model (mamba2) and a hybrid (zamba2) serve through the contiguous
 engine: their per-slot conv and SSD states (and a hybrid's shared-block
@@ -124,15 +135,21 @@ class Engine:
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, max_new_tokens: int,
+                 extra_inputs: dict[str, Any] | None = None,
                  eos_id: int | None = None) -> np.ndarray:
-        """prompts: (B, S) int32 -> (B, <=max_new_tokens) int32."""
+        """prompts: (B, S) int32 -> (B, <=max_new_tokens) int32.
+        ``extra_inputs`` adds batched model inputs: ``embeds`` (B, S, d)
+        for an embeddings-mode (VLM) prompt, left-padded like the
+        tokens."""
         b = prompts.shape[0]
-        tokens = torch.as_tensor(np.asarray(prompts, np.int32),
-                                 device=self.device)
+        inputs = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
+                                            device=self.device)}
+        for k, v in (extra_inputs or {}).items():
+            inputs[k] = torch.as_tensor(np.asarray(v), device=self.device)
         gen = _generator(self.device, self.scfg.seed)
 
         t0 = time.perf_counter()
-        logits, caches = M.prefill(self.params, {"tokens": tokens}, self.cfg,
+        logits, caches = M.prefill(self.params, inputs, self.cfg,
                                    max_len=self.scfg.max_len)
         token = _pick(logits, self.scfg.temperature, gen)
         out = [token.cpu().numpy()]
@@ -170,12 +187,15 @@ def static_batches(prompts, budgets, capacity: int):
 # ======================================================= continuous batching
 @dataclasses.dataclass
 class Request:
-    """One generation request; ``prompt`` is an unbatched (S,) token vector."""
+    """One generation request.  ``prompt`` is an unbatched (S,) token
+    vector; ``extra`` holds unbatched per-request extra inputs (``embeds``
+    (S, d) for a VLM embedding prompt), which the engine batches."""
 
     uid: int
     prompt: np.ndarray
     max_new_tokens: int
     eos_id: int | None = None
+    extra: dict[str, np.ndarray] | None = None
     # -- filled by the engine ------------------------------------------------
     tokens: list[int] = dataclasses.field(default_factory=list)
     submitted_at: float = 0.0
@@ -209,6 +229,18 @@ class _ChunkTask:
     pos: int
 
 
+def _shape_key(req: Request) -> tuple:
+    """Prefill-coalescing key: requests with equal keys prefill as one
+    group."""
+    return (len(req.prompt),
+            tuple(sorted((k, np.asarray(v).shape)
+                         for k, v in (req.extra or {}).items())))
+
+
+def _has_embeds(req: Request) -> bool:
+    return bool(req.extra) and "embeds" in req.extra
+
+
 def _ratio(num: float, den: float) -> float:
     """A derived rate that is 0.0 (never inf/NaN) for zero-step runs."""
     return num / den if den > 0 else 0.0
@@ -221,7 +253,9 @@ class ContinuousEngine:
     exact prompt length, splice into its slots, emit its first token) + one
     lockstep decode over the slot batch.  :meth:`run` steps until drained.
     Greedy decoding is token-identical to single-request
-    ``Engine.generate`` for every request, whatever the arrival order.
+    ``Engine.generate`` for every request, whatever the arrival order
+    (an MoE model's only where no dispatch drops a copy, as the module
+    docstring says).
 
     ``stats`` keeps every counter of the JAX engine: ``prefill_compiles``
     counts distinct prefill shapes exactly as JAX counts its compiles (and
@@ -257,11 +291,9 @@ class ContinuousEngine:
                             if cfg.family in ("ssm", "hybrid") else 1)
         self.paged = scfg.paged
         if self.paged:
-            # the port's one attention family (the reference also pages moe
-            # and vlm, which the port does not serve yet)
-            if cfg.family != "dense":
+            if cfg.family not in M.ATTENTION_FAMILIES:
                 raise ValueError(
-                    f"paged serving supports the dense family, not "
+                    f"paged serving supports {M.ATTENTION_FAMILIES}, not "
                     f"{cfg.family!r} (its decode state is dense per-slot)")
             if scfg.admission not in ("queue", "reject"):
                 raise ValueError(f"admission must be 'queue' or 'reject', "
@@ -348,8 +380,11 @@ class ContinuousEngine:
 
     # -------------------------------------------------------------- ingress
     def submit(self, prompt: np.ndarray, max_new_tokens: int,
-               eos_id: int | None = None) -> Request:
-        """Enqueue one request; returns its :class:`Request` handle."""
+               eos_id: int | None = None,
+               extra: dict[str, np.ndarray] | None = None) -> Request:
+        """Enqueue one request; returns its :class:`Request` handle.
+        ``extra={"embeds": (S, d)}`` gives an embeddings-mode model its
+        prompt; S must be the prompt's length."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got "
@@ -390,9 +425,15 @@ class ContinuousEngine:
                     f"free_slots={self.pool.free_slots}, "
                     f"queued={self.pool.queue_depth} — resubmit later or "
                     f"serve with admission='queue'")
+        got = {k: tuple(np.asarray(v).shape) for k, v in (extra or {}).items()}
+        if "embeds" in got and got["embeds"][0] != len(prompt):
+            # prefill advances the cache by the EMBEDS length, so a mismatch
+            # would silently break the max_len/position accounting above
+            raise ValueError(f"extra 'embeds' length {got['embeds'][0]} "
+                             f"must match the prompt length {len(prompt)}")
         req = Request(uid=self._uid, prompt=prompt,
                       max_new_tokens=max_new_tokens, eos_id=eos_id,
-                      submitted_at=time.perf_counter())
+                      extra=extra, submitted_at=time.perf_counter())
         self._uid += 1
         self._c["submitted"].inc()
         if self.recorder is not None:
@@ -420,10 +461,10 @@ class ContinuousEngine:
             self._g_page_occ.set(_ratio(self.pages.used_pages,
                                         self.pages.usable_pages))
         else:
-            groups: dict[int, list[tuple[int, Request]]] = {}
+            groups: dict[tuple, list[tuple[int, Request]]] = {}
             for slot, req in self.pool.admit():
-                # coalesce same-length admissions into one batched prefill
-                groups.setdefault(len(req.prompt), []).append((slot, req))
+                # coalesce same-shape admissions into one batched prefill
+                groups.setdefault(_shape_key(req), []).append((slot, req))
             for group in groups.values():
                 self._admit_group(group, finished)
             if self.pool.occupancy:
@@ -478,6 +519,9 @@ class ContinuousEngine:
         slots = np.asarray([s for s, _ in group], np.int32)
         prompts = np.stack([r.prompt for _, r in group])
         inputs = {"tokens": self._dev(prompts)}
+        for k in (group[0][1].extra or {}):
+            inputs[k] = self._dev(np.stack([np.asarray(r.extra[k])
+                                            for _, r in group]))
         if self.paged:
             # prefill at the prompt length rounded up to a page multiple —
             # the group cache then splits exactly into pages; the JAX engine
@@ -542,7 +586,7 @@ class ContinuousEngine:
         """FIFO admission gated on pages: admit head-of-line requests while
         a slot AND their worst-case pages are available; the first request
         that does not fit blocks the line."""
-        groups: dict[int, list[tuple[int, Request]]] = {}
+        groups: dict[tuple, list[tuple[int, Request]]] = {}
         while self.pool.free_slots:
             req = self.pool.peek()
             if req is None:
@@ -562,7 +606,11 @@ class ContinuousEngine:
         shared pages are released."""
         ps = self.pages.page_size
         worst = -(-(len(req.prompt) + req.max_new_tokens) // ps)
-        shared = self.prefix.lookup(req.prompt) if self.prefix else []
+        shared: list[int] = []
+        if self.prefix is not None and not _has_embeds(req):
+            # embedding prompts carry content outside the token ids, which
+            # is all the prefix hash sees: never share those
+            shared = self.prefix.lookup(req.prompt)
         need = worst - len(shared)
         fresh = self.pages.alloc(need)
         if fresh is None and self.prefix is not None:
@@ -577,7 +625,7 @@ class ContinuousEngine:
 
     def _install(self, slot: int, req: Request,
                  plan: tuple[list[int], list[int]],
-                 groups: dict[int, list[tuple[int, Request]]]) -> None:
+                 groups: dict[tuple, list[tuple[int, Request]]]) -> None:
         """Wire an admitted request's page table and route it to a prefill
         path: chunked (prefix hit, or prompt longer than ``prefill_chunk``)
         or the same-length batched group."""
@@ -601,7 +649,7 @@ class ContinuousEngine:
             self._chunk_tasks.append(_ChunkTask(req=req, slot=slot,
                                                 pos=m_tok))
         else:
-            groups.setdefault(len(req.prompt), []).append((slot, req))
+            groups.setdefault(_shape_key(req), []).append((slot, req))
 
     def _chunk_step(self, finished: list[Request]) -> None:
         """Advance the head chunk task by ONE chunk, so a long prompt cannot
@@ -615,7 +663,14 @@ class ContinuousEngine:
         n = min(cs, remaining)
         buf = np.zeros((1, cs), np.int32)
         buf[0, :n] = req.prompt[task.pos:task.pos + n]
-        shape = ("chunk", cs, None)
+        embeds = eshape = None
+        if _has_embeds(req):
+            e = np.asarray(req.extra["embeds"])
+            ebuf = np.zeros((1, cs) + e.shape[1:], e.dtype)
+            ebuf[0, :n] = e[task.pos:task.pos + n]
+            embeds = self._dev(ebuf)
+            eshape = tuple(e.shape[1:])
+        shape = ("chunk", cs, eshape)
         if shape not in self._prefill_shapes_seen:
             self._prefill_shapes_seen.add(shape)
             self._c["prefill_compiles"].inc()
@@ -624,7 +679,8 @@ class ContinuousEngine:
                             valid=int(n)):
             last, self.caches = M.prefill_chunk(
                 self.params, self.caches, self._dev(buf),
-                self._dev(self._pt[slot:slot + 1]), slot, n, self.cfg)
+                self._dev(self._pt[slot:slot + 1]), slot, n, self.cfg,
+                embeds=embeds)
             _sync(self.device)
         dt = time.perf_counter() - t0
         self._c["prefill_s"].inc(dt)
@@ -652,8 +708,8 @@ class ContinuousEngine:
 
     def _register_prefix(self, req: Request, slot: int) -> None:
         """Offer a freshly prefilled prompt's full pages to the prefix cache
-        (idempotent for already-known blocks)."""
-        if self.prefix is None:
+        (idempotent for already-known blocks); an embedding prompt's never."""
+        if self.prefix is None or _has_embeds(req):
             return
         n_full = (len(req.prompt) - 1) // self.pages.page_size
         if n_full:

@@ -5,11 +5,13 @@ head groups do not divide, RMSNorm at every point of its knob space and at
 row counts its blocks do not divide, the tensor-core gemm at tiles smaller than its
 instructions and at the paper's shape with a hoisted order, bf16 flash at
 an ld_v-hoisted order in bf16 and float32, padded bidirectional flash
-calls, flash at the hybrid's and the sliding-window model's head dims), the
-gather's page-id contract (wrap and clamp), a paged engine run and
-contiguous hybrid and sliding-window runs on the card token-identical to
-the same runs on the CPU, and an autotune promotion on the card that the
-running engine swaps to and launches.  Marked ``cuda``: they skip without a card.  On the GPU
+calls, flash at the hybrid's and the sliding-window model's head dims and
+at dbrx's and llava's GQA ratios), the gather's page-id contract (wrap and
+clamp), a paged engine run (dense, MoE and VLM) and contiguous hybrid and
+sliding-window runs on the card token-identical to the same runs on the
+CPU, the MoE layer on the card against the CPU and bitwise repeatable,
+and an autotune promotion on the card that the running engine swaps to
+and launches.  Marked ``cuda``: they skip without a card.  On the GPU
 machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -83,6 +85,50 @@ def test_flash_kernel_at_the_hybrid_and_window_head_dims(cuda, dtype, tol,
     want = fa_ref.attention(q, k, v, causal=True, window=window)
     assert fa.launches == before + 1
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hq,hkv", [(48, 8), (56, 8)])
+def test_flash_kernel_at_the_moe_and_vlm_ratios(cuda, dtype, tol, hq, hkv):
+    """dbrx-132b (GQA 6:1) and llava-next-34b (7:1) at head_dim 128."""
+    g = torch.Generator(device=cuda).manual_seed(hq)
+    q = torch.randn((2, hq, 100, 128), generator=g, device=cuda).to(dtype)
+    k = torch.randn((2, hkv, 100, 128), generator=g, device=cuda).to(dtype)
+    v = torch.randn((2, hkv, 100, 128), generator=g, device=cuda).to(dtype)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa_ref.attention(q, k, v, causal=True)
+    assert fa.launches == before + 1
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_moe_on_card_matches_cpu_and_repeats_bitwise(cuda):
+    """dbrx's layer (top-4 of 16, capacity factor 1.25) at smoke width:
+    the card's bf16 result within the repo's bf16 tolerance (rtol = atol
+    = 2e-2) of the CPU's, and two calls bitwise equal (the k copies are
+    summed in a fixed order, with no atomics)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(configs.get_smoke("dbrx-132b"), n_experts=16,
+                              top_k=4, dtype="bfloat16")
+    gen = torch.Generator().manual_seed(0)
+    p = {k: torch.randn(s, generator=gen) * s[-2] ** -0.5
+         for k, s in moe.moe_shapes(cfg).items()}
+    p = {k: v if k == "router" else v.to(torch.bfloat16)
+         for k, v in p.items()}
+    x = torch.randn((4, 64, cfg.d_model), generator=gen).to(torch.bfloat16)
+    want, waux = moe.moe(p, x, cfg)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    got, aux = moe.moe(pc, x.to(cuda), cfg)
+    again, _ = moe.moe(pc, x.to(cuda), cfg)
+    assert torch.equal(got, again)
+    err = (got.float().cpu() - want.float()).abs()
+    assert bool((err <= 2e-2 + 2e-2 * want.float().abs()).all())
+    for k in aux:
+        assert abs(float(aux[k]) - float(waux[k])) <= 2e-2 * abs(
+            float(waux[k])) + 1e-6
 
 
 def test_flash_kernel_rejects_what_it_cannot_take(cuda):
@@ -186,6 +232,40 @@ def test_paged_engine_on_card_matches_cpu(cuda):
         uids = [eng.submit(t, n).uid for t, n in reqs]
         got = eng.run(max_steps=500)
         outs.append([got[u] for u in uids])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llava-next-34b"])
+def test_paged_moe_and_vlm_engines_on_card_match_cpu(cuda, arch):
+    """dbrx (MoE, capacity factor 1.25: grouped prefills drop copies) and
+    llava (embedding prompts) at smoke width on the paged engine, with a
+    prompt past the chunk: the card's tokens equal the CPU's, and the card
+    launched flash and the gather."""
+    from repro_torch import configs
+    cfg = configs.get_smoke(arch)
+    params = M.init_lm(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(3)
+    reqs = []
+    for n, b in ((20, 6), (37, 5), (20, 7), (9, 4)):
+        extra = ({"embeds": rng.standard_normal((n, cfg.d_model)).astype(
+            np.float32)} if cfg.input_mode == "embeddings" else None)
+        reqs.append((rng.integers(1, cfg.vocab, n).astype(np.int32), b,
+                     extra))
+    scfg = ServeConfig(max_len=64, capacity=3, paged=True, page_size=8,
+                       prefill_chunk=16)
+    outs = []
+    for device in ("cpu", cuda):
+        p = M.map_params(lambda path, _: _leaf(params, path).to(device),
+                         M.param_shapes(cfg))
+        before = (fa.launches, pg.launches)
+        eng = ContinuousEngine(p, cfg, scfg)
+        uids = [eng.submit(t, n, extra=e).uid for t, n, e in reqs]
+        got = eng.run(max_steps=500)
+        outs.append([got[u] for u in uids])
+        launched = (fa.launches - before[0], pg.launches - before[1])
+        assert (launched == (0, 0)) == (device == "cpu")
+        assert min(launched) > 0 or device == "cpu"
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
 

@@ -66,12 +66,83 @@ class TestConfigs:
             assert dataclasses.asdict(tconfigs.get_smoke(name)) == \
                 dataclasses.asdict(jconfigs.get_smoke(name))
 
-    @pytest.mark.parametrize("name", ["llama4-scout-17b-16e",
-                                      "llava-next-34b",
-                                      "seamless-m4t-large-v2", "dbrx-132b"])
+    @pytest.mark.parametrize("name", ["seamless-m4t-large-v2"])
     def test_unsupported_raise(self, name):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TM.init_lm(tconfigs.get_smoke(name), device="cpu")
+
+    @pytest.mark.parametrize("name", ["llama4-scout-17b-16e",
+                                      "llava-next-34b", "dbrx-132b"])
+    def test_moe_and_vlm_init(self, name):
+        """The reference's param tree, leaf for leaf, with its init scales;
+        in bf16 an MoE router and the norm gains stay float32."""
+        cfg = tconfigs.get_smoke(name, dtype="bfloat16")
+        tp = TM.init_lm(cfg, seed=0, device="cpu")
+        want = JM.init_lm_shapes(jax.random.PRNGKey(0),
+                                 jconfigs.get_smoke(name))
+        want = {"/".join(str(k.key) for k in path): tuple(leaf.value.shape)
+                for path, leaf in jax.tree_util.tree_flatten_with_path(
+                    want, is_leaf=jnn.is_param)[0]}
+        got = {}
+
+        def walk(tree, path=()):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    walk(v, path + (k,))
+                else:
+                    got["/".join(path + (k,))] = v
+        walk(tp)
+        assert {k: tuple(v.shape) for k, v in got.items()} == want
+        for path, leaf in got.items():
+            name_ = path.split("/")[-1]
+            f32 = name_ in TM.F32_LEAVES
+            assert leaf.dtype == (torch.float32 if f32 else torch.bfloat16)
+            if name_ in TM.NORM_LEAVES:
+                assert torch.equal(leaf, torch.ones_like(leaf))
+        ffn = tp["blocks"]["ffn"]
+        if cfg.family == "moe":
+            for leaf, fan_in in (("router", cfg.d_model),
+                                 ("w_gate", cfg.d_model),
+                                 ("w_down", cfg.d_ff)):
+                std = ffn[leaf].float().std().item()
+                assert abs(std * fan_in ** 0.5 - 1) < 0.05, leaf
+
+    def test_init_draws_small_leaves_whole(self):
+        """Below ``DRAW_WHOLE`` elements a leaf is one draw of the seed's
+        stream, in tree order: the values earlier releases gave."""
+        cfg = tconfigs.get_smoke(ARCH)
+        tp = TM.init_lm(cfg, seed=3, device="cpu")
+        gen = torch.Generator().manual_seed(3)
+        assert torch.equal(tp["embed"],
+                           torch.randn(tuple(tp["embed"].shape),
+                                       generator=gen))
+
+    def test_init_draws_large_stacked_leaves_by_slice(self, monkeypatch):
+        """Past ``DRAW_WHOLE`` a stacked leaf is drawn one slice of its
+        leading axes at a time (the moe experts' (layer, expert) slices),
+        in the stored dtype; 2-D leaves stay whole."""
+        cfg = tconfigs.get_smoke("dbrx-132b", dtype="bfloat16")
+        randn, draws = torch.randn, []
+
+        def counting(shape, **kw):
+            draws.append(tuple(shape))
+            return randn(shape, **kw)
+        monkeypatch.setattr(torch, "randn", counting)
+        TM.init_lm(cfg, seed=0, device="cpu")
+        whole = list(draws)
+        assert (cfg.n_layers, cfg.n_experts, cfg.d_model, cfg.d_ff) in whole
+        draws.clear()
+        monkeypatch.setattr(TM, "DRAW_WHOLE", 0)
+        sliced = TM.init_lm(cfg, seed=0, device="cpu")
+        assert draws.count((cfg.d_model, cfg.d_ff)) == \
+            2 * cfg.n_layers * cfg.n_experts              # w_gate, w_up
+        assert draws.count((cfg.vocab, cfg.d_model)) == 1  # embed, whole
+        assert len(draws) > len(whole)
+        w = sliced["blocks"]["ffn"]["w_gate"]
+        assert w.dtype == torch.bfloat16
+        std = w.float().std(dim=(-2, -1)) * cfg.d_model ** 0.5
+        assert std.shape == (cfg.n_layers, cfg.n_experts)
+        assert bool(((std - 1).abs() < 0.05).all())
 
     def test_padded_heads_raise(self):
         cfg = dataclasses.replace(tconfigs.get_smoke(ARCH), padded_heads=8)

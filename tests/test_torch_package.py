@@ -111,3 +111,35 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
                            cwd=tmp_path, env={"PATH": os.environ["PATH"]})
     assert alone.returncode != 0
     assert '"ok": true' not in alone.stdout
+
+
+def test_chip_smoke_trace_totals_match_key_averages():
+    """The profile phases read their sums from the raw trace
+    (``chip_smoke.trace_totals``): each ATen op's host self time and call
+    count are key_averages()'s, here on a CPU serving window."""
+    import importlib.util
+    from torch.profiler import ProfilerActivity, profile
+
+    import numpy as np
+    from repro_torch.serve.engine import ContinuousEngine, ServeConfig
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = configs.get_smoke("dbrx-132b")
+    eng = ContinuousEngine(M.init_lm(cfg, seed=0, device="cpu"), cfg,
+                           ServeConfig(max_len=64, capacity=2, paged=True,
+                                       page_size=8, prefill_chunk=16))
+    rng = np.random.default_rng(0)
+    for n in (12, 30):
+        eng.submit(rng.integers(0, cfg.vocab, n).astype(np.int32), 3)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.run(max_steps=100)
+    rows, host = smoke.trace_totals(prof)
+    want = {ev.key: (ev.self_cpu_time_total, ev.count)
+            for ev in prof.key_averages() if ev.key.startswith("aten::")}
+    assert rows == [] and {k for _, _, k in host} == set(want)
+    for us, calls, name in host:
+        assert calls == want[name][1], name
+        assert abs(us - want[name][0]) <= 1e-3 * want[name][0] + 1.0, name

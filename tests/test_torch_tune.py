@@ -137,7 +137,8 @@ def test_serve_mamba2_smoke_on_cpu():
     res = _run("serve", "--arch", "mamba2-2.7b", "--smoke", "--device", "cpu",
                "--requests", "1", "--paged", check=False)
     assert res.returncode != 0
-    assert "paged serving supports the dense family, not 'ssm'" in res.stderr
+    assert ("paged serving supports ('dense', 'moe', 'vlm'), not 'ssm'"
+            in res.stderr)
 
 
 @pytest.mark.parametrize("module", ["train"])
