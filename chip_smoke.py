@@ -3,9 +3,10 @@ against its plain version at its default schedule and at seeded random legal
 orders, run the SIP loop on the card (smoke tune, verify, a wall-clock tune
 of each kernel), serve qwen3-1.7b, dbrx-132b (MoE, 8 of its 40 layers) and
 llava-next-34b (VLM, embedding prompts) at full width through the paged
-continuous engine, and mamba2-2.7b, zamba2-7b (hybrid) and h2o-danube-1.8b
-(sliding window) at full width through the contiguous one, and print one
-JSON line per phase.
+continuous engine, and mamba2-2.7b, zamba2-7b (hybrid), h2o-danube-1.8b
+(sliding window) and seamless-m4t-large-v2 (encoder-decoder, 4,096-frame
+contexts) at full width through the contiguous one, hold qwen3 with padded
+heads to the unpadded model, and print one JSON line per phase.
 
     python3 chip_smoke.py
 
@@ -96,10 +97,24 @@ T0 = time.perf_counter()
 
 
 def reset_launches() -> None:
-    """Every kernel's launch counts to 0 (flash's by dtype too)."""
+    """Every kernel's launch counts to 0 (flash's by variant too)."""
     for mod in KERNEL_MODULES:
         mod.launches = 0
-    fa.dtype_launches.update(dict.fromkeys(fa.dtype_launches, 0))
+    fa.variant_launches.update(dict.fromkeys(fa.variant_launches, 0))
+
+
+#: the kernels line's flash rows by the (causal, dtype) of the launch
+FLASH_ROWS = {(True, "bfloat16"): "flash_attention_causal",
+              (True, "float32"): "flash_attention_causal_f32",
+              (False, "bfloat16"): "flash_attention",
+              (False, "float32"): "flash_attention_f32"}
+
+
+def row_launches() -> dict[str, int]:
+    """Every kernel's launches since the last reset under its kernels-line
+    row's name (flash by variant and dtype)."""
+    return {**{FLASH_ROWS[key]: n for key, n in fa.variant_launches.items()},
+            **{m.FUNCTION: m.launches for m in (gf, pg, sk, rk)}}
 
 
 def emit(phase: str, **fields) -> None:
@@ -316,7 +331,12 @@ FLASH_CASES = [(1, 2, 2, 16, 16, 8, True, None),
     (3, 16, 8, 45, 45, 32, True, None),
     (1, 16, 8, 70, 70, 64, True, None),
     (1, 32, 32, 128, 128, 112, True, None),     # zamba2's shared block
-    (1, 32, 8, 300, 300, 80, True, 64)]         # h2o-danube's, windowed
+    (1, 32, 8, 300, 300, 80, True, 64),         # h2o-danube's, windowed
+    # seamless's decoder prompts (4-40 tokens, padded to 64), one and the
+    # grouped pair, and its encoder at the grouped pair
+    (1, 16, 16, 64, 64, 64, True, None),
+    (2, 16, 16, 64, 64, 64, True, None),
+    (2, 16, 16, 4096, 4096, 64, False, None)]
 #: (p, ps, h, d, b, n): smoke, deploy and the serve phase's store and table
 GATHER_SHAPES = [(8, 8, 2, 8, 2, 4), (64, 16, 4, 32, 8, 8),
                  (257, 16, 8, 128, 8, 32)]
@@ -668,13 +688,16 @@ def phase_flash(gen) -> dict:
         raise AssertionError(f"flash at b8 s100: the padded call is no "
                              f"faster than 1-row tiles: {timed['b8_s100']}")
     timed_f32 = flash_timed_f32(gen)
+    encoder = flash_encoder_shape(gen)
     out = {"cases": results, "max_abs_err_f32": worst[F32],
            "max_abs_err_bf16": worst[BF16], "timed_bf16_causal": timed,
            "timed_f32_causal": timed_f32,
-           "timed_bf16_serve_shapes": flash_serve_shapes(gen)}
+           "timed_bf16_serve_shapes": flash_serve_shapes(gen),
+           "timed_bf16_encoder": encoder}
     emit("flash_attention", **out)
     return {**out, **timed["b4_s128"], "max_abs_err": worst[BF16],
-            "f32": {**timed_f32["b4_s128"], "max_abs_err": worst[F32]}}
+            "f32": {**timed_f32["b4_s128"], "max_abs_err": worst[F32]},
+            "bidirectional": encoder}
 
 
 def flash_orders(dtype, gen) -> dict:
@@ -797,6 +820,57 @@ def flash_serve_shapes(gen) -> dict:
                                     - want.float()).abs().max().item(),
             "bound_ms": bound_ms, "bound_by": bound_by}
     return timed
+
+
+#: bf16 bidirectional flash at seamless-m4t's encoder: (b, hq, hkv, s, d)
+FLASH_ENCODER_SHAPE = (1, 16, 16, 4096, 64)
+
+
+def flash_encoder_shape(gen) -> dict:
+    """The bidirectional kernel through the model's entry point at the
+    encoder's shape (MHA, 4,096 frames, head_dim 64), bf16, against its
+    plain version, the bound and SDPA.  Each row's relative error must be
+    within ``ROW_RTOL``, and the call with the last key tile zeroed must
+    fail that check."""
+    b, hq, hkv, s, d = FLASH_ENCODER_SHAPE
+    q = _randn((b, hq, s, d), BF16, gen)
+    k = _randn((b, hkv, s, d), BF16, gen)
+    v = _randn((b, hkv, s, d), BF16, gen)
+
+    def kern():
+        return fa.flash_attention(q, k, v, causal=False)
+
+    def plain():
+        return fa_ref.attention(q, k, v, causal=False)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    before = dict(fa.variant_launches)
+    got, want = kern(), plain()
+    if fa.variant_launches[False, "bfloat16"] != \
+            before[False, "bfloat16"] + 1:
+        raise AssertionError("flash at the encoder shape: the "
+                             "bidirectional kernel did not launch")
+    err = compare(got, want, BF16, "flash bidirectional encoder shape")
+    rel = row_rel_err(got, want)
+    control = row_rel_err(fa.flash_attention(
+        q, _zero_last_tile(k), _zero_last_tile(v), causal=False), want)
+    del got
+    if rel > ROW_RTOL or control <= ROW_RTOL:
+        raise AssertionError(f"flash at the encoder shape: row error {rel} "
+                             f"against {ROW_RTOL}, control {control}")
+    bound_ms, bound_by = attention_bound_ms(b, hq, hkv, s, s, d, 2, False,
+                                            None, PEAK_FLOPS[BF16])
+    return {"shape": [b, hq, hkv, s, d], "causal": False,
+            "max_abs_err": err, "max_abs_want": want.abs().max().item(),
+            "row_rel_err": rel, "row_rtol": ROW_RTOL,
+            "controls_row_rel_err": {"last_kv_tile_zeroed": control},
+            "ms": cuda_ms(kern, iters=20),
+            "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+            "library_ms": cuda_ms(library, iters=20),
+            "library_max_abs_err": (library().float()
+                                    - want.float()).abs().max().item(),
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 #: float32 flash timed at a serve prefill, a longer one and the registry's
@@ -1153,26 +1227,23 @@ def phase_sip(workdir: Path) -> dict:
                 res.best.order is None or res.best.order == tuple(
                     range(len(res.best.order))),
             "tests_passed": entry.tests_passed, **_build.STATS.snapshot()}
-    launches = {"gemm_fused_leaky_relu": gf.launches,
-                "flash_attention_causal": fa.launches,
-                "paged_gather": pg.launches,
-                "ssd_intra_chunk": sk.launches,
-                "rmsnorm_fused": rk.launches,
-                "flash_attention_causal_f32": fa.dtype_launches["float32"]}
+    launches = row_launches()
     cubins = distinct_cubins()
     failures = smoke_builds["compile_failures"] \
         + sum(t["compile_failures"] for t in wall_tune.values()) \
         + _build.STATS.compile_failures
     if failures:
         raise AssertionError(f"{failures} legal orders failed to compile")
-    if min(launches.values()) < 1:
+    # the SIP path tunes and verifies causal flash only: the bidirectional
+    # rows are reported, not required
+    if min(n for name, n in launches.items() if name not in (
+            "flash_attention", "flash_attention_f32")) < 1:
         raise AssertionError(f"a kernel never launched on the SIP path: "
                              f"{launches}")
     out = {"tune_smoke_s": tune_s, "tune_smoke_builds": smoke_builds,
            "verify": lines, "wallclock_tune": wall_tune,
            "distinct_cubins": cubins, "compile_failures": failures,
-           "launches": launches,
-           "flash_launches_by_dtype": dict(fa.dtype_launches)}
+           "launches": launches}
     emit("sip", **out)
     return {**out, "cache": str(cache)}
 
@@ -1275,10 +1346,7 @@ def _serve_paged(phase: str, params, cfg, prompts, budgets,
         eng.run(max_steps=10_000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention_causal": fa.launches,
-                "paged_gather": pg.launches, **{
-                    m.FUNCTION: m.launches for m in (gf, sk, rk)}}
-    by_dtype = dict(fa.dtype_launches)
+    launches = row_launches()
 
     events = tracer.events()
     n_prefill = sum(e["name"] == "serve.prefill" for e in events)
@@ -1299,9 +1367,9 @@ def _serve_paged(phase: str, params, cfg, prompts, budgets,
     want["flash_attention_causal"] = cfg.n_layers * n_prefill
     want["paged_gather"] = 2 * cfg.n_layers * (s["decode_steps"]
                                                + s["chunk_steps"])
-    if launches != want or by_dtype["float32"]:
-        raise AssertionError(f"{phase}: launches {launches} (flash "
-                             f"{by_dtype}), expected {want} in bf16")
+    if launches != want:
+        raise AssertionError(f"{phase}: launches {launches}, expected "
+                             f"{want}")
     builds = _build.STATS.compiles - compiles_before
     if builds:
         raise AssertionError(f"{phase}: {builds} nvcc builds in the timed run")
@@ -1322,7 +1390,6 @@ def _serve_paged(phase: str, params, cfg, prompts, budgets,
            "prefix_hits": s["prefix_hits"],
            "prefix_tokens_saved": s["prefix_tokens_saved"],
            "prefill_compiles": s["prefill_compiles"], "launches": launches,
-           "flash_launches_by_dtype": by_dtype,
            "kernel_builds_in_timed_window": builds,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     if cfg.family == "moe":
@@ -1373,6 +1440,61 @@ def phase_serve_vlm(params, cfg) -> dict:
         raise AssertionError(f"serve_vlm: {out['prefix_hits']} prefix hits "
                              f"for embedding prompts")
     emit("serve_vlm", **out)
+    return out
+
+
+def _enc_contexts(n: int, cfg, seed: int) -> list[dict]:
+    """One standard-normal (enc_len, d_model) float32 encoder context per
+    request (the speech frontend is a stub, as in the reference)."""
+    rng = np.random.default_rng(seed)
+    return [{"enc_embeds": rng.standard_normal(
+        (cfg.enc_len, cfg.d_model)).astype(np.float32)} for _ in range(n)]
+
+
+def _encdec_requests(cfg):
+    """17 decoder prompts uniform in 4-32 tokens, the first two of exactly
+    8 (one grouped prefill), 32-64 new tokens each, and each request's own
+    encoder context (seed 0)."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(4, 33, 17)
+    lens[:2] = 8
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    budgets = [int(n) for n in rng.integers(32, 65, len(prompts))]
+    return prompts, budgets, _enc_contexts(len(prompts), cfg, 0)
+
+
+#: the encoder-decoder's contiguous engine: 8 slots of 128 positions (a
+#: prompt of at most 32 and 64 new tokens), cross caches of 4,096 frames
+SERVE_ENCDEC = ServeConfig(max_len=128, capacity=8)
+
+
+def phase_serve_encdec(params, cfg) -> dict:
+    """The encoder-decoder path: seamless-m4t-large-v2 at full width and
+    depth (24 + 24 layers), bf16, on the contiguous engine: per prefill
+    dispatch flash runs bidirectionally in each encoder layer (MHA, 4,096
+    frames, D 64) and causally in each decoder layer over the prompt;
+    decode's cross-attention reads each slot's 4,096 cross keys through
+    the plain ``_sdpa``, as the reference's does."""
+    prompts, budgets, extras = _encdec_requests(cfg)
+    out = _serve_contiguous(
+        "serve_encdec", params, cfg, SERVE_ENCDEC, prompts, budgets,
+        {"flash_attention": cfg.enc_layers,
+         "flash_attention_causal": cfg.dec_layers},
+        {"flash_signatures": fa_ops.variant_name(False, None),
+         "flash_causal_signatures": fa_ops.variant_name(True, None)},
+        extras=extras)
+    enc = {(sig["hq"], sig["hkv"], sig["sq"], sig["skv"], sig["d"],
+            sig["dtype"]) for sig in out["flash_signatures"]}
+    if enc != {(cfg.n_heads, cfg.n_kv_heads, cfg.enc_len, cfg.enc_len,
+                cfg.hd, "bfloat16")} or max(out["prefill_batches"]) < 2:
+        raise AssertionError(f"serve_encdec: encoder signatures {enc}, "
+                             f"prefill batches {out['prefill_batches']}")
+    # the cross K/V every decode step reads: k and v, bf16, in each slot
+    cross_bytes = 2 * cfg.dec_layers * SERVE_ENCDEC.capacity * cfg.enc_len \
+        * cfg.n_kv_heads * cfg.hd * 2
+    out.update(enc_layers=cfg.enc_layers, dec_layers=cfg.dec_layers,
+               enc_len=cfg.enc_len, cross_cache_gb=cross_bytes / 1e9)
+    emit("serve_encdec", **out)
     return out
 
 
@@ -1429,16 +1551,22 @@ def trace_totals(prof) -> tuple[list, list]:
 def phase_profile(params, cfg, scfg: ServeConfig,
                   phase: str = "profile") -> dict:
     """Device time by kernel over a short serving window (8 requests of 100
-    tokens, 16 new each; a VLM's prompts as embeddings), from
+    tokens, 16 new each; a VLM's prompts as embeddings, an
+    encoder-decoder's requests each with its own context), from
     torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
-    eng = ContinuousEngine(params, cfg, scfg)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, 100).astype(np.int32)
                for _ in range(8)]
-    extras = (_vlm_embeds(prompts, cfg.d_model, 1)
-              if cfg.input_mode == "embeddings" else [None] * len(prompts))
-    warm = ContinuousEngine(params, cfg, eng.scfg)    # builds, not profiled
+    if cfg.family == "enc_dec":
+        extras = _enc_contexts(len(prompts), cfg, 1)
+    elif cfg.input_mode == "embeddings":
+        extras = _vlm_embeds(prompts, cfg.d_model, 1)
+    else:
+        extras = [None] * len(prompts)
+    eng = ContinuousEngine(params, cfg, scfg, example_extra=extras[0])
+    warm = ContinuousEngine(params, cfg, eng.scfg,   # builds, not profiled
+                            example_extra=extras[0])
     warm.submit(prompts[0], 2, extra=extras[0])
     warm.run(max_steps=100)
     del warm
@@ -1723,9 +1851,10 @@ def phase_differential(sip_cache: str, workdir: Path) -> dict:
                                      f"gave {want[i].tolist()}")
         stats[order] = {k: eng.stats[k] for k in (
             "prefix_hits", "chunk_steps", "decode_steps", "prefill_compiles")}
-        stats[order]["launches"] = {SERVED[0]: fa.launches,
-                                    SERVED[1]: pg.launches}
-        stats[order]["flash_launches_by_dtype"] = dict(fa.dtype_launches)
+        rows = row_launches()
+        stats[order]["launches"] = {
+            name: rows[name] for name in ("flash_attention_causal_f32",
+                                          "paged_gather")}
         return served
 
     served = run("fifo", ScheduleCache())
@@ -1746,9 +1875,7 @@ def phase_differential(sip_cache: str, workdir: Path) -> dict:
                 raise AssertionError(f"tuned run: {name} {static} resolved "
                                      f"the default schedule")
         resolved[name] = len(sigs)
-    if min(stats["tuned_cache"]["launches"].values()) < 1 or any(
-            st["flash_launches_by_dtype"]["float32"] < 1
-            for st in stats.values()):
+    if any(min(st["launches"].values()) < 1 for st in stats.values()):
         raise AssertionError(f"a run launched no kernel, or no float32 "
                              f"flash: {stats}")
     stats["tuned_cache"].update(schedules_put=put,
@@ -1811,36 +1938,40 @@ def _ssm_requests(vocab: int):
 
 def _serve_contiguous(phase: str, params, cfg, scfg: ServeConfig, prompts,
                       budgets, per_prefill: dict[str, int],
-                      names: dict[str, str]) -> dict:
+                      names: dict[str, str], extras=None) -> dict:
     """The traffic once on the contiguous continuous engine, timed, after a
     warm-up that is not counted (the same prompts with 2 new tokens each:
     it builds the schedule of every prefill shape and warms cuBLAS and the
     allocator).  Checks that every request emits its budget, that each
-    kernel launched ``per_prefill[FUNCTION]`` times per prefill dispatch
-    (every other kernel 0 times) and that the timed run built nothing;
-    ``names`` maps an output field to the registry name whose served
-    signatures it lists."""
-    warm = ContinuousEngine(params, cfg, scfg)
-    for p in prompts:
-        warm.submit(p, 2)
+    kernel (flash by its kernels-line rows) launched ``per_prefill[name]``
+    times per prefill dispatch (every other kernel 0 times) and that the
+    timed run built nothing; ``names`` maps an output field to the
+    registry name whose served signatures it lists.  ``extras`` gives each
+    request its extra inputs (an encoder-decoder's context), the first
+    the engine's ``example_extra``."""
+    extras = extras or [None] * len(prompts)
+    warm = ContinuousEngine(params, cfg, scfg, example_extra=extras[0])
+    for p, e in zip(prompts, extras):
+        warm.submit(p, 2, extra=e)
     warm.run(max_steps=10_000)
     del warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    eng = ContinuousEngine(params, cfg, scfg)
+    eng = ContinuousEngine(params, cfg, scfg, example_extra=extras[0])
     tracer = obs.Tracer()
     compiles_before = _build.STATS.compiles
     reset_launches()
     t0 = time.perf_counter()
     with obs.tracing(tracer), schedule_cache(ScheduleCache()) as store:
-        handles = [eng.submit(p, b) for p, b in zip(prompts, budgets)]
+        handles = [eng.submit(p, b, extra=e)
+                   for p, b, e in zip(prompts, budgets, extras)]
         eng.run(max_steps=10_000)
         served = {field: registry.get(name, store).served_signatures()
                   for field, name in names.items()}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {m.FUNCTION: m.launches for m in KERNEL_MODULES}
+    launches = row_launches()
 
     events = tracer.events()
     n_prefill = sum(e["name"] == "serve.prefill" for e in events)
@@ -1853,8 +1984,7 @@ def _serve_contiguous(phase: str, params, cfg, scfg: ServeConfig, prompts,
         if not all(0 <= t < cfg.vocab for t in r.tokens):
             raise AssertionError(f"{phase}: request {r.uid}: token out of "
                                  f"range")
-    want = {m.FUNCTION: per_prefill.get(m.FUNCTION, 0) * n_prefill
-            for m in KERNEL_MODULES}
+    want = {name: per_prefill.get(name, 0) * n_prefill for name in launches}
     if launches != want or n_prefill < 1:
         raise AssertionError(f"{phase}: launches {launches}, expected {want}")
     builds = _build.STATS.compiles - compiles_before
@@ -1869,10 +1999,12 @@ def _serve_contiguous(phase: str, params, cfg, scfg: ServeConfig, prompts,
             "decode_step_p50_ms": float(np.percentile(decode_us, 50)) / 1e3,
             "prefill_s": s["prefill_s"], "decode_s": s["decode_s"],
             "prefill_frac": eng.metrics()["prefill_frac"],
-            "prefill_dispatches": n_prefill, "decode_steps": s["decode_steps"],
+            "prefill_dispatches": n_prefill,
+            "prefill_batches": [e["args"]["batch"] for e in events
+                                if e["name"] == "serve.prefill"],
+            "decode_steps": s["decode_steps"],
             "prefill_compiles": s["prefill_compiles"], **served,
             "launches": launches,
-            "flash_launches_by_dtype": dict(fa.dtype_launches),
             "kernel_builds_in_timed_window": builds,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
@@ -1902,7 +2034,8 @@ def phase_serve_hybrid(params, cfg) -> dict:
     prompts, budgets = _ssm_requests(cfg.vocab)
     out = _serve_contiguous(
         "serve_hybrid", params, cfg, ServeConfig(max_len=512, capacity=8),
-        prompts, budgets, {sk.FUNCTION: cfg.n_layers, fa.FUNCTION: n_on},
+        prompts, budgets, {sk.FUNCTION: cfg.n_layers,
+                           "flash_attention_causal": n_on},
         {"ssd_signatures": sk_ops.NAME,
          "flash_signatures": fa_ops.variant_name(True, None)})
     if 256 not in {sig["q"] for sig in out["ssd_signatures"]}:
@@ -1937,7 +2070,7 @@ def phase_serve_swa(params, cfg) -> dict:
     prompts, budgets = _swa_requests(cfg.vocab)
     out = _serve_contiguous(
         "serve_swa", params, cfg, ServeConfig(max_len=4608, capacity=4),
-        prompts, budgets, {fa.FUNCTION: cfg.n_layers},
+        prompts, budgets, {"flash_attention_causal": cfg.n_layers},
         {"flash_signatures": fa_ops.variant_name(True, cfg.window)})
     sigs = out["flash_signatures"]
     if {(sig["hq"], sig["hkv"], sig["d"], sig["window"], sig["dtype"])
@@ -1958,7 +2091,9 @@ def _differential(phase: str, cfg, prompts, budgets, scfg: ServeConfig,
     and reversed arrival, and under the card's smoke store plus a
     non-default schedule at every signature of ``names`` the fifo run
     served, each of which the tuned run must resolve and launch.
-    ``extras`` gives each request its extra inputs (a VLM's embeddings)."""
+    ``extras`` gives each request its extra inputs (a VLM's embeddings, an
+    encoder-decoder's context), the first the engine's
+    ``example_extra``."""
     if params is None:
         params = M.init_lm(cfg, seed=1, device="cuda")
     extras = extras or [None] * len(prompts)
@@ -1972,7 +2107,8 @@ def _differential(phase: str, cfg, prompts, budgets, scfg: ServeConfig,
         idxs = list(range(len(prompts)))[::-1 if order == "reversed" else 1]
         reset_launches()
         with schedule_cache(cache) as store:
-            eng = ContinuousEngine(params, cfg, scfg)
+            eng = ContinuousEngine(params, cfg, scfg,
+                                   example_extra=extras[0])
             uids = {eng.submit(prompts[i], budgets[i], extra=extras[i]).uid: i
                     for i in idxs}
             got = eng.run(max_steps=1000)
@@ -1986,9 +2122,7 @@ def _differential(phase: str, cfg, prompts, budgets, scfg: ServeConfig,
         stats[order] = {k: eng.stats[k] for k in (
             "decode_steps", "prefill_compiles") + (
             ("prefix_hits", "chunk_steps") if scfg.paged else ())}
-        stats[order]["launches"] = {m.FUNCTION: m.launches
-                                    for m in KERNEL_MODULES}
-        stats[order]["flash_launches_by_dtype"] = dict(fa.dtype_launches)
+        stats[order]["launches"] = row_launches()
         return served, kerns
 
     served, _ = run("fifo", ScheduleCache())
@@ -2153,21 +2287,107 @@ def phase_differential_vlm(sip_cache: str, workdir: Path) -> dict:
     return out
 
 
-def _path_launches(path: dict, name: str) -> int:
-    """A kernels-line row's launches on a serve path: flash by dtype."""
-    if name.startswith(fa.FUNCTION):
-        return path["flash_launches_by_dtype"][
-            "float32" if name.endswith("_f32") else "bfloat16"]
-    return path["launches"][name]
+def phase_differential_encdec(sip_cache: str, workdir: Path) -> dict:
+    """seamless at full width cut to 2 encoder and 2 decoder layers,
+    float32, 4,096-frame contexts kept, each request its own, on the
+    contiguous engine against Engine.generate (``_differential``) at the
+    served signatures of both flash variants: bidirectional in the
+    encoder at (B, 16, 16, 4096, 4096, 64), causal over the prompts.  The
+    two 5-token prompts prefill as one group in fifo order: a slot that
+    read another slot's cross K/V would change tokens."""
+    full = configs.get("seamless-m4t-large-v2")
+    cfg = dataclasses.replace(full, enc_layers=2, dec_layers=2, n_layers=4,
+                              dtype="float32")
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 23, 5, 12, 40)]
+    out = _differential(
+        "differential_encdec", cfg, prompts, [8, 12, 16, 10, 14],
+        ServeConfig(max_len=64, capacity=3),
+        (fa_ops.variant_name(False, None), fa_ops.variant_name(True, None)),
+        sip_cache, workdir, extras=_enc_contexts(len(prompts), cfg, 13))
+    enc = {(sig["b"], sig["hq"], sig["hkv"], sig["sq"], sig["skv"],
+            sig["d"], sig["dtype"])
+           for sig in out["served"][fa_ops.variant_name(False, None)]}
+    if (2, 16, 16, 4096, 4096, 64, "float32") not in enc:
+        raise AssertionError(f"differential_encdec: no grouped encoder "
+                             f"prefill at batch 2: {enc}")
+    out["reduced"] = {"enc_layers": f"{cfg.enc_layers} of "
+                                    f"{full.enc_layers}",
+                      "dec_layers": f"{cfg.dec_layers} of {full.dec_layers}"}
+    emit("differential_encdec", **out)
+    return out
+
+
+def phase_differential_padded(sip_cache: str, workdir: Path) -> dict:
+    """qwen3 at full width cut to 4 layers, float32, its 16 query heads
+    padded to 24 (zeroed wq/wo slices), 8 kv heads: (a) the paged engine
+    against Engine.generate (``_differential``, the ``differential_*``
+    prompts) and the contiguous engine against it too; (b) prefill logits
+    of the padded model against the same weights with the padded slices
+    cut away, within 1e-4 (the reference's check, tests/
+    test_perf_levers.py); (c) flash over the 16 real heads launched on
+    the padded path, paged and contiguous, and the gather on the paged
+    one."""
+    full = configs.get("qwen3-1.7b")
+    cfg = dataclasses.replace(full, n_layers=4, dtype="float32",
+                              padded_heads=24)
+    params = M.init_lm(cfg, seed=1, device="cuda")
+    prompts, budgets = _diff_paged_prompts(cfg.vocab, 14)
+    out = _differential("differential_padded", cfg, prompts, budgets,
+                        DIFF_PAGED, SERVED, sip_cache, workdir,
+                        params=params)
+    ref = Engine(params, cfg, ServeConfig(max_len=DIFF_PAGED.max_len))
+    want = [ref.generate(p[None], b)[0] for p, b in zip(prompts, budgets)]
+    reset_launches()
+    eng = ContinuousEngine(params, cfg, ServeConfig(
+        max_len=DIFF_PAGED.max_len, capacity=DIFF_PAGED.capacity))
+    uids = [eng.submit(p, b).uid for p, b in zip(prompts, budgets)]
+    got = eng.run(max_steps=1000)
+    for i, uid in enumerate(uids):
+        if not np.array_equal(got[uid], want[i]):
+            raise AssertionError(f"differential_padded (contiguous): "
+                                 f"request {i} gave {got[uid].tolist()}, "
+                                 f"Engine gave {want[i].tolist()}")
+    contiguous = {"decode_steps": eng.stats["decode_steps"],
+                  "launches": row_launches()}
+    # (b) the same weights with the padded heads' slices cut away
+    sliced = dataclasses.replace(cfg, padded_heads=0)
+    attn = params["blocks"]["attn"]
+    cut = {**params, "blocks": {**params["blocks"], "attn": {
+        **attn, "wq": attn["wq"][:, :, :cfg.n_heads].contiguous(),
+        "wo": attn["wo"][:, :cfg.n_heads].contiguous()}}}
+    toks = torch.as_tensor(np.stack([prompts[0], prompts[2]]),
+                           device="cuda")           # the two 23-token prompts
+    lp, _ = M.prefill(params, {"tokens": toks}, cfg, max_len=64)
+    ls, _ = M.prefill(cut, {"tokens": toks}, sliced, max_len=64)
+    diff = (lp - ls).abs().max().item()
+    sigs = out["served"][SERVED[0]]
+    fifo = out["fifo"]["launches"]
+    if diff > 1e-4 or fifo["flash_attention_causal_f32"] < 1 \
+            or fifo["paged_gather"] < 1 \
+            or contiguous["launches"]["flash_attention_causal_f32"] < 1 or {
+                (sig["hq"], sig["hkv"]) for sig in sigs} != {(16, 8)}:
+        raise AssertionError(f"differential_padded: logits differ by "
+                             f"{diff}, launches {fifo} (contiguous "
+                             f"{contiguous['launches']}), flash "
+                             f"signatures {sigs}")
+    out.update(padded_heads=cfg.padded_heads, n_heads=cfg.n_heads,
+               contiguous=contiguous, token_identical_contiguous=True,
+               sliced_prefill_max_abs_diff=diff, sliced_limit=1e-4,
+               reduced={"n_layers": f"{cfg.n_layers} of {full.n_layers}"})
+    emit("differential_padded", **out)
+    return out
 
 
 def kernels_line(gemm: dict, flash: dict, gather: dict, ssd: dict,
                  rms: dict, sip: dict, serve: dict, serve_ssm: dict,
                  serve_hybrid: dict, serve_swa: dict, serve_moe: dict,
-                 serve_vlm: dict) -> dict:
+                 serve_vlm: dict, serve_encdec: dict) -> dict:
     """One row per kernel, its launches from its own main path: the bf16
-    flash kernel's from ``serve``, the float32 one's from ``sip``; beside
-    them each row's launches on the hybrid, sliding-window, MoE and VLM
+    causal flash kernel's from ``serve``, the float32 one's from ``sip``,
+    the bidirectional one's from ``serve_encdec``; beside them each row's
+    launches on the hybrid, sliding-window, MoE, VLM and encoder-decoder
     serve paths."""
     rows = []
     for mod, source, name, res, path in (
@@ -2175,16 +2395,19 @@ def kernels_line(gemm: dict, flash: dict, gather: dict, ssd: dict,
             (fa, fa.SOURCE, "flash_attention_causal", flash, serve),
             (fa, fa.SOURCE_F32, "flash_attention_causal_f32", flash["f32"],
              sip),
+            (fa, fa.SOURCE, "flash_attention", flash["bidirectional"],
+             serve_encdec),
             (pg, pg.SOURCE, "paged_gather", gather, serve),
             (sk, sk.SOURCE, "ssd_intra_chunk", ssd, serve_ssm),
             (rk, rk.SOURCE, "rmsnorm_fused", rms, sip)):
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": mod.REPLACES,
                      "launches": path["launches"][name],
-                     "launches_hybrid": _path_launches(serve_hybrid, name),
-                     "launches_swa": _path_launches(serve_swa, name),
-                     "launches_moe": _path_launches(serve_moe, name),
-                     "launches_vlm": _path_launches(serve_vlm, name),
+                     "launches_hybrid": serve_hybrid["launches"][name],
+                     "launches_swa": serve_swa["launches"][name],
+                     "launches_moe": serve_moe["launches"][name],
+                     "launches_vlm": serve_vlm["launches"][name],
+                     "launches_encdec": serve_encdec["launches"][name],
                      "max_abs_err": res["max_abs_err"],
                      "ms": res["ms"], "plain_ms": res["plain_ms"],
                      "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
@@ -2257,9 +2480,18 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_differential_vlm(sip["cache"], workdir)
+    cfg = configs.get("seamless-m4t-large-v2")
+    params = M.init_lm(cfg, seed=0, device="cuda")
+    serve_encdec = phase_serve_encdec(params, cfg)
+    phase_profile(params, cfg, SERVE_ENCDEC, phase="profile_encdec")
+    del params
+    torch.cuda.empty_cache()
+    phase_differential_encdec(sip["cache"], workdir)
+    phase_differential_padded(sip["cache"], workdir)
     print(json.dumps(kernels_line(gemm, flash, gather, ssd, rms, sip, serve,
                                   serve_ssm, serve_hybrid, serve_swa,
-                                  serve_moe, serve_vlm)), flush=True)
+                                  serve_moe, serve_vlm, serve_encdec)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}))
     return 0

@@ -46,8 +46,9 @@ CTYPES = {"float32": "float", "bfloat16": "bf16_t"}
 NEG_INF = -1e30
 
 launches = 0
-#: ``launches`` split by the dtype of the launched kernel
-dtype_launches = dict.fromkeys(CTYPES, 0)
+#: ``launches`` split by (causal, dtype) of the launched kernel; a windowed
+#: kernel is causal
+variant_launches = {(c, t): 0 for c in (True, False) for t in CTYPES}
 #: the model's calls reach the kernel at lengths padded to a multiple
 #: of this (:func:`padded`): the knob space gives a length that is not a
 #: multiple of 8 one-row query tiles, and most multiples of 8 eight-row
@@ -343,7 +344,7 @@ class FlashKernel:
                              ctypes.c_int(sq), ctypes.c_int(skv),
                              ctypes.c_int(kv_len)])
             launches += 1
-            dtype_launches[self.dtype] += 1
+            variant_launches[self.causal, self.dtype] += 1
             self.launches += 1
         return out
 

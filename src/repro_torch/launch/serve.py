@@ -15,10 +15,19 @@
         --arch h2o-danube-1.8b --requests 9 --capacity 4 \
         --prompt-len-min 16 --prompt-len-max 4500
 
-serve the SSM family (mamba2-2.7b), the hybrid family (zamba2-7b) and
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-large-v2 --requests 17 --capacity 8 \
+        --prompt-len-min 4 --prompt-len-max 32 --new-tokens 32 \
+        --new-tokens-max 64
+
+serve the SSM family (mamba2-2.7b), the hybrid family (zamba2-7b),
 sliding-window attention (h2o-danube-1.8b, a ring of 4096 positions per
-slot) through the contiguous engine; ``--paged`` refuses all three, as the
-reference does.  The MoE family (dbrx-132b, llama4-scout-17b-16e) and the
+slot) and the encoder-decoder (seamless-m4t-large-v2) through the
+contiguous engine; ``--paged`` refuses all four, as the reference does.
+Every encoder-decoder request shares one standard-normal (enc_len,
+d_model) float32 encoder context drawn from the traffic rng, as the
+reference's launcher draws it (the speech frontend is a stub).  The MoE
+family (dbrx-132b, llama4-scout-17b-16e) and the
 VLM (llava-next-34b) serve through either engine, ``--paged`` included;
 a VLM request's prompt is a standard-normal (prompt_len, d_model) float32
 embedding drawn from the traffic rng (the vision frontend is a stub, as in
@@ -259,7 +268,11 @@ def main(argv: list[str] | None = None) -> None:
     prompts = [rng.integers(0, cfg.vocab, t.prompt_len).astype(np.int32)
                for t in traffic]
     extras = None
-    if cfg.input_mode == "embeddings":
+    if cfg.family == "enc_dec":
+        ctx = rng.standard_normal(
+            (cfg.enc_len, cfg.d_model)).astype(np.float32)
+        extras = [{"enc_embeds": ctx} for _ in traffic]
+    elif cfg.input_mode == "embeddings":
         # VLM: the prompt is precomputed patch+text embeddings (frontend stub)
         extras = [{"embeds": rng.standard_normal(
             (t.prompt_len, cfg.d_model)).astype(np.float32)}
@@ -302,8 +315,9 @@ def main(argv: list[str] | None = None) -> None:
                                   extras, args.capacity)
             print(f"[serve:static] {json.dumps(report)}")
         else:
-            eng = ContinuousEngine(params, cfg, scfg, obs=reg,
-                                   recorder=recorder)
+            eng = ContinuousEngine(params, cfg, scfg,
+                                   example_extra=extras[0] if extras
+                                   else None, obs=reg, recorder=recorder)
             if service is not None:
                 service.start()
             try:

@@ -10,8 +10,16 @@
 * paged (``cache`` also holds ``pt``): writes go through the page table into
   the shared page store, reads through the ``paged_gather`` kernel.
 
+An encoder-decoder's decoder adds :func:`cross_attention` over the K/V that
+:func:`encode_kv` projects once from the encoder output.
+
 Layouts are ``repro``'s: activations (B, S, H, D), weights ``wq`` (d, H, D)
-and ``wo`` (H, D, d).
+and ``wo`` (H, D, d), where H is :func:`phys_heads`.  A padded config's
+extra heads have zero ``wo`` rows, which the reference also masks at use,
+so they add nothing: every mode here runs attention over the first
+``n_heads`` query heads only, grouped onto the K/V heads as the
+reference's head map groups them (``i // (n_heads // n_kv_heads)``), and
+projects with those heads' ``wo`` rows.
 """
 
 from __future__ import annotations
@@ -28,6 +36,13 @@ from repro_torch.models.config import ModelConfig
 #: finite, never -inf: a fully masked row (an empty slot, kv_len == 0) gives
 #: a uniform softmax instead of NaN, and the garbage stays in that slot
 NEG_INF = -1e30
+
+
+# ------------------------------------------------------------------ heads
+def phys_heads(cfg: ModelConfig) -> int:
+    """The query heads the params hold: ``padded_heads`` when it pads."""
+    return max(cfg.padded_heads, cfg.n_heads) if cfg.padded_heads \
+        else cfg.n_heads
 
 
 # ------------------------------------------------------------------- rope
@@ -47,15 +62,27 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
                      dim=-1).to(x.dtype)
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum('bsd,dhk->bshk') as one matrix product."""
+def _proj(x: torch.Tensor, w: torch.Tensor,
+          heads: int | None = None) -> torch.Tensor:
+    """einsum('bsd,dhk->bshk') as one matrix product, over the first
+    ``heads`` heads of ``w`` (all by default): a column slice of the
+    (d, h*k) view, which the product reads in place."""
     d, h, k = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * k)).reshape(
-        x.shape[0], x.shape[1], h, k)
+    n = h if heads is None else heads
+    return (x @ w.to(x.dtype).reshape(d, h * k)[:, :n * k]).reshape(
+        x.shape[0], x.shape[1], n, k)
+
+
+def _out(p, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """einsum('bshk,hkd->bsd') over the real heads' ``wo`` rows."""
+    b, s, h, hd = o.shape
+    wo = p["wo"][:cfg.n_heads].to(o.dtype)
+    return o.reshape(b, s, h * hd) @ wo.reshape(h * hd, wo.shape[-1])
 
 
 def _qkv(p, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    q = _proj(x, p["wq"], cfg.n_heads)
+    k, v = _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.qk_norm:
         q = nn.rmsnorm_apply(p["q_norm"], q)
         k = nn.rmsnorm_apply(p["k_norm"], k)
@@ -173,10 +200,7 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
             new_cache = {"k": k, "v": v,
                          "len": torch.tensor(s, dtype=torch.int32,
                                              device=x.device)}
-    wo = p["wo"].to(x.dtype)
-    h, hd, d = wo.shape
-    out = o.reshape(b, s, h * hd) @ wo.reshape(h * hd, d)
-    return out, new_cache
+    return _out(p, o, cfg), new_cache
 
 
 def _paged_decode(cache: dict[str, Any], q, k, v, *, causal: bool):
@@ -236,3 +260,23 @@ def _gather_pages(store: torch.Tensor, pt: torch.Tensor) -> torch.Tensor:
     pages = pg_kernel.paged_gather(store, pt)
     b, n, ps, h, d = pages.shape
     return pages.reshape(b, n * ps, h, d)
+
+
+def cross_attention(p, x: torch.Tensor, ctx_kv: dict[str, torch.Tensor],
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Decoder cross-attention over the encoder's precomputed K/V
+    (``ctx_kv`` {'k', 'v'} (B, T, Hkv, D), :func:`encode_kv`): no rotary
+    and no mask, through the plain ``_sdpa`` as in the reference."""
+    q = _proj(x, p["wq"], cfg.n_heads)
+    if cfg.qk_norm:
+        q = nn.rmsnorm_apply(p["q_norm"], q)
+    return _out(p, _sdpa(q, ctx_kv["k"], ctx_kv["v"], causal=False), cfg)
+
+
+def encode_kv(p, ctx: torch.Tensor, cfg: ModelConfig) -> dict[str, Any]:
+    """Project the encoder output ``ctx`` (B, T, d) once into the
+    cross-attention K/V {'k', 'v'} (B, T, Hkv, D); qk-norm on k."""
+    k, v = _proj(ctx, p["wk"]), _proj(ctx, p["wv"])
+    if cfg.qk_norm:
+        k = nn.rmsnorm_apply(p["k_norm"], k)
+    return {"k": k, "v": v}

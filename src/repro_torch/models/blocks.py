@@ -1,6 +1,8 @@
-"""The decoder block (pre-norm attention and an MLP or MoE, with
-residuals), the Mamba-2 block (pre-norm SSM mixer with a residual) and the
-Zamba-2 hybrid group (mamba blocks, then the one shared decoder block)."""
+"""The decoder block (pre-norm attention, an encoder-decoder's
+cross-attention, and an MLP or MoE, with residuals; an encoder block is
+one run bidirectionally), the Mamba-2 block (pre-norm SSM mixer with a
+residual) and the Zamba-2 hybrid group (mamba blocks, then the one shared
+decoder block)."""
 
 from __future__ import annotations
 
@@ -32,15 +34,21 @@ def decoder_block(p, x: torch.Tensor, cfg: ModelConfig, *,
                   causal: bool = True,
                   pos_offset: int | torch.Tensor = 0,
                   cache: dict[str, Any] | None = None,
-                  return_cache: bool = False):
+                  return_cache: bool = False,
+                  cross_kv: dict[str, torch.Tensor] | None = None):
     """-> (x, aux, new_cache); ``new_cache`` is None unless ``cache`` is
     given or ``return_cache`` is set.  An MoE layer is dropless when it
-    reads a cache (decode, chunked prefill), as the reference's is."""
+    reads a cache (decode, chunked prefill), as the reference's is.
+    ``cross_kv`` (``attention.encode_kv``) adds ``ln_x`` and the ``xattn``
+    cross-attention after the self-attention."""
     h = nn.rmsnorm_apply(p["ln1"], x)
     a, new_cache = attn_mod.attention(p["attn"], h, cfg, causal=causal,
                                       pos_offset=pos_offset, cache=cache,
                                       return_cache=return_cache)
     x = x + a
+    if cross_kv is not None:
+        hx = nn.rmsnorm_apply(p["ln_x"], x)
+        x = x + attn_mod.cross_attention(p["xattn"], hx, cross_kv, cfg)
     h2 = nn.rmsnorm_apply(p["ln2"], x)
     y, aux = _ffn(p, h2, cfg, dropless=cache is not None)
     return x + y, aux, new_cache

@@ -7,8 +7,8 @@ with ``dataclasses.asdict``.  The TPU layout levers (``remat*``,
 in the port: on a CUDA tensor the kernel always runs, on a CPU tensor its
 plain version.  ``moe_groups`` is not one of them: it changes which tokens
 an MoE layer drops, and the port routes within its groups as the reference
-does (``models/moe.py``).  The port runs the dense (sliding-window
-attention included), moe, vlm, ssm and hybrid families;
+does (``models/moe.py``).  The port runs every family, dense (sliding-window
+attention included), moe, vlm, ssm, hybrid and enc_dec, and padded heads;
 :func:`check_supported` names what it does not run yet.
 """
 
@@ -17,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 
 #: the model families the port runs
-SUPPORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+SUPPORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "enc_dec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,15 +149,11 @@ def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> ModelConfig:
-    """Raise ``NotImplementedError`` for what the port does not run yet
-    (see ROADMAP.md, Queue 1): the enc_dec family and padded heads."""
+    """Raise ``NotImplementedError`` for a family the port does not run
+    (see ROADMAP.md, Queue 1); else the validated config."""
     if cfg.family not in SUPPORTED_FAMILIES:
         raise NotImplementedError(
             f"repro_torch runs the {', '.join(SUPPORTED_FAMILIES)} "
             f"families only; {cfg.name} is {cfg.family!r} (ROADMAP.md, "
             f"Queue 1: other model families)")
-    if cfg.padded_heads:
-        raise NotImplementedError(
-            f"repro_torch does not pad heads (padded_heads="
-            f"{cfg.padded_heads}); see ROADMAP.md, Queue 1")
     return cfg.validate()

@@ -4,7 +4,9 @@
 ``jax.tree.map(np.asarray, nn.unwrap(M.init_lm(key, cfg)))``, layers stacked
 on axis 0 (a hybrid's groups on two, see ``model.param_shapes``) — and
 returns the port's param tree, so both packages compute the same function.
-A moe layer's ``ffn`` subtree is the reference's ``init_moe`` tree.  Norm
+A moe layer's ``ffn`` subtree is the reference's ``init_moe`` tree; an
+encoder-decoder's is ``model.param_shapes``'s enc_dec tree, and a padded
+config's ``wq``/``wo`` hold all ``padded_heads`` heads.  Norm
 gains, the SSM leaves the reference reads in float32 and an MoE router
 (whose product the reference runs in float32) stay float32.
 """

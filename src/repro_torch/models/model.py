@@ -1,6 +1,7 @@
 """The decoder LMs (dense with sliding-window attention included, MoE, and
 VLM: a dense backbone whose prompt may be precomputed embeddings), the
-Mamba-2 LM and the Zamba-2 hybrid: init, forward, prefill and decode entry
+Mamba-2 LM, the Zamba-2 hybrid and the encoder-decoder (its encoder input
+is precomputed frame embeddings): init, forward, prefill and decode entry
 points, and the per-slot and paged cache helpers the serving engines use.
 
 Params are a nested dict of tensors with ``repro``'s tree, leaf names and
@@ -30,7 +31,11 @@ Cache layouts, written out (``repro`` finds them structurally with
   N, P) for the groups' blocks, ``attn`` the shared block's dense K/V per
   group (G, B, S, Hkv, D) with ``len`` (G,) | (G, slots), and
   ``trailing.conv``/``trailing.ssd`` in the ssm layout when n_layers %
-  hybrid_group > 0.  Never paged.
+  hybrid_group > 0.  Never paged;
+* enc_dec: ``self`` the decoder's K/V in the dense layout with L =
+  dec_layers, and ``cross`` the cross-attention K/V ``k``/``v`` (L, B, T,
+  Hkv, D) of the T encoder frames, with no ``len`` (the reference's is a
+  (k, v) tuple).  Never paged.
 
 The decode paths update caches in place where the JAX package donates
 them, and return the same dict.
@@ -42,6 +47,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
 from repro_torch.models import modules as nn
 from repro_torch.models import moe
@@ -50,7 +56,8 @@ from repro_torch.models.config import ModelConfig, check_supported
 
 Params = dict[str, Any]
 #: leaves that hold RMSNorm gains (kept in float32)
-NORM_LEAVES = ("ln1", "ln2", "ln", "ln_f", "q_norm", "k_norm")
+NORM_LEAVES = ("ln1", "ln2", "ln", "ln_f", "q_norm", "k_norm", "ln_x",
+               "enc_ln", "dec_ln")
 #: every leaf kept in float32
 F32_LEAVES = NORM_LEAVES + ssm.F32_LEAVES + ("router",)
 #: the attention families: K/V caches, paged serving, ``decode_tokens``
@@ -76,11 +83,14 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 # ===================================================================== init
-def _decoder_shapes(cfg: ModelConfig, lead: tuple[int, ...]) -> dict:
-    """A decoder block's leaves, each with the leading axes ``lead``."""
-    d, hd = cfg.d_model, cfg.hd
-    attn = {"wq": (d, cfg.n_heads, hd), "wk": (d, cfg.n_kv_heads, hd),
-            "wv": (d, cfg.n_kv_heads, hd), "wo": (cfg.n_heads, hd, d)}
+def _decoder_shapes(cfg: ModelConfig, lead: tuple[int, ...],
+                    cross: bool = False) -> dict:
+    """A decoder block's leaves, each with the leading axes ``lead``; with
+    ``cross``, an encoder-decoder's ``ln_x`` and ``xattn`` besides.  ``wq``
+    and ``wo`` hold ``attention.phys_heads`` heads."""
+    d, hd, ph = cfg.d_model, cfg.hd, attn_mod.phys_heads(cfg)
+    attn = {"wq": (d, ph, hd), "wk": (d, cfg.n_kv_heads, hd),
+            "wv": (d, cfg.n_kv_heads, hd), "wo": (ph, hd, d)}
     if cfg.qk_norm:
         attn["q_norm"] = (hd,)
         attn["k_norm"] = (hd,)
@@ -94,6 +104,8 @@ def _decoder_shapes(cfg: ModelConfig, lead: tuple[int, ...]) -> dict:
     else:
         raise ValueError(cfg.mlp_type)
     block = {"ln1": (d,), "attn": attn, "ln2": (d,), "ffn": ffn}
+    if cross:
+        block.update(ln_x=(d,), xattn=dict(attn))
     return map_params(lambda _, shape: lead + shape, block)
 
 
@@ -109,8 +121,17 @@ def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
     ``groups`` on (n_groups, hybrid_group), the one ``shared_attn``
     decoder block with no layer axis, and ``trailing`` mamba blocks on
     (n_layers % hybrid_group,) when there are any.  A moe layer's ``ffn``
-    is ``moe.moe_shapes``; a vlm's tree is the dense one."""
+    is ``moe.moe_shapes``; a vlm's tree is the dense one.  An enc_dec
+    model has ``enc_blocks``, ``enc_ln``, ``dec_embed``, ``dec_blocks``
+    (with ``ln_x`` and ``xattn``), ``dec_ln`` and ``lm_head``, and no
+    ``embed`` or ``ln_f``."""
     n, d = cfg.n_layers, cfg.d_model
+    if cfg.family == "enc_dec":
+        return {"enc_blocks": _decoder_shapes(cfg, (cfg.enc_layers,)),
+                "enc_ln": (d,), "dec_embed": (cfg.vocab, d),
+                "dec_blocks": _decoder_shapes(cfg, (cfg.dec_layers,),
+                                              cross=True),
+                "dec_ln": (d,), "lm_head": (d, cfg.vocab)}
     top = {"embed": (cfg.vocab, d), "ln_f": (d,), "lm_head": (d, cfg.vocab)}
     if cfg.family == "ssm":
         return {**top, "blocks": _mamba_shapes(cfg, (n,))}
@@ -134,9 +155,10 @@ def map_params(fn, shapes: dict[str, Any], path: tuple[str, ...] = ()):
 def init_lm(cfg: ModelConfig, *, seed: int = 0,
             device: str | torch.device = "cuda") -> Params:
     """Random weights from ``seed``, with ``repro``'s init scales: normal
-    times 1 (embed), d**-0.5 (lm_head, wq, wk, wv, w_gate, w_up, router),
-    (n_heads*hd)**-0.5 (wo), d_ff**-0.5 (w_down); norm gains are ones; the
-    ssm mixer's as ``ssm.INIT`` says.  Each leaf is allocated in its
+    times 1 (embed, dec_embed), d**-0.5 (lm_head, wq, wk, wv, w_gate, w_up,
+    router), (n_heads*hd)**-0.5 (wo), d_ff**-0.5 (w_down); norm gains are
+    ones; the ssm mixer's as ``ssm.INIT`` says; a padded config's extra
+    heads' ``wq`` and ``wo`` slices are zero.  Each leaf is allocated in its
     stored dtype and drawn in float32, a stacked leaf past
     :data:`DRAW_WHOLE` elements one slice of its leading axis at a time."""
     check_supported(cfg)
@@ -145,8 +167,8 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
     gen = torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
     # the fan-in each normal weight is scaled by (its ** -0.5)
-    fan_in = {"embed": 1, "lm_head": d, "wq": d, "wk": d, "wv": d,
-              "wo": cfg.n_heads * cfg.hd, "w_gate": d, "w_up": d,
+    fan_in = {"embed": 1, "dec_embed": 1, "lm_head": d, "wq": d, "wk": d,
+              "wv": d, "wo": cfg.n_heads * cfg.hd, "w_gate": d, "w_up": d,
               "w_down": cfg.d_ff, "router": d}
 
     def draw(out: torch.Tensor, scale: float) -> torch.Tensor:
@@ -169,15 +191,21 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
             scale = ssm.init_scale(cfg, name)
         else:
             scale = fan_in[name] ** -0.5
-        return draw(torch.empty(shape, dtype=torch.float32
-                                if name in F32_LEAVES else dt, device=dev),
-                    scale)
+        out = draw(torch.empty(shape, dtype=torch.float32
+                               if name in F32_LEAVES else dt, device=dev),
+                   scale)
+        if name in ("wq", "wo"):        # zero the padded heads' slices
+            heads = out.movedim(-2 if name == "wq" else -3, 0)
+            heads[cfg.n_heads:] = 0
+        return out
 
     return map_params(make, param_shapes(cfg))
 
 
 def _embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return p["embed"][tokens.long()].to(compute_dtype(cfg))
+    """Token embeddings (an encoder-decoder's decoder's: ``dec_embed``)."""
+    table = p["dec_embed"] if cfg.family == "enc_dec" else p["embed"]
+    return table[tokens.long()].to(compute_dtype(cfg))
 
 
 def embed_inputs(p: Params, inputs: dict[str, torch.Tensor],
@@ -209,10 +237,32 @@ def _sum_aux(auxes: list[dict], device: torch.device) -> dict:
     return {k: sum((a[k] for a in auxes), zero) for k in moe.AUX_KEYS}
 
 
+def _encode(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig):
+    """An encoder-decoder's encoder over ``inputs['enc_embeds']`` (B, T, d):
+    its blocks run bidirectionally -> (normed output, the blocks' aux)."""
+    enc = inputs["enc_embeds"].to(compute_dtype(cfg))
+    auxes = []
+    for lp in blocks.layer_views(p["enc_blocks"]):
+        enc, aux, _ = blocks.decoder_block(lp, enc, cfg, causal=False)
+        auxes.append(aux)
+    return nn.rmsnorm_apply(p["enc_ln"], enc), auxes
+
+
 def forward(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig):
     """Eval forward over ``inputs['tokens']`` (B, S) (or an embeddings-mode
-    model's ``inputs['embeds']``) -> (logits, aux): aux the MoE layers'
+    model's ``inputs['embeds']``; an enc_dec model's decoder tokens beside
+    its ``inputs['enc_embeds']``) -> (logits, aux): aux the MoE layers'
     losses summed over layers, zeros for every other family."""
+    if cfg.family == "enc_dec":
+        enc, auxes = _encode(p, inputs, cfg)
+        x = _embed(p, inputs["tokens"], cfg)
+        for lp in blocks.layer_views(p["dec_blocks"]):
+            x, aux, _ = blocks.decoder_block(
+                lp, x, cfg, causal=True,
+                cross_kv=attn_mod.encode_kv(lp["xattn"], enc, cfg))
+            auxes.append(aux)
+        x = nn.rmsnorm_apply(p["dec_ln"], x)
+        return _logits(p, x), _sum_aux(auxes, x.device)
     x = embed_inputs(p, inputs, cfg)
     auxes = []
     if cfg.family == "ssm":
@@ -275,7 +325,11 @@ def prefill(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig,
     states (``mamba``), the shared block's K/V per group (``attn``) and the
     trailing blocks' states (``trailing``).  An embeddings-mode model given
     ``inputs['embeds']`` prefills from them (see :func:`embed_inputs`), and
-    an MoE prefill is not dropless."""
+    an MoE prefill is not dropless.  An enc_dec model runs its encoder over
+    ``inputs['enc_embeds']``, projects each decoder layer's cross K/V from
+    it once (``cross``) and prefills the decoder's caches (``self``)."""
+    if cfg.family == "enc_dec":
+        return _prefill_enc_dec(p, inputs, cfg, max_len)
     x = embed_inputs(p, inputs, cfg)
     b, s, _ = x.shape
     if cfg.family == "ssm":
@@ -307,6 +361,27 @@ def prefill(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig,
     return _logits(p, x)[:, 0], caches
 
 
+def _prefill_enc_dec(p: Params, inputs: dict[str, torch.Tensor],
+                     cfg: ModelConfig, max_len: int):
+    enc, _ = _encode(p, inputs, cfg)
+    x = _embed(p, inputs["tokens"], cfg)
+    b, s, _ = x.shape
+    layers = blocks.layer_views(p["dec_blocks"])
+    kv = _kv_caches(len(layers), b, s, max_len, cfg, x)
+    shape = (len(layers),) + enc.shape[:2] + (cfg.n_kv_heads, cfg.hd)
+    cross = {k: torch.empty(shape, dtype=x.dtype, device=x.device)
+             for k in ("k", "v")}
+    for i, lp in enumerate(layers):
+        ckv = attn_mod.encode_kv(lp["xattn"], enc, cfg)
+        x, _, cache = blocks.decoder_block(lp, x, cfg, causal=True,
+                                           return_cache=True, cross_kv=ckv)
+        _put_kv(kv, i, cache)
+        for k in ("k", "v"):
+            cross[k][i] = ckv[k]
+    x = nn.rmsnorm_apply(p["dec_ln"], x[:, -1:])
+    return _logits(p, x)[:, 0], {"self": kv, "cross": cross}
+
+
 def decode_step(p: Params, caches, tokens: torch.Tensor, cfg: ModelConfig, *,
                 pt: torch.Tensor | None = None,
                 active: torch.Tensor | None = None):
@@ -326,6 +401,8 @@ def decode_step(p: Params, caches, tokens: torch.Tensor, cfg: ModelConfig, *,
         raise ValueError(f"paged decode supports attention families "
                          f"(dense/moe/vlm), not {cfg.family!r}")
     x = _embed(p, tokens[:, None], cfg)
+    if cfg.family == "enc_dec":
+        return _decode_enc_dec(p, caches, x, cfg)
     if cfg.family == "ssm":
         x, _ = blocks.mamba_stack(p["blocks"], x, cfg, states=caches)
     else:
@@ -342,6 +419,20 @@ def decode_step(p: Params, caches, tokens: torch.Tensor, cfg: ModelConfig, *,
             x, _ = blocks.mamba_stack(p["trailing"], x, cfg,
                                       states=caches["trailing"])
     x = nn.rmsnorm_apply(p["ln_f"], x)
+    return _logits(p, x)[:, 0], caches
+
+
+def _decode_enc_dec(p: Params, caches, x: torch.Tensor, cfg: ModelConfig):
+    """The decoder over one embedded token per row ``x`` (B, 1, d): the
+    self-attention caches advance in place, the cross K/V are read."""
+    kv, cross = caches["self"], caches["cross"]
+    for i, lp in enumerate(blocks.layer_views(p["dec_blocks"])):
+        cache = {"k": kv["k"][i], "v": kv["v"][i], "len": kv["len"][i]}
+        x, _, new = blocks.decoder_block(
+            lp, x, cfg, causal=True, pos_offset=cache["len"], cache=cache,
+            cross_kv={"k": cross["k"][i], "v": cross["v"][i]})
+        kv["len"][i] = new["len"]       # k/v were written in place
+    x = nn.rmsnorm_apply(p["dec_ln"], x)
     return _logits(p, x)[:, 0], caches
 
 
@@ -415,12 +506,14 @@ def _at(tree, path: tuple[str, ...]):
 
 
 def alloc_slot_caches(cfg: ModelConfig, capacity: int, max_len: int, *,
-                      device: str | torch.device) -> dict[str, Any]:
+                      device: str | torch.device,
+                      enc_len: int | None = None) -> dict[str, Any]:
     """Zero decode caches for ``capacity`` slots of ``max_len`` positions:
     the tree :func:`prefill` returns, batch ``capacity`` on each leaf's
     :func:`_slot_axis`, and a ``len`` per layer and slot.  A sliding-window
     model's K/V hold ``kv_cache_len`` positions; mamba states do not depend
-    on ``max_len``."""
+    on ``max_len``; an enc_dec model's cross K/V hold ``enc_len`` frames
+    (default ``cfg.enc_len``)."""
     dt, dev = compute_dtype(cfg), torch.device(device)
 
     def states(lead):
@@ -438,6 +531,12 @@ def alloc_slot_caches(cfg: ModelConfig, capacity: int, max_len: int, *,
 
     if cfg.family == "ssm":
         return states((cfg.n_layers,))
+    if cfg.family == "enc_dec":
+        shape = (cfg.dec_layers, capacity, enc_len or cfg.enc_len,
+                 cfg.n_kv_heads, cfg.hd)
+        return {"self": kv(cfg.dec_layers),
+                "cross": {k: torch.zeros(shape, dtype=dt, device=dev)
+                          for k in ("k", "v")}}
     if cfg.family == "hybrid":
         n_groups, trailing = divmod(cfg.n_layers, cfg.hybrid_group)
         caches = {"mamba": states((n_groups, cfg.hybrid_group)),

@@ -40,6 +40,14 @@ refuses both families, as the JAX engine does.  So does a sliding-window
 model (h2o-danube): its per-slot KV is a ring of ``window`` positions
 (``models/model.py``), and paging it raises the reference's error.
 
+An encoder-decoder (seamless-m4t) serves through the contiguous engine too,
+each request carrying its encoder context, ``submit(..., extra={"enc_embeds":
+(T, d)})``: prefill runs the encoder over the group's contexts and projects
+each decoder layer's cross K/V once, and those K/V are spliced into the
+slots beside the decoder's self-attention K/V.  The cross caches are sized
+from ``ContinuousEngine(..., example_extra=)``, and a context of another
+shape is refused at submit, as the JAX engine refuses it.
+
 The engines run on the device of the params.  Kernels resolve their
 schedules from the ``repro_torch.core.registry.schedule_cache`` scope the
 engine is built in; a commit to that store mid-flight (an autotune
@@ -92,7 +100,7 @@ class ServeConfig:
 
 
 def _device_of(params) -> torch.device:
-    return params["embed"].device
+    return params["lm_head"].device
 
 
 def _sync(device: torch.device) -> None:
@@ -140,7 +148,8 @@ class Engine:
         """prompts: (B, S) int32 -> (B, <=max_new_tokens) int32.
         ``extra_inputs`` adds batched model inputs: ``embeds`` (B, S, d)
         for an embeddings-mode (VLM) prompt, left-padded like the
-        tokens."""
+        tokens; ``enc_embeds`` (B, T, d), an encoder-decoder's encoder
+        context."""
         b = prompts.shape[0]
         inputs = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
                                             device=self.device)}
@@ -189,7 +198,8 @@ def static_batches(prompts, budgets, capacity: int):
 class Request:
     """One generation request.  ``prompt`` is an unbatched (S,) token
     vector; ``extra`` holds unbatched per-request extra inputs (``embeds``
-    (S, d) for a VLM embedding prompt), which the engine batches."""
+    (S, d) for a VLM embedding prompt, ``enc_embeds`` (T, d) for an
+    encoder-decoder's context), which the engine batches."""
 
     uid: int
     prompt: np.ndarray
@@ -262,10 +272,14 @@ class ContinuousEngine:
     restarts with a swap, as JAX's trace caches do), and ``schedule_swaps``
     counts the store commits the engine picked up mid-flight.  ``recorder``
     (optional) logs every submit, prefill and decode dispatch.
+    ``example_extra`` is one request's unbatched extra inputs: an
+    encoder-decoder's ``enc_embeds`` (T, d) sizes its cross caches, and
+    every request's must have that shape.
     """
 
     def __init__(self, params, cfg: ModelConfig,
                  scfg: ServeConfig | None = None,
+                 example_extra: dict[str, np.ndarray] | None = None,
                  on_token: Callable[[Request, int], None] | None = None,
                  obs: obs_metrics.MetricsRegistry | None = None,
                  recorder: WorkloadRecorder | None = None,
@@ -289,6 +303,9 @@ class ContinuousEngine:
         # cannot be spliced into the fixed-shape slot batch
         self._min_prompt = (cfg.conv_width - 1
                             if cfg.family in ("ssm", "hybrid") else 1)
+        self._example_extra_shapes = {
+            k: tuple(np.asarray(v).shape)
+            for k, v in (example_extra or {}).items()}
         self.paged = scfg.paged
         if self.paged:
             if cfg.family not in M.ATTENTION_FAMILIES:
@@ -320,8 +337,10 @@ class ContinuousEngine:
                 collections.deque()
             self._prefilling: set[int] = set()
         else:
-            self.caches = M.alloc_slot_caches(cfg, scfg.capacity,
-                                              scfg.max_len, device=self.device)
+            enc = self._example_extra_shapes.get("enc_embeds")
+            self.caches = M.alloc_slot_caches(
+                cfg, scfg.capacity, scfg.max_len, device=self.device,
+                enc_len=enc[0] if enc else None)
         self._make_dispatchers()
         # schedule hot-swap: the store the engine is built under and its
         # version; _maybe_refresh_schedules() swaps when the version moves
@@ -384,7 +403,9 @@ class ContinuousEngine:
                extra: dict[str, np.ndarray] | None = None) -> Request:
         """Enqueue one request; returns its :class:`Request` handle.
         ``extra={"embeds": (S, d)}`` gives an embeddings-mode model its
-        prompt; S must be the prompt's length."""
+        prompt; S must be the prompt's length.  ``extra={"enc_embeds":
+        (T, d)}`` gives an encoder-decoder its context, of the shape of
+        ``example_extra``'s."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got "
@@ -426,6 +447,12 @@ class ContinuousEngine:
                     f"queued={self.pool.queue_depth} — resubmit later or "
                     f"serve with admission='queue'")
         got = {k: tuple(np.asarray(v).shape) for k, v in (extra or {}).items()}
+        for k, shape in self._example_extra_shapes.items():
+            # seq-varying extras (VLM embeds) follow the prompt; fixed-shape
+            # extras (enc-dec context) must match the engine's allocation
+            if k == "enc_embeds" and got.get(k) != shape:
+                raise ValueError(f"extra {k!r} must have shape {shape}, "
+                                 f"got {got.get(k)}")
         if "embeds" in got and got["embeds"][0] != len(prompt):
             # prefill advances the cache by the EMBEDS length, so a mismatch
             # would silently break the max_len/position accounting above

@@ -8,8 +8,10 @@ an ld_v-hoisted order in bf16 and float32, padded bidirectional flash
 calls, flash at the hybrid's and the sliding-window model's head dims and
 at dbrx's and llava's GQA ratios), the gather's page-id contract (wrap and
 clamp), a paged engine run (dense, MoE and VLM) and contiguous hybrid and
-sliding-window runs on the card token-identical to the same runs on the
-CPU, the MoE layer on the card against the CPU and bitwise repeatable,
+sliding-window runs, a contiguous encoder-decoder run and a padded-heads
+prefill and paged run on the card token-identical to the same runs on the
+CPU, bidirectional flash at the encoder's shape (MHA, head_dim 64, 4,096
+frames) and causal flash at its decoder's prompt, the MoE layer on the card against the CPU and bitwise repeatable,
 and an autotune promotion on the card that the running engine swaps to
 and launches.  Marked ``cuda``: they skip without a card.  On the GPU
 machine:
@@ -557,3 +559,105 @@ def test_padded_bidirectional_flash_matches_plain(cuda, dtype, s):
     got = fa.flash_attention(q, k, v, causal=False)
     assert fa.launches == before + 1
     assert _close(got, fa_ref.attention(q, k, v, causal=False), dtype)
+
+
+@pytest.mark.parametrize("dtype,s", [(torch.bfloat16, 4096),
+                                     (torch.bfloat16, 1000),
+                                     (torch.float32, 1000)])
+def test_bidirectional_flash_at_the_encoder_shape(cuda, dtype, s):
+    """seamless-m4t's encoder: MHA, 16 heads at head_dim 64, bidirectional,
+    over its 4,096 frames (and a ragged length, padded); each row within a
+    relative error of 1e-2 of the plain version, and a call with the last
+    key tile zeroed outside it."""
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q = torch.randn((1, 16, s, 64), generator=g, device=cuda).to(dtype)
+    k = torch.randn((1, 16, s, 64), generator=g, device=cuda).to(dtype)
+    v = torch.randn((1, 16, s, 64), generator=g, device=cuda).to(dtype)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=False)
+    assert fa.launches == before + 1
+    want = fa_ref.attention(q, k, v, causal=False)
+
+    def row_err(a):
+        return ((a.float() - want.float()).norm(dim=-1)
+                / want.float().norm(dim=-1)).max().item()
+    assert row_err(got) <= 1e-2
+    k0, v0 = k.clone(), v.clone()
+    k0[:, :, -fa.SEQ_TILE:] = 0
+    v0[:, :, -fa.SEQ_TILE:] = 0
+    assert row_err(fa.flash_attention(q, k0, v0, causal=False)) > 1e-2
+
+
+def test_padded_heads_prefill_on_the_kernel(cuda):
+    """qwen3 at smoke width with 4 heads padded to 6: the card's prefill
+    (flash over the 4 real heads) gives the CPU's logits within rtol =
+    atol = 1e-4, and the paged engine the CPU's tokens."""
+    from repro_torch import configs
+    cfg = configs.get_smoke("qwen3-1.7b", padded_heads=6)
+    params = M.init_lm(cfg, seed=0, device="cpu")
+    on_card = M.map_params(lambda path, _: _leaf(params, path).to(cuda),
+                           M.param_shapes(cfg))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (2, 40)).astype(np.int32))
+    before = fa.launches
+    got, _ = M.prefill(on_card, {"tokens": toks.to(cuda)}, cfg, max_len=64)
+    assert fa.launches == before + cfg.n_layers
+    want, _ = M.prefill(params, {"tokens": toks}, cfg, max_len=64)
+    assert torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(1, cfg.vocab, n).astype(np.int32), b)
+            for n, b in ((5, 6), (45, 4), (28, 12), (5, 5))]
+    scfg = ServeConfig(max_len=96, capacity=3, paged=True, page_size=16,
+                       prefill_chunk=32)
+    outs = []
+    for p in (params, on_card):
+        eng = ContinuousEngine(p, cfg, scfg)
+        uids = [eng.submit(t, n).uid for t, n in reqs]
+        got = eng.run(max_steps=500)
+        outs.append([got[u] for u in uids])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_enc_dec_engine_on_card_matches_cpu(cuda):
+    """seamless-m4t at smoke width: the contiguous engine's tokens on the
+    card (flash bidirectional in the encoder, causal in the decoder's
+    prompt) equal the CPU's, each request with its own context."""
+    from repro_torch import configs
+    cfg = configs.get_smoke("seamless-m4t-large-v2")
+    params = M.init_lm(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(1, cfg.vocab, n).astype(np.int32), b,
+             {"enc_embeds": rng.standard_normal(
+                 (cfg.enc_len, cfg.d_model)).astype(np.float32)})
+            for n, b in ((5, 6), (11, 5), (5, 7), (8, 3))]
+    scfg = ServeConfig(max_len=32, capacity=3)
+    outs = []
+    for device in ("cpu", cuda):
+        p = M.map_params(lambda path, _: _leaf(params, path).to(device),
+                         M.param_shapes(cfg))
+        before = fa.launches
+        eng = ContinuousEngine(p, cfg, scfg, example_extra=reqs[0][2])
+        uids = [eng.submit(t, n, extra=e).uid for t, n, e in reqs]
+        got = eng.run(max_steps=500)
+        outs.append([got[u] for u in uids])
+        assert (fa.launches > before) == (device != "cpu")
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,b,s", [(torch.bfloat16, 1, 64),
+                                       (torch.bfloat16, 2, 8),
+                                       (torch.float32, 2, 23)])
+def test_causal_flash_at_the_decoder_prompt(cuda, dtype, b, s):
+    """seamless-m4t's decoder prompt: MHA, 16 heads at head_dim 64,
+    causal, one prompt and a grouped pair (a ragged length padded to 64)
+    against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(b * s)
+    q = torch.randn((b, 16, s, 64), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, 16, s, 64), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, 16, s, 64), generator=g, device=cuda).to(dtype)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=True)
+    assert fa.launches == before + 1
+    assert _close(got, fa_ref.attention(q, k, v, causal=True), dtype)

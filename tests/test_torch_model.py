@@ -66,11 +66,6 @@ class TestConfigs:
             assert dataclasses.asdict(tconfigs.get_smoke(name)) == \
                 dataclasses.asdict(jconfigs.get_smoke(name))
 
-    @pytest.mark.parametrize("name", ["seamless-m4t-large-v2"])
-    def test_unsupported_raise(self, name):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.init_lm(tconfigs.get_smoke(name), device="cpu")
-
     @pytest.mark.parametrize("name", ["llama4-scout-17b-16e",
                                       "llava-next-34b", "dbrx-132b"])
     def test_moe_and_vlm_init(self, name):
@@ -143,11 +138,6 @@ class TestConfigs:
         std = w.float().std(dim=(-2, -1)) * cfg.d_model ** 0.5
         assert std.shape == (cfg.n_layers, cfg.n_experts)
         assert bool(((std - 1).abs() < 0.05).all())
-
-    def test_padded_heads_raise(self):
-        cfg = dataclasses.replace(tconfigs.get_smoke(ARCH), padded_heads=8)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.init_lm(cfg, device="cpu")
 
 
 class TestForward:

@@ -143,3 +143,58 @@ def test_chip_smoke_trace_totals_match_key_averages():
     for us, calls, name in host:
         assert calls == want[name][1], name
         assert abs(us - want[name][0]) <= 1e-3 * want[name][0] + 1.0, name
+
+
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_chip_smoke_encoder_bound_and_traffic():
+    """The bidirectional flash row's bound at seamless's encoder shape is
+    set by operations: 4 * 16 * 4096**2 * 64 = 68.7 GFLOP at 989 TFLOP/s
+    dense bf16, 0.0695 ms.  The enc-dec traffic: 17 requests, prompts
+    4-32 tokens with the first two of 8 (one grouped prefill), 32-64 new
+    tokens, each with its own (enc_len, d_model) float32 context."""
+    import numpy as np
+    smoke = _chip_smoke()
+    b, hq, hkv, s, d = smoke.FLASH_ENCODER_SHAPE
+    ms, by = smoke.attention_bound_ms(b, hq, hkv, s, s, d, 2, False, None,
+                                      smoke.PEAK_FLOPS[torch.bfloat16])
+    assert by == "operations"
+    assert abs(ms - 4 * 16 * 4096 ** 2 * 64 / 989e12 * 1e3) < 1e-12
+    assert abs(ms - 0.0695) < 1e-4
+    cfg = configs.get_smoke("seamless-m4t-large-v2")
+    prompts, budgets, extras = smoke._encdec_requests(cfg)
+    lens = [len(p) for p in prompts]
+    assert len(prompts) == len(budgets) == len(extras) == 17
+    assert lens[:2] == [8, 8] and 4 <= min(lens) and max(lens) <= 32
+    assert 32 <= min(budgets) and max(budgets) <= 64
+    assert max(lens) + max(budgets) <= smoke.SERVE_ENCDEC.max_len
+    ctx = [e["enc_embeds"] for e in extras]
+    assert all(c.shape == (cfg.enc_len, cfg.d_model)
+               and c.dtype == np.float32 for c in ctx)
+    assert not np.array_equal(ctx[0], ctx[1])
+
+
+def test_chip_smoke_counts_every_kernel_under_its_row():
+    """Every launch counter reaches the kernels line under its row's
+    name: flash by (causal, dtype) into four rows, the others by their
+    function names, and ``reset_launches`` zeroes them all."""
+    smoke = _chip_smoke()
+    fa = smoke.fa
+    assert set(smoke.FLASH_ROWS) == set(fa.variant_launches)
+    fa.variant_launches[False, "bfloat16"] += 3
+    smoke.pg.launches += 2
+    rows = smoke.row_launches()
+    assert rows["flash_attention"] == 3 and rows["paged_gather"] == 2
+    assert set(rows) == {"flash_attention", "flash_attention_causal",
+                         "flash_attention_f32", "flash_attention_causal_f32",
+                         "gemm_fused_leaky_relu", "paged_gather",
+                         "ssd_intra_chunk", "rmsnorm_fused"}
+    smoke.reset_launches()
+    assert not any(smoke.row_launches().values())
