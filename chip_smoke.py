@@ -6,7 +6,11 @@ llava-next-34b (VLM, embedding prompts) at full width through the paged
 continuous engine, and mamba2-2.7b, zamba2-7b (hybrid), h2o-danube-1.8b
 (sliding window) and seamless-m4t-large-v2 (encoder-decoder, 4,096-frame
 contexts) at full width through the contiguous one, hold qwen3 with padded
-heads to the unpadded model, and print one JSON line per phase.
+heads to the unpadded model, train qwen3-1.7b at full width (AdamW, float32
+master weights, bf16 compute; no kernel launches on the training path, as
+the reference trains with none), hold training on the card to the CPU's,
+resume a crashed supervised run from its checkpoint to the uninterrupted
+run's exact state, and print one JSON line per phase.
 
     python3 chip_smoke.py
 
@@ -27,6 +31,7 @@ import hashlib
 import io
 import itertools
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -47,7 +52,11 @@ from repro_torch.core import (Schedule, ScheduleCache, SipKernel,  # noqa: E402
                               TuneConfig, registry, schedule_cache)
 from repro_torch.core.energy import (UnassemblableSchedule,  # noqa: E402
                                      device_seconds)
+from repro_torch.checkpoint.ckpt import flatten  # noqa: E402
 from repro_torch.core.testing import InputSpec, probabilistic_test  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, batch_for_model  # noqa: E402
+from repro_torch.ft import (ChaosEngine, FaultPlan, FTManager,  # noqa: E402
+                            Supervisor)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels._emit import random_legal_order  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
@@ -66,12 +75,15 @@ from repro_torch.kernels.ssd import kernel as sk  # noqa: E402
 from repro_torch.kernels.ssd import ops as sk_ops  # noqa: E402
 from repro_torch.kernels.ssd import ref as sk_ref  # noqa: E402
 from repro_torch.launch import obsreport as obsreport_cli  # noqa: E402
+from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch import tune as tune_cli  # noqa: E402
 from repro_torch.launch import verify as verify_cli  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serve.engine import (ContinuousEngine, Engine,  # noqa: E402
                                       ServeConfig)
+from repro_torch.train import loop as train_loop  # noqa: E402
 
 #: the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -2331,7 +2343,7 @@ def phase_differential_padded(sip_cache: str, workdir: Path) -> dict:
     one."""
     full = configs.get("qwen3-1.7b")
     cfg = dataclasses.replace(full, n_layers=4, dtype="float32",
-                              padded_heads=24)
+                              padded_heads=24, use_pallas=True)
     params = M.init_lm(cfg, seed=1, device="cuda")
     prompts, budgets = _diff_paged_prompts(cfg.vocab, 14)
     out = _differential("differential_padded", cfg, prompts, budgets,
@@ -2380,15 +2392,297 @@ def phase_differential_padded(sip_cache: str, workdir: Path) -> dict:
     return out
 
 
+# ================================================================ training
+#: the train phase: the reference launcher's defaults (B8, S128)
+TRAIN_DATA = dict(global_batch=8, seq_len=128)
+TRAIN_STEPS = 8
+#: the rows that a training step must not launch: the model's kernels,
+#: whose plain versions carry the gradient (``use_pallas`` off)
+MODEL_ROWS = tuple(FLASH_ROWS.values()) + (sk.FUNCTION,)
+
+
+def _grad_report(grads) -> dict:
+    """Raises unless every gradient leaf is finite and non-zero, a stacked
+    block leaf in every layer; -> the number of leaves checked."""
+    bad = []
+    for key, g in flatten(grads).items():
+        rows = g.flatten(1) if key.startswith("blocks/") else g.reshape(1, -1)
+        peak = rows.abs().amax(dim=1)
+        if not bool(torch.isfinite(g).all()) or not bool((peak > 0).all()):
+            bad.append(key)
+    if bad:
+        raise AssertionError(f"train: gradients zero or non-finite at {bad}")
+    return {"leaves": len(flatten(grads))}
+
+
+def _profile_train_step(params, opt, batch, cfg, ocfg) -> dict:
+    """One more step under torch.profiler, its loss + gradients and its
+    AdamW update timed apart (synced): where a step's time goes."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, grads = train_steps.loss_and_grads(params, batch, cfg=cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        adamw.adamw_update(grads, opt, params, ocfg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    rows, _ = trace_totals(prof)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    return {"loss_and_grads_ms": (t1 - t0) * 1e3,
+            "adamw_update_ms": (t2 - t1) * 1e3, "wall_s": t2 - t0,
+            "device_busy_s": busy_s,
+            "device_idle_share": 1 - busy_s / (t2 - t0),
+            "kernel_launches": sum(r[1] for r in rows),
+            "top_kernels": [{"name": k, "calls": c, "ms": us / 1e3}
+                            for us, c, k in rows[:12]]}
+
+
+def phase_train(info: dict) -> dict:
+    """The main path of training: qwen3-1.7b at full width, all 28 layers,
+    bf16 compute over float32 master weights and moments, 8 AdamW steps on
+    data steps 0-7 (no checkpoint).  Fails unless every loss is finite and
+    the last is below the first, the first step's gradient of every leaf
+    (of every layer) is finite and non-zero, and no flash or SSD kernel
+    launched.  Step times are synced; tokens/s is B*S over the p50.  A
+    ninth step (data step 8) runs under the profiler (``profiled_step``)."""
+    cfg = configs.get("qwen3-1.7b")
+    dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
+    ocfg = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1,
+                           decay_steps=TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = train_loop.make_train_state(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in adamw.leaves(params))
+    reset_launches()
+    _, grads = train_steps.loss_and_grads(
+        params, batch_for_model(cfg, dcfg, 0, device="cuda"), cfg=cfg)
+    seen = _grad_report(grads)
+    del grads
+    losses, times = [], []
+    for step in range(TRAIN_STEPS):
+        batch = batch_for_model(cfg, dcfg, step, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = train_steps.train_step(params, opt, batch, cfg=cfg,
+                                                opt_cfg=ocfg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+    launches = row_launches()
+    peak = torch.cuda.max_memory_allocated()
+    profiled = _profile_train_step(
+        params, opt, batch_for_model(cfg, dcfg, TRAIN_STEPS, device="cuda"),
+        cfg, ocfg)
+    del params, opt
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] \
+            or any(launches[r] for r in MODEL_ROWS):
+        raise AssertionError(f"train: losses {losses}, launches {launches}")
+    p50 = float(np.median(times))
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+           "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+           "batch": dcfg.global_batch, "seq_len": dcfg.seq_len,
+           "steps": TRAIN_STEPS, "losses": losses, "step_s": times,
+           "step_p50_ms": p50 * 1e3,
+           "tokens_per_s": dcfg.global_batch * dcfg.seq_len / p50,
+           "max_memory_allocated_gb": peak / 1e9,
+           "first_step_grads": seen, "launches": launches,
+           "profiled_step": profiled, "nvidia_smi": info["nvidia_smi"]}
+    emit("train", **out)
+    return out
+
+
+def _train_on(device: str, cfg, params_cpu, n_steps: int) -> dict:
+    """``n_steps`` float32 train steps of ``cfg`` on ``device`` from
+    ``params_cpu``: the losses, the first step's gradients (on the CPU)
+    and those of one forward + backward of the raw model (leaves that
+    require grad, ``.backward()``, the logits' grad_fn checked).  On the
+    card that forward with ``use_pallas`` set must raise: the kernels have
+    no backward and refuse a call that autograd would record."""
+    dcfg = DataConfig(global_batch=4, seq_len=64, vocab=cfg.vocab)
+    ocfg = adamw.OptConfig(peak_lr=1e-3, warmup_steps=1, decay_steps=n_steps)
+    params = M.map_params(lambda _, t: t.to(device), params_cpu)
+    batch = batch_for_model(cfg, dcfg, 0, device=device)
+    live = M.map_params(lambda _, t: t.clone().requires_grad_(), params)
+    if device != "cpu":
+        try:
+            M.forward(live, batch, dataclasses.replace(cfg, use_pallas=True))
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{cfg.name}: a kernel ran under grad")
+    logits, aux = M.forward(live, batch, cfg)
+    if logits.grad_fn is None:
+        raise AssertionError(f"{cfg.name} on {device}: forward under grad "
+                             f"returned logits with no autograd node")
+    torch.nn.functional.cross_entropy(
+        logits.float().flatten(0, 1), batch["labels"].long().flatten()) \
+        .backward()
+    backward = M.map_params(lambda _, t: t.grad.cpu(), live)
+    del live, logits
+    _, grads = train_steps.loss_and_grads(params, batch, cfg=cfg)
+    grads = M.map_params(lambda _, t: t.cpu(), grads)
+    opt = adamw.init_opt_state(params)
+    losses = []
+    for step in range(n_steps):
+        params, opt, m = train_steps.train_step(
+            params, opt, batch_for_model(cfg, dcfg, step, device=device),
+            cfg=cfg, opt_cfg=ocfg)
+        losses.append(m["loss"].item())
+    return {"losses": losses, "grads": grads, "backward": backward}
+
+
+def _max_rel_grad_err(got, want) -> float:
+    """Largest |got - want| of any leaf over that leaf's largest |want|."""
+    worst = 0.0
+    want = flatten(want)
+    for key, g in flatten(got).items():
+        w = want[key]
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        worst = max(worst, err / scale if scale else err)
+    return worst
+
+
+def phase_differential_train() -> dict:
+    """qwen3-1.7b's and mamba2-2.7b's smoke configs, float32 (TF32 off):
+    4 train steps on the card and on the CPU from the same weights and
+    batches, the losses within rtol 1e-4 at every step and the first
+    step's gradients within 1e-3 of each leaf's largest |g|; and one
+    forward + backward through the model on the card with grad enabled
+    (``use_pallas`` off: the plain flash and SSD) equal to the CPU's within
+    the same bound, with no kernel launched, while the same forward with
+    ``use_pallas`` set raises."""
+    out = {}
+    for arch in ("qwen3-1.7b", "mamba2-2.7b"):
+        cfg = configs.get_smoke(arch)
+        params = M.init_lm(cfg, seed=0, device="cpu", dtype=torch.float32)
+        reset_launches()
+        card = _train_on("cuda", cfg, params, 4)
+        launches = row_launches()
+        cpu = _train_on("cpu", cfg, params, 4)
+        rel = {k: _max_rel_grad_err(card[k], cpu[k])
+               for k in ("grads", "backward")}
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(card["losses"], cpu["losses"]))
+        if loss_rel > 1e-4 or max(rel.values()) > 1e-3 \
+                or any(launches[r] for r in MODEL_ROWS):
+            raise AssertionError(f"differential_train {arch}: losses "
+                                 f"{card['losses']} vs {cpu['losses']}, "
+                                 f"gradient errors {rel}, launches "
+                                 f"{launches}")
+        out[arch] = {"losses_card": card["losses"],
+                     "losses_cpu": cpu["losses"],
+                     "loss_max_rel_err": loss_rel,
+                     "first_step_grad_max_rel_err": rel["grads"],
+                     "forward_backward_grad_max_rel_err": rel["backward"],
+                     "launches": launches}
+    out.update(loss_rtol=1e-4, grad_tol="1e-3 of each leaf's max |g|")
+    emit("differential_train", **out)
+    return out
+
+
+def _train_resume_run(cfg, dcfg, ocfg, ckpt_dir: Path, steps: int,
+                      every: int, chaos: ChaosEngine | None):
+    """One supervised ``train`` run, traced: (result, its trace events)."""
+    tcfg = train_loop.TrainConfig(total_steps=steps, ckpt_every=every,
+                                  ckpt_dir=str(ckpt_dir), log_every=100,
+                                  device="cuda")
+    ft = FTManager(n_workers=1)
+    sup = Supervisor(functools.partial(train_loop.train, cfg, dcfg, tcfg,
+                                       ocfg, ft=ft, chaos=chaos),
+                     ft=ft, chaos=chaos, sleep=lambda s: None)
+    with obs.tracing() as tracer, obs.metrics_scope():
+        res = sup.run()
+    return res, tracer.events()
+
+
+def _ckpt_seconds(events) -> dict:
+    """Each save's blocked seconds (``train.checkpoint`` spans) and each
+    background write's seconds (``ckpt.write`` spans, on the writer)."""
+    return {"blocked_s": [e["args"]["blocked_s"] for e in events
+                          if e["name"] == "train.checkpoint"],
+            "write_s": [e["dur"] / 1e6 for e in events
+                        if e["name"] == "ckpt.write"]}
+
+
+def phase_train_resume(workdir: Path) -> dict:
+    """qwen3-1.7b at full width cut to 2 of 28 layers (723 M params, an
+    8.7 GB checkpoint of float32 params and moments), bf16 compute, B8
+    S128, 6 steps under ``torch.use_deterministic_algorithms``: run A
+    straight through; run B under the Supervisor with the plan ``crash@5``
+    and an async save every 2 steps, which must restore step 4 and finish.
+    B's final loss, params and moments must equal A's bitwise.  The
+    checkpoint directories lie under ``workdir`` and are removed."""
+    full = configs.get("qwen3-1.7b")
+    cfg = dataclasses.replace(full, n_layers=2)
+    dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
+    ocfg = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=6)
+    root = workdir / "train_resume"
+    shutil.rmtree(root, ignore_errors=True)
+    det, fill = (torch.are_deterministic_algorithms_enabled(),
+                 torch.utils.deterministic.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True)
+    # nothing here reads memory before writing it, and filling the pinned
+    # snapshot buffers with NaN would add to the async save's blocked time
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        a, a_events = _train_resume_run(cfg, dcfg, ocfg, root / "a", 6, 100,
+                                        None)
+        shutil.rmtree(root / "a")
+        crash = ChaosEngine(FaultPlan.parse("crash@5"))
+        b, b_events = _train_resume_run(cfg, dcfg, ocfg, root / "b", 6, 2,
+                                        crash)
+    finally:
+        torch.use_deterministic_algorithms(det)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        shutil.rmtree(root, ignore_errors=True)
+    sup = b["supervisor"]
+    kinds = [e["kind"] for e in sup["events"]]
+    state_a = {"params": a["params"], "opt": a["opt_state"]}
+    state_b = {"params": b["params"], "opt": b["opt_state"]}
+    flat_b = flatten(state_b)
+    differ = [k for k, x in flatten(state_a).items()
+              if not torch.equal(x, flat_b[k])]
+    n_params = sum(t.numel() for t in adamw.leaves(a["params"]))
+    if sup["attempts"] != 2 or kinds != ["restart"] \
+            or len(b["history"]) != 2 or differ \
+            or b["final_loss"] != a["final_loss"]:
+        raise AssertionError(f"train_resume: attempts {sup['attempts']}, "
+                             f"events {kinds}, steps after the restore "
+                             f"{len(b['history'])}, final loss "
+                             f"{b['final_loss']} vs {a['final_loss']}, "
+                             f"leaves that differ {differ}")
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+           "checkpoint_gb": sum(t.numel() * t.element_size() for t in
+                                adamw.leaves(state_b)) / 1e9,
+           "dtype": cfg.dtype, "steps": 6, "plan": "crash@5",
+           "ckpt_every": 2, "deterministic_algorithms": True,
+           "attempts": sup["attempts"], "events": kinds,
+           "restored_step": 6 - len(b["history"]),
+           "final_loss": b["final_loss"], "bitwise_equal": True,
+           "losses_a": [m["loss"] for m in a["history"]],
+           "checkpoints_a": _ckpt_seconds(a_events),
+           "checkpoints_b": _ckpt_seconds(b_events),
+           "reduced": {"n_layers": f"{cfg.n_layers} of {full.n_layers}"}}
+    emit("train_resume", **out)
+    return out
+
+
 def kernels_line(gemm: dict, flash: dict, gather: dict, ssd: dict,
                  rms: dict, sip: dict, serve: dict, serve_ssm: dict,
                  serve_hybrid: dict, serve_swa: dict, serve_moe: dict,
-                 serve_vlm: dict, serve_encdec: dict) -> dict:
+                 serve_vlm: dict, serve_encdec: dict, train: dict) -> dict:
     """One row per kernel, its launches from its own main path: the bf16
     causal flash kernel's from ``serve``, the float32 one's from ``sip``,
     the bidirectional one's from ``serve_encdec``; beside them each row's
     launches on the hybrid, sliding-window, MoE, VLM and encoder-decoder
-    serve paths."""
+    serve paths, and on the training path (``train``: none, as the
+    reference trains on its plain versions)."""
     rows = []
     for mod, source, name, res, path in (
             (gf, gf.SOURCE, "gemm_fused_leaky_relu", gemm, sip),
@@ -2408,6 +2702,7 @@ def kernels_line(gemm: dict, flash: dict, gather: dict, ssd: dict,
                      "launches_moe": serve_moe["launches"][name],
                      "launches_vlm": serve_vlm["launches"][name],
                      "launches_encdec": serve_encdec["launches"][name],
+                     "launches_train": train["launches"][name],
                      "max_abs_err": res["max_abs_err"],
                      "ms": res["ms"], "plain_ms": res["plain_ms"],
                      "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
@@ -2416,6 +2711,9 @@ def kernels_line(gemm: dict, flash: dict, gather: dict, ssd: dict,
 
 
 def main() -> int:
+    # cuBLAS reads this once, at its first call: train_resume's
+    # deterministic algorithms need it
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -2488,9 +2786,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_differential_encdec(sip["cache"], workdir)
     phase_differential_padded(sip["cache"], workdir)
+    train = phase_train(info)
+    phase_differential_train()
+    phase_train_resume(workdir)
     print(json.dumps(kernels_line(gemm, flash, gather, ssd, rms, sip, serve,
                                   serve_ssm, serve_hybrid, serve_swa,
-                                  serve_moe, serve_vlm, serve_encdec)),
+                                  serve_moe, serve_vlm, serve_encdec, train)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}))

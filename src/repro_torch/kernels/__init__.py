@@ -16,8 +16,24 @@ import importlib
 import importlib.util
 import pkgutil
 
+import torch
+
 # integration modules probed inside each kernel package, in import order
 _INTEGRATION_MODULES = ("ops",)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise ``RuntimeError`` on a call that autograd would record (grad
+    mode on and an input that requires grad): the CUDA kernels have no
+    backward, so their outputs would carry no gradient.  The model runs a
+    kernel only under ``cfg.use_pallas``, which serving sets and training
+    leaves off, as the JAX package keeps ``pallas_call`` off its
+    differentiated paths."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; a differentiated "
+            f"call takes the plain version (ModelConfig.use_pallas=False)")
+
 
 def load_all() -> list[str]:
     """Import every kernel package's integration module, registering their

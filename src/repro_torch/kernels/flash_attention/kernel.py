@@ -32,7 +32,7 @@ import torch
 from repro_torch.core.energy import UnassemblableSchedule
 from repro_torch.core.ir import Instr, Kind, Program
 from repro_torch.core.testing import dtype_name
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels._emit import (AsyncPlanner, buffer_decls, cfloat,
                                        emit_kernel, plan_shared)
 from repro_torch.kernels.flash_attention import ref
@@ -416,8 +416,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CPU tensors take the plain version; otherwise the registry's shared
     kernel for (causal, window) serves the active cache's schedule, on
-    :func:`padded` lengths."""
+    :func:`padded` lengths.  A call that autograd would record raises
+    (:func:`kernels.refuse_grad`): the kernel has no backward."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return ref.attention(q, k, v, causal=causal, window=window)
+    refuse_grad("flash_attention", q, k, v)
     from repro_torch.kernels.flash_attention import ops
     return padded(ops.kernel(causal, window), q, k, v, causal=causal)

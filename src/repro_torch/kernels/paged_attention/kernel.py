@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.core.ir import Instr, Kind, Program
 from repro_torch.core.testing import dtype_name
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels._emit import emit_kernel
 from repro_torch.kernels.paged_attention import ref
 
@@ -193,8 +193,11 @@ def paged_gather(store: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
     """store: (P, ps, H, D); page_table: (B, n) int32 -> (B, n, ps, H, D).
 
     CPU tensors take the plain version; otherwise the registry's shared
-    kernel serves the active cache's schedule."""
+    kernel serves the active cache's schedule.  A call that autograd would
+    record raises (:func:`kernels.refuse_grad`): the kernel has no
+    backward."""
     if store.device.type == "cpu" and page_table.device.type == "cpu":
         return ref.paged_gather(store, page_table)
+    refuse_grad("paged_gather", store)
     from repro_torch.kernels.paged_attention import ops
     return ops.paged_gather(store, page_table)

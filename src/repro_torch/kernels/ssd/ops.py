@@ -17,6 +17,7 @@ import torch
 from repro_torch.core.registry import Workload, registry, sip_kernel
 from repro_torch.core.schedule import Schedule, SearchSpace
 from repro_torch.core.testing import dtype_name
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.ssd import chunked
 from repro_torch.kernels.ssd import kernel as K
 from repro_torch.kernels.ssd import ref
@@ -109,23 +110,42 @@ def kernel_inputs(x, dt, A, B, C, *, chunk: int):
 def ssd_chunked_kernel(x, dt, A, B, C, D, *, chunk: int = 64,
                        init_state=None, return_state: bool = False):
     """``chunked.ssd_chunked`` with the intra-chunk term on the kernel (its
-    plain version on CPU tensors).  x: (Bt,S,H,P); dt: (Bt,S,H); A: (H,);
-    B,C: (Bt,S,N); D: (H,).
+    plain version on CPU tensors; a call that autograd would record
+    raises, :func:`kernels.refuse_grad`: the kernel has no backward).
+    x: (Bt,S,H,P); dt: (Bt,S,H); A: (H,); B,C: (Bt,S,N); D: (H,).
 
     S is padded at the end (:func:`padded_chunk`) with dt, x, B and C all
     zero: there la = 0 and xb = 0, so the real rows' outputs and the final
     state are exactly the unpadded ones (a padded row adds nothing to any
     state and decays nothing)."""
+    return _ssd_padded(_intra_kernel, x, dt, A, B, C, D, chunk=chunk,
+                       init_state=init_state, return_state=return_state)
+
+
+def ssd_chunked_plain(x, dt, A, B, C, D, *, chunk: int = 64,
+                      init_state=None, return_state: bool = False):
+    """:func:`ssd_chunked_kernel`'s plain, differentiable version, on any
+    device: the same padded chunks, the intra-chunk term in plain PyTorch
+    (``ref.intra_chunk``)."""
+    return _ssd_padded(ref.intra_chunk, x, dt, A, B, C, D, chunk=chunk,
+                       init_state=init_state, return_state=return_state)
+
+
+def _intra_kernel(xb, la, Br, Cr):
+    if xb.device.type == "cpu":
+        return ref.intra_chunk(xb, la, Br, Cr)
+    refuse_grad("ssd_chunked_kernel", xb, la, Br, Cr)
+    return registry.get(NAME)(xb, la, Br, Cr)
+
+
+def _ssd_padded(intra, x, dt, A, B, C, D, *, chunk: int, init_state,
+                return_state: bool):
     bt, s, h, p = x.shape
     n = B.shape[-1]
     chunk, xb, la, Br, Cr = kernel_inputs(x, dt, A, B, C, chunk=chunk)
     nc = xb.shape[0] // bt
 
-    if xb.device.type == "cpu":
-        y_diag = ref.intra_chunk(xb, la, Br, Cr)
-    else:
-        y_diag = registry.get(NAME)(xb, la, Br, Cr)
-    y_diag = y_diag.reshape(bt, nc, chunk, h, p)
+    y_diag = intra(xb, la, Br, Cr).reshape(bt, nc, chunk, h, p)
 
     y_off, final = chunked.chunk_states(
         la.reshape(bt, nc, chunk, h), xb.reshape(bt, nc, chunk, h, p),

@@ -1,14 +1,20 @@
 """GQA attention with RoPE, qk-norm and a KV cache, in three modes.
 
 * prefill (``cache=None``): the whole prompt through the flash-attention
-  kernel (``kernels/flash_attention``; its plain version on CPU tensors);
+  kernel (``kernels/flash_attention``; its plain version on CPU tensors)
+  under ``cfg.use_pallas``, else through its plain version;
 * per-slot contiguous decode (``cache={'k', 'v', 'len'}``): the new tokens
   are written into the preallocated cache in place and read back by the
   plain masked ``_sdpa``.  A sliding-window model's cache of at most
   ``window`` positions is a ring: position p lives at slot p % size, and
   every slot below ``len`` is in the window;
 * paged (``cache`` also holds ``pt``): writes go through the page table into
-  the shared page store, reads through the ``paged_gather`` kernel.
+  the shared page store, reads through the ``paged_gather`` kernel (its
+  plain version unless ``cfg.use_pallas``).
+
+``cfg.use_pallas`` picks the kernels, as in the reference: serving sets it
+(``serve.engine``), training leaves it off, since the kernels have no
+backward (they raise on a call that autograd would record).
 
 An encoder-decoder's decoder adds :func:`cross_attention` over the K/V that
 :func:`encode_kv` projects once from the encoder output.
@@ -29,7 +35,9 @@ from typing import Any
 import torch
 
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.paged_attention import kernel as pg_kernel
+from repro_torch.kernels.paged_attention import ref as pg_ref
 from repro_torch.models import modules as nn
 from repro_torch.models.config import ModelConfig
 
@@ -161,7 +169,7 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
 
     new_cache = None
     if cache is not None and "pt" in cache:     # paged decode / chunk prefill
-        o, new_cache = _paged_decode(cache, q, k, v, causal=causal)
+        o, new_cache = _paged_decode(cache, q, k, v, cfg, causal=causal)
     elif cache is not None:                     # decode: append to cache
         idx = cache["len"]
         ck, cv = cache["k"], cache["v"]
@@ -192,7 +200,9 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
         o = _sdpa(q, ck, cv, causal=causal and not rolling,
                   window=None if rolling else cfg.window, kv_len=idx + s)
     else:
-        o = fa_kernel.flash_attention(
+        attend = fa_kernel.flash_attention if cfg.use_pallas \
+            else fa_ref.attention
+        o = attend(
             q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
             v.transpose(1, 2).contiguous(), causal=causal,
             window=cfg.window).transpose(1, 2)
@@ -203,7 +213,8 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
     return _out(p, o, cfg), new_cache
 
 
-def _paged_decode(cache: dict[str, Any], q, k, v, *, causal: bool):
+def _paged_decode(cache: dict[str, Any], q, k, v, cfg: ModelConfig, *,
+                  causal: bool):
     """Page-table-indirect cache write + read (continuous batching over a
     paged KV store).
 
@@ -216,7 +227,8 @@ def _paged_decode(cache: dict[str, Any], q, k, v, *, causal: bool):
 
     Writes scatter each token at (pt[b, pos // ps], pos % ps), in place;
     reads gather the slot's pages into a contiguous (B, n*ps, Hkv, D) view
-    with the ``paged_gather`` kernel and reuse the per-slot masked SDPA.
+    (the ``paged_gather`` kernel under ``cfg.use_pallas``) and reuse the
+    per-slot masked SDPA.
     """
     store_k, store_v, idx = cache["k"], cache["v"], cache["len"]
     pt = cache["pt"]
@@ -244,8 +256,8 @@ def _paged_decode(cache: dict[str, Any], q, k, v, *, causal: bool):
     store_k[page_ids, offs] = k.to(store_k.dtype)
     store_v[page_ids, offs] = v.to(store_v.dtype)
 
-    gk = _gather_pages(store_k, pt)                        # (B, n*ps, Hkv, D)
-    gv = _gather_pages(store_v, pt)
+    gk = _gather_pages(store_k, pt, cfg)                   # (B, n*ps, Hkv, D)
+    gv = _gather_pages(store_v, pt, cfg)
     o = _sdpa(q, gk, gv, causal=causal, kv_len=idx + s)
 
     adv = s if n_valid is None else n_valid
@@ -254,10 +266,13 @@ def _paged_decode(cache: dict[str, Any], q, k, v, *, causal: bool):
     return o, {"k": store_k, "v": store_v, "len": idx + adv}
 
 
-def _gather_pages(store: torch.Tensor, pt: torch.Tensor) -> torch.Tensor:
+def _gather_pages(store: torch.Tensor, pt: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
     """(P, ps, H, D) store + (B, n) page table -> contiguous (B, n*ps, H, D)
-    per-slot KV view, through the ``paged_gather`` kernel."""
-    pages = pg_kernel.paged_gather(store, pt)
+    per-slot KV view, through the ``paged_gather`` kernel under
+    ``cfg.use_pallas``."""
+    gather = pg_kernel.paged_gather if cfg.use_pallas else pg_ref.paged_gather
+    pages = gather(store, pt)
     b, n, ps, h, d = pages.shape
     return pages.reshape(b, n * ps, h, d)
 

@@ -2,14 +2,19 @@
 
 Kept field for field with ``repro.models.config`` so a JAX config converts
 with ``dataclasses.asdict``.  The TPU layout levers (``remat*``,
-``scan_layers``, ``seq_shard``, ``force_microbatches``,
-``logits_microbatch``) and ``use_pallas`` are accepted and have no effect
-in the port: on a CUDA tensor the kernel always runs, on a CPU tensor its
-plain version.  ``moe_groups`` is not one of them: it changes which tokens
-an MoE layer drops, and the port routes within its groups as the reference
-does (``models/moe.py``).  The port runs every family, dense (sliding-window
-attention included), moe, vlm, ssm, hybrid and enc_dec, and padded heads;
-:func:`check_supported` names what it does not run yet.
+``scan_layers``, ``seq_shard``, ``force_microbatches``) are accepted and
+have no effect in the port.  ``use_pallas`` picks the model's kernels
+(flash at prefill, the paged gather, the SSD), as in the reference: the
+serving engines set it, and on CUDA tensors the kernels run (on CPU
+tensors their plain versions); training leaves it off and runs the plain,
+differentiable versions, since the kernels have no backward and raise on
+a call that autograd would record (``kernels.refuse_grad``).
+``logits_microbatch`` chunks the loss over the sequence
+(``model.loss_fn``).  ``moe_groups`` is not a no-op either: it changes
+which tokens an MoE layer drops, and the port routes within its groups as
+the reference does (``models/moe.py``).  The port runs every family,
+dense (sliding-window attention included), moe, vlm, ssm, hybrid and
+enc_dec, and padded heads; :func:`check_supported` refuses any other.
 """
 
 from __future__ import annotations
@@ -78,7 +83,7 @@ class ModelConfig:
                                    # lever for long-seq prefill; GSPMD
                                    # gathers K/V inside attention)
     scan_layers: bool = True
-    use_pallas: bool = False       # SIP-tuned Pallas kernels on fwd-only paths
+    use_pallas: bool = False       # the CUDA kernels on fwd-only paths
     logits_microbatch: int = 0     # chunk the loss over seq (0 = off)
 
     @property
@@ -150,10 +155,9 @@ def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> ModelConfig:
     """Raise ``NotImplementedError`` for a family the port does not run
-    (see ROADMAP.md, Queue 1); else the validated config."""
+    (every family of ``configs`` runs); else the validated config."""
     if cfg.family not in SUPPORTED_FAMILIES:
         raise NotImplementedError(
             f"repro_torch runs the {', '.join(SUPPORTED_FAMILIES)} "
-            f"families only; {cfg.name} is {cfg.family!r} (ROADMAP.md, "
-            f"Queue 1: other model families)")
+            f"families only; {cfg.name} is {cfg.family!r}")
     return cfg.validate()

@@ -9,6 +9,8 @@ encoder-decoder's is ``model.param_shapes``'s enc_dec tree, and a padded
 config's ``wq``/``wo`` hold all ``padded_heads`` heads.  Norm
 gains, the SSM leaves the reference reads in float32 and an MoE router
 (whose product the reference runs in float32) stay float32.
+``params_to_numpy`` is the inverse: the two trees are path for path the
+same, so it is a walk that moves each leaf to a float32 numpy array.
 """
 
 from __future__ import annotations
@@ -49,3 +51,11 @@ def params_from_numpy(tree: dict[str, Any], cfg: ModelConfig, *,
                     if path[-1] in M.F32_LEAVES else dt)
 
     return M.map_params(convert, M.param_shapes(cfg))
+
+
+def params_to_numpy(params: M.Params) -> dict[str, Any]:
+    """torch param tree -> the reference's tree of float32 numpy arrays,
+    at the same paths (what ``params_from_numpy`` takes)."""
+    return {k: params_to_numpy(v) if isinstance(v, dict)
+            else v.detach().to(device="cpu", dtype=torch.float32).numpy()
+            for k, v in params.items()}

@@ -1,8 +1,9 @@
 """The decoder LMs (dense with sliding-window attention included, MoE, and
 VLM: a dense backbone whose prompt may be precomputed embeddings), the
 Mamba-2 LM, the Zamba-2 hybrid and the encoder-decoder (its encoder input
-is precomputed frame embeddings): init, forward, prefill and decode entry
-points, and the per-slot and paged cache helpers the serving engines use.
+is precomputed frame embeddings): init, forward, loss, prefill and decode
+entry points, and the per-slot and paged cache helpers the serving engines
+use.
 
 Params are a nested dict of tensors with ``repro``'s tree, leaf names and
 layouts (``nn.unwrap(init_lm(...))``), per-layer leaves stacked on axis 0
@@ -10,9 +11,11 @@ layouts (``nn.unwrap(init_lm(...))``), per-layer leaves stacked on axis 0
 is a Python loop over per-layer views.  The JAX package keeps params in
 float32 and casts each weight to ``cfg.dtype`` at every use; the port
 stores every weight in the compute dtype once, at load, which gives the
-same values and halves the weight memory in bf16.  Norm gains stay
-float32: RMSNorm casts its gain to float32, so storing them rounded would
-change the result.  The same holds for the SSM leaves the reference reads
+same values and halves the weight memory in bf16.  Training keeps
+float32 master weights instead (``init_lm(..., dtype=torch.float32)``),
+which every use casts to the compute dtype as the reference does.  Norm
+gains stay float32: RMSNorm casts its gain to float32, so storing them
+rounded would change the result.  The same holds for the SSM leaves the reference reads
 in float32 (``ssm.F32_LEAVES``) and for an MoE router, whose product the
 reference runs in float32.
 
@@ -153,17 +156,22 @@ def map_params(fn, shapes: dict[str, Any], path: tuple[str, ...] = ()):
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0,
-            device: str | torch.device = "cuda") -> Params:
+            device: str | torch.device = "cuda",
+            dtype: torch.dtype | None = None) -> Params:
     """Random weights from ``seed``, with ``repro``'s init scales: normal
     times 1 (embed, dec_embed), d**-0.5 (lm_head, wq, wk, wv, w_gate, w_up,
     router), (n_heads*hd)**-0.5 (wo), d_ff**-0.5 (w_down); norm gains are
     ones; the ssm mixer's as ``ssm.INIT`` says; a padded config's extra
-    heads' ``wq`` and ``wo`` slices are zero.  Each leaf is allocated in its
-    stored dtype and drawn in float32, a stacked leaf past
-    :data:`DRAW_WHOLE` elements one slice of its leading axis at a time."""
+    heads' ``wq`` and ``wo`` slices are zero.  Weights are stored in
+    ``dtype`` (default: the compute dtype, which serving keeps; training
+    keeps ``cfg.param_dtype``, float32 master weights, and every use casts
+    to the compute dtype as the reference does); :data:`F32_LEAVES` stay
+    float32.  Each leaf is allocated in its stored dtype and drawn in
+    float32, a stacked leaf past :data:`DRAW_WHOLE` elements one slice of
+    its leading axis at a time."""
     check_supported(cfg)
     dev = resolve_device(device)
-    dt = compute_dtype(cfg)
+    dt = dtype or compute_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
     # the fan-in each normal weight is scaled by (its ** -0.5)
@@ -279,6 +287,44 @@ def forward(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig):
             auxes.append(aux)
     x = nn.rmsnorm_apply(p["ln_f"], x)
     return _logits(p, x), _sum_aux(auxes, x.device)
+
+
+# ===================================================================== loss
+def loss_fn(p: Params, batch: dict[str, torch.Tensor], cfg: ModelConfig):
+    """-> (total, metrics): the masked mean token cross-entropy over float32
+    logits (the mask's sum clamped at 1) plus the aux losses, and the
+    metrics ``loss``, ``aux/load_balance`` and ``aux/router_z``.
+    ``cfg.logits_microbatch > 1`` takes the cross-entropy over that many
+    chunks of the sequence, as the reference does."""
+    logits, aux = forward(p, batch, cfg)
+    labels = batch["labels"].long()
+    mask = batch.get("mask")
+    lf = logits.float()
+    if cfg.logits_microbatch > 1:
+        s = labels.shape[1]
+        if s % cfg.logits_microbatch:
+            raise ValueError(f"logits_microbatch {cfg.logits_microbatch} "
+                             f"does not divide the sequence length {s}")
+        token_loss = torch.cat(
+            [_xent(lf_c, l_c) for lf_c, l_c in zip(
+                lf.chunk(cfg.logits_microbatch, dim=1),
+                labels.chunk(cfg.logits_microbatch, dim=1))], dim=1)
+    else:
+        token_loss = _xent(lf, labels)
+    if mask is not None:
+        denom = torch.clamp(mask.sum(), min=1.0)
+        loss = (token_loss * mask).sum() / denom
+    else:
+        loss = token_loss.mean()
+    total = loss + sum(aux.values())
+    metrics = {"loss": loss, **{f"aux/{k}": v for k, v in aux.items()}}
+    return total, metrics
+
+
+def _xent(logits_f32: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    lse = torch.logsumexp(logits_f32, dim=-1)
+    gold = torch.gather(logits_f32, -1, labels[..., None])[..., 0]
+    return lse - gold
 
 
 # ============================================================ prefill / decode

@@ -23,7 +23,7 @@ capacity = the tokens of the dispatch, and the groups are not used.
 
 Under tensor-parallel serving the reference all-reduces the down
 projection's partial sums here (``tp_allreduce``, the identity off a
-mesh); the port has no mesh yet (ROADMAP.md, Queue 1 item 4), and that
+mesh); the port has no mesh yet (ROADMAP.md, Queue 1 item 2), and that
 seam is marked in :func:`_dispatch_ffn`.
 """
 

@@ -3,11 +3,13 @@
 
 A fused input projection producing (z, x, B, C, dt), a short causal
 depthwise conv over (x, B, C), the chunked SSD scan (kernels/ssd), a gated
-RMSNorm, and the output projection.  Prefill (no incoming state) runs the
-SSD's intra-chunk term on the CUDA kernel through the registry
-(``ssd.ops.ssd_chunked_kernel``; its plain version on CPU tensors), and so
-does a continuation of S > 1 from a state; decode (S = 1) stays in plain
-torch, one recurrent step per token.
+RMSNorm, and the output projection.  Under ``cfg.use_pallas`` (serving)
+prefill (no incoming state) runs the SSD's intra-chunk term on the CUDA
+kernel through the registry (``ssd.ops.ssd_chunked_kernel``; its plain
+version on CPU tensors), and so does a continuation of S > 1 from a state;
+without it (training: the kernel has no backward) both take the plain
+``ssd.ops.ssd_chunked_plain`` over the same padded chunks.  Decode
+(S = 1) stays in plain torch, one recurrent step per token.
 """
 
 from __future__ import annotations
@@ -99,9 +101,11 @@ def mamba(p, x: torch.Tensor, cfg: ModelConfig, *,
         y = y1[:, None]
     else:
         # prefill, or a continuation of S > 1: the intra-chunk term on the
-        # CUDA kernel (registry); a ragged S is padded, not cut into tiny
-        # chunks (``ssd.ops.padded_chunk``)
-        y, ssd_state = ssd_ops.ssd_chunked_kernel(
+        # CUDA kernel (registry) under use_pallas; a ragged S is padded, not
+        # cut into tiny chunks (``ssd.ops.padded_chunk``)
+        ssd_fn = ssd_ops.ssd_chunked_kernel if cfg.use_pallas \
+            else ssd_ops.ssd_chunked_plain
+        y, ssd_state = ssd_fn(
             xs, dt_act, A, B, C, p["D"], chunk=cfg.ssm_chunk,
             init_state=None if state is None else state["ssd"],
             return_state=True)

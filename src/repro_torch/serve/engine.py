@@ -48,14 +48,17 @@ slots beside the decoder's self-attention K/V.  The cross caches are sized
 from ``ContinuousEngine(..., example_extra=)``, and a context of another
 shape is refused at submit, as the JAX engine refuses it.
 
-The engines run on the device of the params.  Kernels resolve their
+The engines run on the device of the params, and serve on the kernels:
+each sets ``cfg.use_pallas`` on its copy of the config, as the reference's
+serve launcher does (``--use-pallas``); the port has no plain serving mode,
+and on CPU tensors every kernel runs its plain version.  Kernels resolve their
 schedules from the ``repro_torch.core.registry.schedule_cache`` scope the
 engine is built in; a commit to that store mid-flight (an autotune
 promotion) is picked up before the next dispatch, restart-free
 (:meth:`ContinuousEngine._maybe_refresh_schedules`).  An optional
 :class:`~repro_torch.obs.recorder.WorkloadRecorder` logs the live
 (shape, dtype, occupancy) mix, record for record as the JAX engine does.
-Tensor-parallel serving is not ported yet (ROADMAP.md, Queue 1).
+Tensor-parallel serving is not ported yet (ROADMAP.md, Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -135,7 +138,7 @@ class Engine:
                  scfg: ServeConfig | None = None):
         check_supported(cfg)
         self.params = params
-        self.cfg = cfg
+        self.cfg = dataclasses.replace(cfg, use_pallas=True)
         self.scfg = ServeConfig() if scfg is None else scfg
         self.device = _device_of(params)
         self.stats: dict[str, Any] = {"prefill_s": 0.0, "decode_s": 0.0,
@@ -288,9 +291,9 @@ class ContinuousEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "repro_torch has no tensor-parallel serving yet (ROADMAP.md, "
-                "Queue 1: distribution)")
+                "Queue 1 item 2: distribution)")
         self.params = params
-        self.cfg = cfg
+        self.cfg = cfg = dataclasses.replace(cfg, use_pallas=True)
         self.scfg = scfg = ServeConfig() if scfg is None else scfg
         self.capacity = scfg.capacity
         self.device = _device_of(params)

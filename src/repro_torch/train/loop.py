@@ -1,0 +1,215 @@
+"""Training loop: the step, checkpoint/restart, heartbeats and metrics (the
+port of ``repro/train/loop.py``).
+
+The loop is a plain function over explicit state so that the supervisor
+(:mod:`repro_torch.ft.supervisor`) can kill and relaunch it idempotently:
+everything it needs to resume is (checkpoint dir, step), and the data
+pipeline is stateless-resumable (``data/pipeline.py``).
+
+Failure contract: the loop RAISES (:mod:`repro_torch.ft.errors`) and the
+supervisor catches.  ``FTManager.decide()`` is consulted every step, a
+non-finite loss raises ``NonFiniteLossError``, and a chaos plan
+(:mod:`repro_torch.ft.chaos`) can inject any of these deterministically.
+Restores go through ``restore_latest``, so a corrupt newest checkpoint
+falls back to the previous verified step.  Whatever the loop raises, it
+first joins its in-flight checkpoint write, so a relaunch never reads a
+directory that a writer is still changing.
+
+The port runs on one device: a ``mesh`` raises (ROADMAP.md Queue 1 item 2).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from collections import deque
+from typing import Any, Callable, Collection
+
+import torch
+
+from repro_torch.checkpoint.ckpt import CheckpointManager
+from repro_torch.data.pipeline import DataConfig, batch_for_model
+from repro_torch.ft.chaos import ChaosEngine
+from repro_torch.ft.errors import (NonFiniteLossError, ReshapeRequired,
+                                   RestartRequired)
+from repro_torch.ft.manager import Action, FTManager
+from repro_torch.kernels import _build
+from repro_torch.launch import steps
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+from repro_torch.optim import adamw
+
+#: the default checkpoint directory, inside the checkout (gitignored)
+DEFAULT_CKPT_DIR = str(_build.BUILD_DIR.parent / "ckpt")
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    total_steps: int = 100
+    ckpt_every: int = 50
+    ckpt_dir: str = DEFAULT_CKPT_DIR
+    ckpt_keep: int = 3
+    log_every: int = 10
+    num_microbatches: int = 1
+    async_ckpt: bool = True
+    seed: int = 0
+    # metrics history returned by train(): None keeps every step (small
+    # runs/tests); an int keeps only the newest N entries (long runs must
+    # not grow an unbounded list of per-step dicts)
+    log_history: int | None = None
+    device: str = "cuda"
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "repro_torch trains on one device; meshes are ROADMAP.md "
+            "Queue 1 item 2 (distribution)")
+
+
+def make_train_state(mcfg: ModelConfig, mesh=None, seed: int = 0, *,
+                     device: str | torch.device = "cuda"):
+    """(params, opt_state): the port's own seeded init (torch cannot
+    reproduce ``jax.random``), with ``cfg.param_dtype`` master weights and
+    float32 moments."""
+    _no_mesh(mesh)
+    params = M.init_lm(mcfg, seed=seed, device=device,
+                       dtype=getattr(torch, mcfg.param_dtype))
+    return params, adamw.init_opt_state(params)
+
+
+def _restore(ckpt: CheckpointManager, params, opt_state):
+    """Newest VERIFIED checkpoint (corrupt steps are skipped, counted, and
+    fall back)."""
+    corrupt = obs_metrics.active_registry().counter("ft.ckpt_corrupt")
+
+    def on_corrupt(step: int) -> None:
+        corrupt.inc()
+        obs_trace.instant("ft.ckpt_corrupt", step=step)
+        print(f"[train] checkpoint step {step} failed verification; "
+              f"falling back")
+
+    step, state = ckpt.restore_latest({"params": params, "opt": opt_state},
+                                      on_corrupt=on_corrupt)
+    if step is None:
+        return 0, params, opt_state
+    print(f"[train] resumed from step {step}")
+    return step, state["params"], state["opt"]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train(mcfg: ModelConfig, dcfg: DataConfig, tcfg: TrainConfig,
+          ocfg: adamw.OptConfig = adamw.OptConfig(), *, mesh=None,
+          ft: FTManager | None = None,
+          chaos: ChaosEngine | None = None,
+          skip_data_steps: Collection[int] = frozenset(),
+          on_metrics: Callable[[int, dict[str, Any]], None] | None = None):
+    """Run (or resume) training to tcfg.total_steps on ``tcfg.device``.
+    Returns the history, the final params and opt state, the step and the
+    final loss.
+
+    ``skip_data_steps`` (supervisor-owned) replaces those steps' batches
+    with a disjoint deterministic substitute (data step ``s +
+    tcfg.total_steps``) — the rollback path for data-dependent non-finite
+    losses.  With ``ft`` given, every step heartbeats all workers and
+    consults ``ft.decide()``; RESTART/ELASTIC verdicts raise for the
+    supervisor to handle.  A step's time ``train.step_s`` is taken after
+    the device has finished it.
+    """
+    _no_mesh(mesh)
+    device = M.resolve_device(tcfg.device)
+    ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.ckpt_keep)
+    params, opt_state = make_train_state(mcfg, seed=tcfg.seed, device=device)
+    start_step, params, opt_state = _restore(ckpt, params, opt_state)
+
+    history: Any = (deque(maxlen=tcfg.log_history)
+                    if tcfg.log_history is not None else [])
+    reg = obs_metrics.active_registry()
+    m_steps = reg.counter("train.steps")
+    h_step = reg.histogram("train.step_s")
+    g_loss = reg.gauge("train.loss")
+    skip = frozenset(skip_data_steps)
+    try:
+        for step in range(start_step, tcfg.total_steps):
+            if chaos is not None:
+                chaos.on_step_start(step)      # may raise WorkerKilled
+            substituted = step in skip
+            data_step = step + tcfg.total_steps if substituted else step
+            batch = batch_for_model(mcfg, dcfg, data_step, device=device)
+            t0 = time.perf_counter()
+            with obs_trace.span("train.step", step=step) as sp:
+                params, opt_state, metrics = steps.train_step(
+                    params, opt_state, batch, cfg=mcfg, opt_cfg=ocfg,
+                    num_microbatches=tcfg.num_microbatches)
+                _sync(device)
+                metrics = {k: float(v) for k, v in metrics.items()}
+                sp["loss"] = metrics.get("loss")
+            dt = time.perf_counter() - t0
+            loss = metrics.get("loss", 0.0)
+            if chaos is not None:
+                loss = chaos.filter_loss(step, loss, substituted=substituted)
+                metrics["loss"] = loss
+            if not math.isfinite(loss):
+                # crashing later on garbage weights is strictly worse; the
+                # supervisor rolls back to the last checkpoint and skips
+                # this step's batch
+                raise NonFiniteLossError(step, loss)
+            metrics["step_s"] = dt
+            m_steps.inc()
+            h_step.record(dt)
+            g_loss.set(loss)
+            if ft is not None:
+                _heartbeat_and_decide(ft, chaos, step, dt)
+            if (step + 1) % tcfg.log_every == 0 or step == start_step:
+                print(f"[train] step {step + 1}/{tcfg.total_steps} "
+                      f"loss={metrics['loss']:.4f} "
+                      f"lr={metrics['lr']:.2e} {dt * 1e3:.0f}ms")
+            if on_metrics:
+                on_metrics(step, metrics)
+            history.append(metrics)
+            if (step + 1) % tcfg.ckpt_every == 0 \
+                    or step + 1 == tcfg.total_steps:
+                with obs_trace.span("train.checkpoint", step=step + 1) as sp:
+                    sp["blocked_s"] = ckpt.save(
+                        step + 1, {"params": params, "opt": opt_state},
+                        blocking=not tcfg.async_ckpt)
+                if chaos is not None and chaos.wants_corrupt(step + 1):
+                    ckpt.wait()            # the fault hits a finished write
+                    chaos.corrupt_checkpoint(tcfg.ckpt_dir, step + 1)
+    finally:
+        ckpt.wait()
+    history = list(history)
+    return {"history": history, "params": params, "opt_state": opt_state,
+            "step": tcfg.total_steps,
+            "final_loss": history[-1]["loss"] if history else float("nan")}
+
+
+def _heartbeat_and_decide(ft: FTManager, chaos: ChaosEngine | None,
+                          step: int, dt: float) -> None:
+    """Feed this step's heartbeats (all workers — this single-process loop
+    stands in for the fleet) and act on the coordinator's verdict."""
+    for w in ft.workers:
+        if chaos is not None and chaos.heartbeat_suppressed(w):
+            continue
+        factor = chaos.latency_factor(w, step) if chaos is not None else 1.0
+        ft.heartbeat(w, dt * factor)
+    action, info = ft.decide()
+    if action is Action.RESTART_FROM_CKPT:
+        raise RestartRequired(f"worker(s) {info.get('dead')} died at "
+                              f"step {step}", step=step, info=info)
+    if action is Action.ELASTIC_RESHAPE:
+        raise ReshapeRequired(f"capacity lost at step {step}; reshaping "
+                              f"to {info['mesh'][0]}",
+                              target=info["mesh"], step=step, info=info)
+    if info.get("stragglers"):
+        obs_metrics.active_registry().counter("ft.stragglers").inc(
+            len(info["stragglers"]))
+        obs_trace.instant("ft.straggler", step=step,
+                          workers=len(info["stragglers"]))

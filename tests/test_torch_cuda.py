@@ -592,8 +592,10 @@ def test_padded_heads_prefill_on_the_kernel(cuda):
     """qwen3 at smoke width with 4 heads padded to 6: the card's prefill
     (flash over the 4 real heads) gives the CPU's logits within rtol =
     atol = 1e-4, and the paged engine the CPU's tokens."""
+    import dataclasses
     from repro_torch import configs
-    cfg = configs.get_smoke("qwen3-1.7b", padded_heads=6)
+    cfg = dataclasses.replace(configs.get_smoke("qwen3-1.7b", padded_heads=6),
+                              use_pallas=True)       # the kernels, as served
     params = M.init_lm(cfg, seed=0, device="cpu")
     on_card = M.map_params(lambda path, _: _leaf(params, path).to(cuda),
                            M.param_shapes(cfg))
@@ -661,3 +663,109 @@ def test_causal_flash_at_the_decoder_prompt(cuda, dtype, b, s):
     got = fa.flash_attention(q, k, v, causal=True)
     assert fa.launches == before + 1
     assert _close(got, fa_ref.attention(q, k, v, causal=True), dtype)
+
+
+def _grads_on(dev, fn, arrays):
+    """(output, gradients of sum(output * weights)) of ``fn`` on ``dev``,
+    the inputs from ``arrays`` requiring grad."""
+    ins = [torch.from_numpy(a).to(dev).requires_grad_() for a in arrays]
+    out = fn(*ins)
+    w = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        tuple(out.shape)).astype(np.float32)).to(dev)
+    grads = torch.autograd.grad((out.float() * w).sum(), ins)
+    return out, [g.cpu() for g in grads]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_under_grad_raises_and_its_plain_version_matches_cpu(cuda,
+                                                                   causal):
+    """The kernel has no backward: a call that autograd would record
+    raises and launches nothing.  The plain version, which training runs,
+    gives the CPU's gradients of q, k and v within 1e-3 of each one's
+    largest |g|; without grad the kernel launches."""
+    rng = np.random.default_rng(1)
+    arrays = [rng.standard_normal((2, h, 40, 32)).astype(np.float32)
+              for h in (4, 2, 2)]
+    before = fa.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        _grads_on(cuda, lambda q, k, v: fa.flash_attention(
+            q, k, v, causal=causal), arrays)
+    assert fa.launches == before
+
+    def plain(q, k, v):
+        return fa_ref.attention(q, k, v, causal=causal)
+    out, got = _grads_on(cuda, plain, arrays)
+    assert out.grad_fn is not None
+    _, want = _grads_on("cpu", plain, arrays)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-3 * w.abs().max()
+    with torch.no_grad():                 # serving launches
+        fa.flash_attention(*(torch.from_numpy(a).to(cuda) for a in arrays),
+                           causal=causal)
+    assert fa.launches == before + 1
+
+
+def test_ssd_under_grad_raises_and_its_plain_version_matches_cpu(cuda):
+    """As the flash case, for ``ssd_chunked_kernel`` and the
+    ``ssd_chunked_plain`` that training runs (S = 100, padded to two
+    chunks of 64)."""
+    gen = np.random.default_rng(0)
+    arrays = [gen.standard_normal((2, 100, 4, 8)).astype(np.float32),
+              np.abs(gen.standard_normal((2, 100, 4))).astype(np.float32),
+              -np.abs(gen.standard_normal(4)).astype(np.float32),
+              gen.standard_normal((2, 100, 16)).astype(np.float32),
+              gen.standard_normal((2, 100, 16)).astype(np.float32),
+              gen.standard_normal(4).astype(np.float32)]
+    before = sk.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        _grads_on(cuda, lambda *t: sk_ops.ssd_chunked_kernel(*t, chunk=64),
+                  arrays)
+    assert sk.launches == before
+
+    def plain(*t):
+        return sk_ops.ssd_chunked_plain(*t, chunk=64)
+    out, got = _grads_on(cuda, plain, arrays)
+    assert out.grad_fn is not None
+    _, want = _grads_on("cpu", plain, arrays)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-3 * w.abs().max()
+    with torch.no_grad():
+        sk_ops.ssd_chunked_kernel(
+            *(torch.from_numpy(a).to(cuda) for a in arrays), chunk=64)
+    assert sk.launches == before + 1
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-2.7b"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """Three float32 train steps of a smoke config from the same weights
+    and batches on the card and on the CPU: losses within rtol 1e-4, the
+    first step's gradients within 1e-3 of each leaf's largest |g|, and no
+    kernel launched."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, batch_for_model
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+
+    cfg = configs.get_smoke(arch)
+    dcfg = DataConfig(global_batch=2, seq_len=64, vocab=cfg.vocab)
+    ocfg = adamw.OptConfig(peak_lr=1e-3, warmup_steps=1)
+    before = (fa.launches, sk.launches)
+    runs = []
+    for dev in ("cpu", cuda):
+        p = M.init_lm(cfg, seed=0, device="cpu", dtype=torch.float32)
+        p = M.map_params(lambda _, t: t.to(dev), p)
+        opt = adamw.init_opt_state(p)
+        _, g = steps.loss_and_grads(p, batch_for_model(cfg, dcfg, 0,
+                                                       device=dev), cfg=cfg)
+        losses = []
+        for s in range(3):
+            p, opt, m = steps.train_step(
+                p, opt, batch_for_model(cfg, dcfg, s, device=dev), cfg=cfg,
+                opt_cfg=ocfg)
+            losses.append(m["loss"].item())
+        runs.append((losses, [t.cpu() for t in adamw.leaves(g)]))
+    assert (fa.launches, sk.launches) == before
+    (lc, gc), (lg, gg) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    for a, b in zip(gg, gc):
+        assert (a - b).abs().max() <= 1e-3 * b.abs().max()

@@ -116,6 +116,32 @@ def test_paged_gather_page_ids_outside_the_store_follow_the_jax_kernel():
     assert tpg.launches == 0
 
 
+@pytest.mark.parametrize("wrapper", ["flash", "ssd", "gather"])
+def test_wrappers_refuse_a_differentiated_call(wrapper):
+    """Off the CPU, a call that autograd would record raises before any
+    build or launch: the kernels have no backward (the model runs their
+    plain versions with ``use_pallas`` off, as training does).  Meta
+    tensors stand in for the card."""
+    from repro_torch.kernels.ssd import ops as tsk_ops
+
+    def meta(*shape):
+        return torch.zeros(shape, device="meta", requires_grad=True)
+    calls = {
+        "flash": lambda: tfa.flash_attention(meta(1, 2, 8, 32),
+                                             meta(1, 2, 8, 32),
+                                             meta(1, 2, 8, 32)),
+        "ssd": lambda: tsk_ops.ssd_chunked_kernel(
+            meta(1, 40, 2, 8), meta(1, 40, 2), meta(2), meta(1, 40, 4),
+            meta(1, 40, 4), meta(2), chunk=16),
+        "gather": lambda: tpg.paged_gather(
+            meta(4, 2, 2, 8), torch.zeros((1, 2), dtype=torch.int32,
+                                          device="meta"))}
+    with pytest.raises(RuntimeError, match="no backward"):
+        calls[wrapper]()
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        calls[wrapper]()          # past the guard: the kernel refuses meta
+
+
 def test_wrappers_reject_mixed_devices():
     """A CPU tensor beside a non-CPU one is not a CPU call: the wrapper
     validates for its kernel and refuses, it never falls back."""

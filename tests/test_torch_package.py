@@ -71,6 +71,23 @@ def test_serve_launcher_needs_the_card_unless_asked():
     assert "[serve:continuous]" in ok.stdout
 
 
+def test_train_launcher_needs_the_card_unless_asked(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default succeeds")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "qwen3-1.7b", "--smoke", "--steps", "2", "--batch", "2", "--seq",
+           "16", "--ckpt-dir", str(tmp_path / "ck")]
+    bad = subprocess.run(cmd, capture_output=True, text=True, env=_env(),
+                         timeout=120)
+    assert bad.returncode != 0
+    assert "CUDA is not available" in bad.stderr
+    assert "[train] done" not in bad.stdout
+    ok = subprocess.run(cmd + ["--device", "cpu"], capture_output=True,
+                        text=True, env=_env(), timeout=120)
+    assert ok.returncode == 0, ok.stderr
+    assert "[train] done" in ok.stdout
+
+
 def test_build_targets_hopper():
     cmd = _build.nvcc_command("nvcc", Path("x.cu"), Path("x.cubin"))
     assert "arch=compute_90a,code=sm_90a" in cmd

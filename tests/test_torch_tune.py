@@ -10,6 +10,7 @@ is not ported raises."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -141,9 +142,22 @@ def test_serve_mamba2_smoke_on_cpu():
             in res.stderr)
 
 
-@pytest.mark.parametrize("module", ["train"])
-def test_unported_launchers_point_at_the_roadmap(module):
-    res = _run(module, check=False)
+def test_train_launcher_trains_on_cpu(tmp_path):
+    """Four supervised steps of qwen3's smoke config on the CPU: the final
+    loss is below the first step's."""
+    res = _run("train", "--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+               "--steps", "4", "--batch", "8", "--seq", "32", "--ckpt-dir",
+               str(tmp_path / "ck"))
+    first = re.search(r"\[train\] step 1/4 loss=([0-9.]+)", res.stdout)
+    last = re.search(r"\[train\] done: final loss ([0-9.]+) at step 4",
+                     res.stdout)
+    assert first and last, res.stdout
+    assert float(last.group(1)) < float(first.group(1))
+
+
+def test_train_launcher_refuses_a_mesh():
+    res = _run("train", "--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+               "--steps", "1", "--mesh", "host", check=False)
     assert res.returncode != 0
     assert "NotImplementedError" in res.stderr and "ROADMAP" in res.stderr
 
