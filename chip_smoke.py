@@ -5,7 +5,10 @@ of each kernel), serve qwen3-1.7b, dbrx-132b (MoE, 8 of its 40 layers) and
 llava-next-34b (VLM, embedding prompts) at full width through the paged
 continuous engine, and mamba2-2.7b, zamba2-7b (hybrid), h2o-danube-1.8b
 (sliding window) and seamless-m4t-large-v2 (encoder-decoder, 4,096-frame
-contexts) at full width through the contiguous one, hold qwen3 with padded
+contexts) at full width through the contiguous one, serve qwen3-1.7b
+tensor-parallel over 2 ranks (processes sharing the one card over gloo;
+exact and int8-compressed seams) and hold 2- and 4-rank serving to
+one-device generation, hold qwen3 with padded
 heads to the unpadded model, train qwen3-1.7b at full width (AdamW, float32
 master weights, bf16 compute; no kernel launches on the training path, as
 the reference trains with none), hold training on the card to the CPU's,
@@ -23,6 +26,7 @@ there is no card or any phase fails.  The last line is the contract line
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
@@ -55,6 +59,8 @@ from repro_torch.core.energy import (UnassemblableSchedule,  # noqa: E402
 from repro_torch.checkpoint.ckpt import flatten  # noqa: E402
 from repro_torch.core.testing import InputSpec, probabilistic_test  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, batch_for_model  # noqa: E402
+from repro_torch.dist import spawn  # noqa: E402
+from repro_torch.dist import tp as tp_mod  # noqa: E402
 from repro_torch.ft import (ChaosEngine, FaultPlan, FTManager,  # noqa: E402
                             Supervisor)
 from repro_torch.kernels import _build  # noqa: E402
@@ -78,6 +84,7 @@ from repro_torch.launch import obsreport as obsreport_cli  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch import tune as tune_cli  # noqa: E402
 from repro_torch.launch import verify as verify_cli  # noqa: E402
+from repro_torch.launch.mesh import mesh_for  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -348,10 +355,17 @@ FLASH_CASES = [(1, 2, 2, 16, 16, 8, True, None),
     # grouped pair, and its encoder at the grouped pair
     (1, 16, 16, 64, 64, 64, True, None),
     (2, 16, 16, 64, 64, 64, True, None),
-    (2, 16, 16, 4096, 4096, 64, False, None)]
-#: (p, ps, h, d, b, n): smoke, deploy and the serve phase's store and table
+    (2, 16, 16, 4096, 4096, 64, False, None),
+    # a rank's share of qwen3's heads under tensor parallelism: 8 of 16
+    # and 4 of 8 kv heads at mesh 2 (serve_tp), 4 and 2 at mesh 4
+    # (differential_tp)
+    (1, 8, 4, 384, 384, 128, True, None),
+    (3, 8, 4, 128, 128, 128, True, None),
+    (2, 4, 2, 64, 64, 128, True, None)]
+#: (p, ps, h, d, b, n): smoke, deploy and the serve phase's store and table,
+#: and serve_tp's: a rank's 4 of the 8 kv heads
 GATHER_SHAPES = [(8, 8, 2, 8, 2, 4), (64, 16, 4, 32, 8, 8),
-                 (257, 16, 8, 128, 8, 32)]
+                 (257, 16, 8, 128, 8, 32), (257, 16, 4, 128, 8, 32)]
 #: (g, q, h, p, n), float32 as on the model's path: the smoke and deploy
 #: workloads, a 384-token prompt padded to chunks of 64, the serve
 #: prefill's 256-token chunk, two such chunks, a head count that the
@@ -423,7 +437,10 @@ def phase_device() -> dict:
     info = {"nvidia_smi": smi, "torch": torch.__version__,
             "cuda": torch.version.cuda,
             "name": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}
+            "count": torch.cuda.device_count(),
+            # the builds run two nvcc a core: what the host offers
+            "cpu_count": os.cpu_count(),
+            "cpu_affinity": len(os.sched_getaffinity(0))}
     emit("device", **info)
     return info
 
@@ -446,9 +463,11 @@ def phase_build() -> dict:
     emit_s = time.perf_counter() - t0
     rejections = {k: getattr(_build.STATS, k)
                   for k in ("smem_rejections", "reg_rejections")}
+    # distinct_cubins' texts too, in the same pool of builds
+    distinct = [t for _, more, _ in distinct_texts().values() for t in more]
     _build.STATS.reset()
     t0 = time.perf_counter()
-    _build.compile_many(texts)
+    _build.compile_many(texts + distinct)
     wall = time.perf_counter() - t0
     main = {"gemm_fused 512x512x2048 bf16":
             (gf.FUNCTION, gemm_kernel(512, 512, 2048, BF16)),
@@ -504,6 +523,7 @@ def phase_build() -> dict:
             in_sass[label]["STG.E.128"] = sum("STG.E.128" in ln
                                                    for ln in sass)
     out = {"texts": len(texts), "distinct_texts": len(set(texts)),
+           "distinct_cubins_texts": len(distinct),
            "smem_rejected": rejected, "emit_s": emit_s, "wall_s": wall,
            **_build.STATS.snapshot(), **rejections,
            "ptxas_main_shapes": ptxas, "texts_that_spill": spilled,
@@ -1127,9 +1147,11 @@ def _sass_hash(cubin: Path) -> str | None:
     return hashlib.sha256("\n".join(code).encode()).hexdigest()
 
 
-def distinct_cubins() -> dict:
-    """Do 16 random legal orders of each kernel survive nvcc/ptxas as 16
-    different binaries?"""
+@functools.cache
+def distinct_texts() -> dict:
+    """For each kernel of ``distinct_cubins``: (its distinct random legal
+    orders of 16 drawn, the (function, text) of each that fits, the
+    number the shared-memory check rejected)."""
     makers = {
         "gemm_fused_leaky_relu 512x512x2048 bf16":
             lambda o: gemm_kernel(512, 512, 2048, BF16, o),
@@ -1143,7 +1165,7 @@ def distinct_cubins() -> dict:
             lambda o: ssd_kernel(ssd_static(*SSD_SHAPES[3]), o),
         "rmsnorm_fused 4096x2560 bf16, br 256 n_chunks 4":
             lambda o: rms_kernel(rms_static(*RMS_SHAPES[-1], BF16), None, o)}
-    out = {}
+    emitted = {}
     for label, make in makers.items():
         base = make(None)
         orders = {random_legal_order(base.program, s) for s in range(16)}
@@ -1156,15 +1178,35 @@ def distinct_cubins() -> dict:
                 texts.append((fn, make(order).source()[0]))
             except UnassemblableSchedule:
                 rejected += 1
-        paths = _build.compile_many(texts)
-        cubins = {hashlib.sha256(p.read_bytes()).hexdigest() for p in paths}
-        sass = {_sass_hash(p) for p in paths}
-        out[label] = {"random_orders": 16, "distinct_orders": len(orders),
-                      "smem_rejected": rejected,
-                      "distinct_texts": len({t for _, t in texts}),
-                      "distinct_cubins": len(cubins),
-                      "distinct_sass": None if None in sass else len(sass)}
+        emitted[label] = (len(orders), texts, rejected)
+    return emitted
+
+
+def distinct_cubins() -> dict:
+    """Do 16 random legal orders of each kernel survive nvcc/ptxas as 16
+    different binaries?  (``phase_build`` compiled their texts.)"""
+    emitted = distinct_texts()
+    paths = iter(_build.compile_many(
+        [t for _, texts, _ in emitted.values() for t in texts]))
+    out = {}
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        for label, (n_orders, texts, rejected) in emitted.items():
+            mine = [next(paths) for _ in texts]
+            cubins = {hashlib.sha256(p.read_bytes()).hexdigest()
+                      for p in mine}
+            sass = set(pool.map(_sass_hash, mine))
+            out[label] = {"random_orders": 16, "distinct_orders": n_orders,
+                          "smem_rejected": rejected,
+                          "distinct_texts": len({t for _, t in texts}),
+                          "distinct_cubins": len(cubins),
+                          "distinct_sass": None if None in sass
+                          else len(sass)}
     return out
+
+
+#: the wall-clock tunes' cooling factor L (T <- T / L a step, from 1 to
+#: 0.02): 7 evaluations a tune
+WALL_TUNE_COOLING = 2.0
 
 
 def phase_sip(workdir: Path) -> dict:
@@ -1180,8 +1222,10 @@ def phase_sip(workdir: Path) -> dict:
     tune_s = time.perf_counter() - t0
     smoke_builds = _build.STATS.snapshot()
     buf = io.StringIO()
+    t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = verify_cli.main(["--suite", "smoke", "--cache", str(cache)])
+    verify_s = time.perf_counter() - t0
     print(buf.getvalue(), end="", flush=True)
     lines = [ln for ln in buf.getvalue().splitlines()
              if ln.startswith("[verify] ") and "workload(s)" not in ln]
@@ -1192,7 +1236,9 @@ def phase_sip(workdir: Path) -> dict:
         raise AssertionError(f"verify on the card's smoke store: rc {rc}")
 
     # one wall-clock tune per kernel at its main-path shape: the paper's
-    # gemm (benchmarks/table3_gemm.py), a serve prefill, the serve gather
+    # gemm (benchmarks/table3_gemm.py), a serve prefill, the serve gather;
+    # one round cooled by 2 a step (7 evaluations: each compiles one
+    # schedule, one at a time, and tests it)
     gen = torch.Generator(device="cuda").manual_seed(5)
     pt = torch.randint(0, 257, (8, 32), generator=gen, device="cuda",
                        dtype=torch.int32)
@@ -1217,7 +1263,7 @@ def phase_sip(workdir: Path) -> dict:
         kern = registry.spec(name).instantiate(cache=ScheduleCache())
         t0 = time.perf_counter()
         (res,) = kern.tune(args, TuneConfig(energy="wallclock", rounds=1,
-                                            cooling=1.3))
+                                            cooling=WALL_TUNE_COOLING))
         wall_s = time.perf_counter() - t0
         static = kern.static_of(*args)
         (entry,) = kern.cache.entries(name, kern.sig_str(static))
@@ -1240,7 +1286,9 @@ def phase_sip(workdir: Path) -> dict:
                     range(len(res.best.order))),
             "tests_passed": entry.tests_passed, **_build.STATS.snapshot()}
     launches = row_launches()
+    t0 = time.perf_counter()
     cubins = distinct_cubins()
+    cubins_s = time.perf_counter() - t0
     failures = smoke_builds["compile_failures"] \
         + sum(t["compile_failures"] for t in wall_tune.values()) \
         + _build.STATS.compile_failures
@@ -1253,8 +1301,10 @@ def phase_sip(workdir: Path) -> dict:
         raise AssertionError(f"a kernel never launched on the SIP path: "
                              f"{launches}")
     out = {"tune_smoke_s": tune_s, "tune_smoke_builds": smoke_builds,
-           "verify": lines, "wallclock_tune": wall_tune,
-           "distinct_cubins": cubins, "compile_failures": failures,
+           "verify": lines, "verify_s": verify_s, "wallclock_tune": wall_tune,
+           "wallclock_tune_cooling": WALL_TUNE_COOLING,
+           "distinct_cubins": cubins, "distinct_cubins_s": cubins_s,
+           "compile_failures": failures,
            "launches": launches}
     emit("sip", **out)
     return {**out, "cache": str(cache)}
@@ -1327,30 +1377,38 @@ class MoeCopies:
 
 
 def _serve_paged(phase: str, params, cfg, prompts, budgets,
-                 extras=None) -> dict:
+                 extras=None, scfg: ServeConfig = SERVE_PAGED,
+                 mesh=None, warm: bool = True) -> dict:
     """The traffic once on the paged continuous engine (``SERVE_PAGED``),
     timed, after a warm-up that is not counted (the same prompts with 2
     new tokens each: it builds every prefill shape's flash schedule and
-    warms cuBLAS and the allocator).  Checks that every request emits its
+    warms cuBLAS and the allocator; ``warm=False`` skips it, for a run
+    after another that warmed the same shapes).  Checks that every request emits its
     budget, that flash launched once per layer and whole-prompt prefill
     and the gather twice per layer and decode or chunk step (every other
     kernel never), that chunked prefill ran, that the timed run built
     nothing, and that no page leaked past the prefix cache's refs.  An
-    MoE model's copies are counted (``MoeCopies``)."""
+    MoE model's copies are counted (``MoeCopies``).  On one rank of a
+    tensor-parallel ``mesh`` the kernels run at the rank's share of the
+    heads, and every model dispatch must reduce its two seams a layer
+    (``seams_per_dispatch``); ``tokens_sha1`` digests every request's
+    tokens, for comparing ranks."""
     extras = extras or [None] * len(prompts)
-    warm = ContinuousEngine(params, cfg, SERVE_PAGED)
-    for p, e in zip(prompts, extras):
-        warm.submit(p, 2, extra=e)
-    warm.run(max_steps=10_000)
-    del warm
+    if warm:
+        eng = ContinuousEngine(params, cfg, scfg, mesh=mesh)
+        for p, e in zip(prompts, extras):
+            eng.submit(p, 2, extra=e)
+        eng.run(max_steps=10_000)
+        del eng
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    eng = ContinuousEngine(params, cfg, SERVE_PAGED)
+    eng = ContinuousEngine(params, cfg, scfg, mesh=mesh)
     tracer = obs.Tracer()
     copies = MoeCopies()
     compiles_before = _build.STATS.compiles
     reset_launches()
+    tp_mod.seams = 0
     t0 = time.perf_counter()
     with obs.tracing(tracer), copies:
         handles = [eng.submit(p, b, extra=e)
@@ -1403,9 +1461,19 @@ def _serve_paged(phase: str, params, cfg, prompts, budgets,
            "prefix_tokens_saved": s["prefix_tokens_saved"],
            "prefill_compiles": s["prefill_compiles"], "launches": launches,
            "kernel_builds_in_timed_window": builds,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "tokens_sha1": hashlib.sha1(json.dumps(
+               [r.tokens for r in handles]).encode()).hexdigest()}
     if cfg.family == "moe":
         out.update(copies.report())
+    if mesh is not None:
+        dispatches = n_prefill + s["chunk_steps"] + s["decode_steps"]
+        if tp_mod.seams != 2 * cfg.n_layers * dispatches:
+            raise AssertionError(f"{phase}: {tp_mod.seams} seam reductions "
+                                 f"in {dispatches} dispatches of "
+                                 f"{cfg.n_layers} layers")
+        out.update(seams=tp_mod.seams,
+                   seams_per_dispatch=tp_mod.seams / dispatches)
     return out
 
 
@@ -1417,6 +1485,86 @@ def phase_serve(params, cfg) -> dict:
         raise AssertionError("serve: no prefix hit: the path was not covered")
     emit("serve", **out)
     return out
+
+
+#: the tensor-parallel phases' mesh widths: serve_tp's, differential_tp's
+TP_SERVE, TP_DIFF = 2, (2, 4)
+#: seconds a rank of a tensor-parallel phase may wait in one collective,
+#: and the whole job may take
+TP_TIMEOUT_S, TP_DEADLINE_S = 120.0, 400.0
+
+
+def _tp_rank_setup(width: int):
+    """A rank of a tensor-parallel phase: the card's settings of
+    ``phase_device`` and a ``("model",)`` mesh of ``width`` ranks."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.load_all()
+    return mesh_for((width,), ("model",))
+
+
+def _serve_tp_rank(rank: int) -> list[dict]:
+    """One rank of ``serve_tp``: qwen3-1.7b at full width (the same random
+    weights on every rank, seed 0) on ``SERVE_PAGED`` over a 2-rank mesh
+    (``_serve_paged`` with the mesh), with exact seams, then with
+    int8-compressed ones (on the shapes the first run warmed)."""
+    mesh = _tp_rank_setup(TP_SERVE)
+    cfg = configs.get("qwen3-1.7b")
+    params = M.init_lm(cfg, seed=0, device=mesh.device)
+    full_gb = sum(t.numel() * t.element_size()
+                  for t in flatten(params).values()) / 1e9
+    outs = []
+    for compressed in (False, True):
+        scfg = dataclasses.replace(SERVE_PAGED,
+                                   compressed_collectives=compressed)
+        out = _serve_paged("serve_tp_compressed" if compressed
+                           else "serve_tp", params, cfg,
+                           *_serve_requests(cfg.vocab), scfg=scfg,
+                           mesh=mesh, warm=not compressed)
+        out.update(rank=rank, backend=mesh.backend, device=str(mesh.device),
+                   full_params_gb=full_gb)
+        outs.append(out)
+    return outs
+
+
+def phase_serve_tp() -> dict:
+    """qwen3-1.7b at full width served tensor-parallel over a 1-D mesh of 2
+    ranks, both on this one card and talking over gloo (NCCL refuses two
+    ranks on one GPU): each rank holds 8 of the 16 heads, 4 of the 8 kv
+    heads and half of d_ff, runs the bf16 causal flash kernel at (B, 8, 4,
+    S, 128) and the gather over its 4-kv-head store, and all-reduces two
+    seams a layer; then the same with int8-compressed seams
+    (``serve_tp_compressed``).  Every rank must serve every request its
+    budget, launch both kernels, and emit the same tokens as the other.
+    Its times say nothing of tensor parallelism across cards: two
+    processes share one card and every seam crosses the host.  Returns
+    ``serve_tp``'s line."""
+    ranks = spawn.run(_serve_tp_rank, TP_SERVE, device="cuda",
+                      timeout_s=TP_TIMEOUT_S, deadline_s=TP_DEADLINE_S)
+    lines = []
+    for i, phase in enumerate(("serve_tp", "serve_tp_compressed")):
+        outs = [r[i] for r in ranks]
+        if len({o["tokens_sha1"] for o in outs}) != 1:
+            raise AssertionError(f"{phase}: the ranks emitted different "
+                                 f"tokens")
+        for o in outs:
+            if o["launches"]["flash_attention_causal"] < 1 \
+                    or o["launches"]["paged_gather"] < 1:
+                raise AssertionError(f"{phase}: rank {o['rank']} launches "
+                                     f"{o['launches']}")
+        lead = outs[0]
+        out = {**{k: v for k, v in lead.items() if k not in (
+                   "rank", "peak_mem_gb", "launches", "device")},
+               "mesh": [TP_SERVE], "compressed_collectives": i == 1,
+               "compress_block": SERVE_PAGED.compress_block,
+               "rank_launches": [o["launches"] for o in outs],
+               "rank_peak_mem_gb": [o["peak_mem_gb"] for o in outs],
+               "rank_devices": [o["device"] for o in outs],
+               "launches": lead["launches"],
+               "note": "2 ranks share 1 card over gloo: not multi-GPU TP"}
+        emit(phase, **out)
+        lines.append(out)
+    return lines[0]
 
 
 def phase_serve_moe(params, cfg, full_layers: int) -> dict:
@@ -1441,16 +1589,26 @@ def _vlm_embeds(prompts, d: int, seed: int) -> list[dict]:
             for p in prompts]
 
 
-def phase_serve_vlm(params, cfg) -> dict:
-    """The VLM path: llava-next-34b at full width and depth, bf16, on the
-    paged engine, every prompt precomputed embeddings (seed 0): no prefix
-    hit, though the 17th request shares the first's token ids."""
+#: the depth the serve and profile phases of the three deepest secondary
+#: paths run at (the encoder-decoder's: encoder and decoder layers each),
+#: cut to keep the script inside its time limit; zamba2's keeps the
+#: pattern of 6-block groups and 3 trailing blocks
+SERVE_DEPTH = {"zamba2-7b": 27, "llava-next-34b": 20,
+               "seamless-m4t-large-v2": 8}
+
+
+def phase_serve_vlm(params, cfg, full) -> dict:
+    """The VLM path: llava-next-34b at full width, cut to ``cfg.n_layers``
+    of ``full``'s 60 layers, bf16, on the paged engine, every prompt
+    precomputed embeddings (seed 0): no prefix hit, though the 17th
+    request shares the first's token ids."""
     prompts, budgets = _serve_requests(cfg.vocab)
     out = _serve_paged("serve_vlm", params, cfg, prompts, budgets,
                        _vlm_embeds(prompts, cfg.d_model, 0))
     if out["prefix_hits"] != 0:
         raise AssertionError(f"serve_vlm: {out['prefix_hits']} prefix hits "
                              f"for embedding prompts")
+    out["reduced"] = {"n_layers": f"{cfg.n_layers} of {full.n_layers}"}
     emit("serve_vlm", **out)
     return out
 
@@ -1480,9 +1638,10 @@ def _encdec_requests(cfg):
 SERVE_ENCDEC = ServeConfig(max_len=128, capacity=8)
 
 
-def phase_serve_encdec(params, cfg) -> dict:
-    """The encoder-decoder path: seamless-m4t-large-v2 at full width and
-    depth (24 + 24 layers), bf16, on the contiguous engine: per prefill
+def phase_serve_encdec(params, cfg, full) -> dict:
+    """The encoder-decoder path: seamless-m4t-large-v2 at full width, cut
+    to ``cfg``'s encoder and decoder layers of ``full``'s 24 + 24, bf16,
+    on the contiguous engine: per prefill
     dispatch flash runs bidirectionally in each encoder layer (MHA, 4,096
     frames, D 64) and causally in each decoder layer over the prompt;
     decode's cross-attention reads each slot's 4,096 cross keys through
@@ -1505,7 +1664,11 @@ def phase_serve_encdec(params, cfg) -> dict:
     cross_bytes = 2 * cfg.dec_layers * SERVE_ENCDEC.capacity * cfg.enc_len \
         * cfg.n_kv_heads * cfg.hd * 2
     out.update(enc_layers=cfg.enc_layers, dec_layers=cfg.dec_layers,
-               enc_len=cfg.enc_len, cross_cache_gb=cross_bytes / 1e9)
+               enc_len=cfg.enc_len, cross_cache_gb=cross_bytes / 1e9,
+               reduced={"enc_layers": f"{cfg.enc_layers} of "
+                                      f"{full.enc_layers}",
+                        "dec_layers": f"{cfg.dec_layers} of "
+                                      f"{full.dec_layers}"})
     emit("serve_encdec", **out)
     return out
 
@@ -1567,6 +1730,7 @@ def phase_profile(params, cfg, scfg: ServeConfig,
     encoder-decoder's requests each with its own context), from
     torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, 100).astype(np.int32)
                for _ in range(8)]
@@ -1585,19 +1749,26 @@ def phase_profile(params, cfg, scfg: ServeConfig,
     for p, e in zip(prompts, extras):
         eng.submit(p, 16, extra=e)
     torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run(max_steps=1000)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
+    stop_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
     rows, host_ops = trace_totals(prof)
+    totals_s = time.perf_counter() - t1
     busy_s = sum(r[0] for r in rows) / 1e6
     s = eng.stats
     out = {"arch": cfg.name, "n_layers": cfg.n_layers,
            "window": "8 x 100-token prompts, 16 new tokens, "
                      + ("paged" if scfg.paged else "contiguous"),
-           "wall_s": wall, "device_busy_s": busy_s if rows else None,
+           "wall_s": wall, "setup_s": setup_s, "profiler_stop_s": stop_s,
+           "trace_totals_s": totals_s,
+           "device_busy_s": busy_s if rows else None,
            "device_idle_share": 1 - busy_s / wall if rows else None,
            "decode_steps": s["decode_steps"],
            "kernel_launches": sum(r[1] for r in rows),
@@ -2037,11 +2208,11 @@ def phase_serve_ssm(params, cfg) -> dict:
     return out
 
 
-def phase_serve_hybrid(params, cfg) -> dict:
-    """The hybrid path: zamba2-7b at full width and depth, bf16, on the
-    contiguous engine: per prefill the SSD kernel in each of the 81 mamba
-    blocks and flash (D 112, MHA) in the shared block of each group that
-    runs it."""
+def phase_serve_hybrid(params, cfg, full) -> dict:
+    """The hybrid path: zamba2-7b at full width, cut to ``cfg.n_layers`` of
+    ``full``'s 81 mamba blocks, bf16, on the contiguous engine: per prefill
+    the SSD kernel in each mamba block and flash (D 112, MHA) in the shared
+    block of each group that runs it."""
     n_on = sum(M.hybrid_flags(cfg))
     prompts, budgets = _ssm_requests(cfg.vocab)
     out = _serve_contiguous(
@@ -2060,6 +2231,7 @@ def phase_serve_hybrid(params, cfg) -> dict:
                 (cfg.n_heads, cfg.n_kv_heads, cfg.hd, "bfloat16")}:
         raise AssertionError(f"serve_hybrid: served signatures {out}")
     out["attention_groups"] = n_on
+    out["reduced"] = {"n_layers": f"{cfg.n_layers} of {full.n_layers}"}
     emit("serve_hybrid", **out)
     return out
 
@@ -2392,6 +2564,69 @@ def phase_differential_padded(sip_cache: str, workdir: Path) -> dict:
     return out
 
 
+def _differential_tp_rank(rank: int, width: int, prompts, budgets) -> dict:
+    """One rank of ``differential_tp``: qwen3 at full width cut to 4 layers,
+    float32, seed 1, over a mesh of ``width`` ranks, on the paged
+    (``DIFF_PAGED``) and the contiguous engine."""
+    mesh = _tp_rank_setup(width)
+    cfg = dataclasses.replace(configs.get("qwen3-1.7b"), n_layers=4,
+                              dtype="float32")
+    params = M.init_lm(cfg, seed=1, device=mesh.device)
+    out = {}
+    for name, scfg in (("paged", DIFF_PAGED), ("contiguous", ServeConfig(
+            max_len=DIFF_PAGED.max_len, capacity=DIFF_PAGED.capacity))):
+        reset_launches()
+        eng = ContinuousEngine(params, cfg, scfg, mesh=mesh)
+        uids = [eng.submit(p, b).uid for p, b in zip(prompts, budgets)]
+        got = eng.run(max_steps=1000)
+        out[name] = {"tokens": [got[u].tolist() for u in uids],
+                     "launches": row_launches(),
+                     "kv_heads": int(eng.caches["k"].shape[-2])}
+    return out
+
+
+def phase_differential_tp() -> dict:
+    """qwen3 at full width cut to 4 layers, float32, seed 1, served
+    tensor-parallel over 2 and 4 ranks on this card (gloo), paged and
+    contiguous: every rank's tokens equal single-request Engine.generate
+    on one device, and every rank launched flash at its share of the
+    heads (and the gather, paged)."""
+    full = configs.get("qwen3-1.7b")
+    cfg = dataclasses.replace(full, n_layers=4, dtype="float32")
+    params = M.init_lm(cfg, seed=1, device="cuda")
+    prompts, budgets = _diff_paged_prompts(cfg.vocab, 15)
+    ref = Engine(params, cfg, ServeConfig(max_len=DIFF_PAGED.max_len))
+    want = [ref.generate(p[None], b)[0].tolist()
+            for p, b in zip(prompts, budgets)]
+    del params, ref
+    torch.cuda.empty_cache()
+    out = {"n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "requests": len(prompts), "backend": "gloo", "mesh": {}}
+    for width in TP_DIFF:
+        outs = spawn.run(_differential_tp_rank, width,
+                         args=(width, prompts, budgets), device="cuda",
+                         timeout_s=TP_TIMEOUT_S, deadline_s=TP_DEADLINE_S)
+        for rank, o in enumerate(outs):
+            for name, run in o.items():
+                if run["tokens"] != want:
+                    raise AssertionError(
+                        f"differential_tp mesh {width} rank {rank} {name}: "
+                        f"{run['tokens']}, Engine gave {want}")
+                if run["launches"]["flash_attention_causal_f32"] < 1 or (
+                        name == "paged"
+                        and run["launches"]["paged_gather"] < 1) \
+                        or run["kv_heads"] != cfg.n_kv_heads // width:
+                    raise AssertionError(f"differential_tp mesh {width} "
+                                         f"rank {rank} {name}: {run}")
+        out["mesh"][width] = {name: {"launches": run["launches"],
+                                     "kv_heads": run["kv_heads"]}
+                              for name, run in outs[0].items()}
+    out.update(token_identical=True,
+               reduced={"n_layers": f"{cfg.n_layers} of {full.n_layers}"})
+    emit("differential_tp", **out)
+    return out
+
+
 # ================================================================ training
 #: the train phase: the reference launcher's defaults (B8, S128)
 TRAIN_DATA = dict(global_batch=8, seq_len=128)
@@ -2613,15 +2848,18 @@ def _ckpt_seconds(events) -> dict:
 def phase_train_resume(workdir: Path) -> dict:
     """qwen3-1.7b at full width cut to 2 of 28 layers (723 M params, an
     8.7 GB checkpoint of float32 params and moments), bf16 compute, B8
-    S128, 6 steps under ``torch.use_deterministic_algorithms``: run A
-    straight through; run B under the Supervisor with the plan ``crash@5``
-    and an async save every 2 steps, which must restore step 4 and finish.
+    S128, 4 steps under ``torch.use_deterministic_algorithms``: run A
+    straight through; run B under the Supervisor with the plan ``crash@3``
+    and an async save every 2 steps, which must restore step 2 and finish.
     B's final loss, params and moments must equal A's bitwise.  The
-    checkpoint directories lie under ``workdir`` and are removed."""
+    checkpoint directories lie under ``workdir`` and are removed.  Each
+    save writes the whole 8.7 GB (3 saves and a restore in all), so the
+    run is as short as a restore from a save before the crash allows."""
     full = configs.get("qwen3-1.7b")
     cfg = dataclasses.replace(full, n_layers=2)
     dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
-    ocfg = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=6)
+    steps, every, plan = 4, 2, "crash@3"
+    ocfg = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=steps)
     root = workdir / "train_resume"
     shutil.rmtree(root, ignore_errors=True)
     det, fill = (torch.are_deterministic_algorithms_enabled(),
@@ -2631,12 +2869,15 @@ def phase_train_resume(workdir: Path) -> dict:
     # snapshot buffers with NaN would add to the async save's blocked time
     torch.utils.deterministic.fill_uninitialized_memory = False
     try:
-        a, a_events = _train_resume_run(cfg, dcfg, ocfg, root / "a", 6, 100,
-                                        None)
+        t0 = time.perf_counter()
+        a, a_events = _train_resume_run(cfg, dcfg, ocfg, root / "a", steps,
+                                        100, None)
         shutil.rmtree(root / "a")
-        crash = ChaosEngine(FaultPlan.parse("crash@5"))
-        b, b_events = _train_resume_run(cfg, dcfg, ocfg, root / "b", 6, 2,
-                                        crash)
+        t1 = time.perf_counter()
+        crash = ChaosEngine(FaultPlan.parse(plan))
+        b, b_events = _train_resume_run(cfg, dcfg, ocfg, root / "b", steps,
+                                        every, crash)
+        run_s = [t1 - t0, time.perf_counter() - t1]
     finally:
         torch.use_deterministic_algorithms(det)
         torch.utils.deterministic.fill_uninitialized_memory = fill
@@ -2660,14 +2901,14 @@ def phase_train_resume(workdir: Path) -> dict:
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
            "checkpoint_gb": sum(t.numel() * t.element_size() for t in
                                 adamw.leaves(state_b)) / 1e9,
-           "dtype": cfg.dtype, "steps": 6, "plan": "crash@5",
-           "ckpt_every": 2, "deterministic_algorithms": True,
+           "dtype": cfg.dtype, "steps": steps, "plan": plan,
+           "ckpt_every": every, "deterministic_algorithms": True,
            "attempts": sup["attempts"], "events": kinds,
-           "restored_step": 6 - len(b["history"]),
+           "restored_step": steps - len(b["history"]),
            "final_loss": b["final_loss"], "bitwise_equal": True,
            "losses_a": [m["loss"] for m in a["history"]],
            "checkpoints_a": _ckpt_seconds(a_events),
-           "checkpoints_b": _ckpt_seconds(b_events),
+           "checkpoints_b": _ckpt_seconds(b_events), "run_s": run_s,
            "reduced": {"n_layers": f"{cfg.n_layers} of {full.n_layers}"}}
     emit("train_resume", **out)
     return out
@@ -2676,13 +2917,15 @@ def phase_train_resume(workdir: Path) -> dict:
 def kernels_line(gemm: dict, flash: dict, gather: dict, ssd: dict,
                  rms: dict, sip: dict, serve: dict, serve_ssm: dict,
                  serve_hybrid: dict, serve_swa: dict, serve_moe: dict,
-                 serve_vlm: dict, serve_encdec: dict, train: dict) -> dict:
+                 serve_vlm: dict, serve_encdec: dict, train: dict,
+                 serve_tp: dict) -> dict:
     """One row per kernel, its launches from its own main path: the bf16
     causal flash kernel's from ``serve``, the float32 one's from ``sip``,
     the bidirectional one's from ``serve_encdec``; beside them each row's
     launches on the hybrid, sliding-window, MoE, VLM and encoder-decoder
-    serve paths, and on the training path (``train``: none, as the
-    reference trains on its plain versions)."""
+    serve paths, on the training path (``train``: none, as the reference
+    trains on its plain versions), and on one rank of the tensor-parallel
+    serve path (``serve_tp``, rank 0; the other rank's are equal)."""
     rows = []
     for mod, source, name, res, path in (
             (gf, gf.SOURCE, "gemm_fused_leaky_relu", gemm, sip),
@@ -2703,6 +2946,7 @@ def kernels_line(gemm: dict, flash: dict, gather: dict, ssd: dict,
                      "launches_vlm": serve_vlm["launches"][name],
                      "launches_encdec": serve_encdec["launches"][name],
                      "launches_train": train["launches"][name],
+                     "launches_tp": serve_tp["launches"][name],
                      "max_abs_err": res["max_abs_err"],
                      "ms": res["ms"], "plain_ms": res["plain_ms"],
                      "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
@@ -2739,6 +2983,8 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_differential(sip["cache"], workdir)
+    serve_tp = phase_serve_tp()
+    phase_differential_tp()
     cfg = configs.get("mamba2-2.7b")
     params = M.init_lm(cfg, seed=0, device="cuda")
     serve_ssm = phase_serve_ssm(params, cfg)
@@ -2747,9 +2993,10 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_differential_ssm(sip["cache"], workdir)
-    cfg = configs.get("zamba2-7b")
+    full = configs.get("zamba2-7b")
+    cfg = dataclasses.replace(full, n_layers=SERVE_DEPTH[full.name])
     params = M.init_lm(cfg, seed=0, device="cuda")
-    serve_hybrid = phase_serve_hybrid(params, cfg)
+    serve_hybrid = phase_serve_hybrid(params, cfg, full)
     phase_profile(params, cfg, ServeConfig(max_len=512, capacity=8),
                   phase="profile_hybrid")
     del params
@@ -2771,16 +3018,20 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_differential_moe(sip["cache"], workdir)
-    cfg = configs.get("llava-next-34b")
+    full = configs.get("llava-next-34b")
+    cfg = dataclasses.replace(full, n_layers=SERVE_DEPTH[full.name])
     params = M.init_lm(cfg, seed=0, device="cuda")
-    serve_vlm = phase_serve_vlm(params, cfg)
+    serve_vlm = phase_serve_vlm(params, cfg, full)
     phase_profile(params, cfg, SERVE_PAGED, phase="profile_vlm")
     del params
     torch.cuda.empty_cache()
     phase_differential_vlm(sip["cache"], workdir)
-    cfg = configs.get("seamless-m4t-large-v2")
+    full = configs.get("seamless-m4t-large-v2")
+    half = SERVE_DEPTH[full.name]
+    cfg = dataclasses.replace(full, enc_layers=half, dec_layers=half,
+                              n_layers=2 * half)
     params = M.init_lm(cfg, seed=0, device="cuda")
-    serve_encdec = phase_serve_encdec(params, cfg)
+    serve_encdec = phase_serve_encdec(params, cfg, full)
     phase_profile(params, cfg, SERVE_ENCDEC, phase="profile_encdec")
     del params
     torch.cuda.empty_cache()
@@ -2791,7 +3042,8 @@ def main() -> int:
     phase_train_resume(workdir)
     print(json.dumps(kernels_line(gemm, flash, gather, ssd, rms, sip, serve,
                                   serve_ssm, serve_hybrid, serve_swa,
-                                  serve_moe, serve_vlm, serve_encdec, train)),
+                                  serve_moe, serve_vlm, serve_encdec, train,
+                                  serve_tp)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}))

@@ -16,6 +16,7 @@ the plain path.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import hashlib
@@ -151,8 +152,9 @@ def check_regs(name: str, threads: int, live: int) -> None:
 
 def compile_many(texts: Sequence[tuple[str, str]]) -> list[Path]:
     """Compile ``(name, source)`` texts whose cubin is missing, one nvcc
-    each, started together (two per CPU core at a time).  Returns the cubin paths in order; raises on
-    any failed build, with the compiler's output."""
+    each, two per CPU core in flight (the next starts as soon as one
+    ends).  Returns the cubin paths in order; raises on any failed build,
+    with the compiler's output."""
     paths = [cubin_path(name, src) for name, src in texts]
     todo, seen = [], set()
     for (name, src), path in zip(texts, paths):
@@ -168,27 +170,28 @@ def compile_many(texts: Sequence[tuple[str, str]]) -> list[Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     failed = []
-    width = 2 * (os.cpu_count() or 1)
-    for start in range(0, len(todo), width):
-        procs = []
-        for src, path in todo[start:start + width]:
-            cu = path.with_suffix(".cu")
-            cu.write_text(src)
-            # build to a private name, then rename: a concurrent builder
-            # never loads a half-written cubin
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            procs.append((path, tmp, subprocess.Popen(
-                nvcc_command(nvcc, cu, tmp), stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True)))
-        for path, tmp, proc in procs:
-            log, _ = proc.communicate()
-            path.with_suffix(".log").write_text(log)
-            if proc.returncode == 0:
-                os.replace(tmp, path)
-            else:
-                tmp.unlink(missing_ok=True)
-                failed.append(f"nvcc failed on {path.with_suffix('.cu')} "
-                              f"(exit {proc.returncode}):\n{log}")
+
+    def build(src: str, path: Path) -> None:
+        cu = path.with_suffix(".cu")
+        cu.write_text(src)
+        # build to a private name, then rename: a concurrent builder never
+        # loads a half-written cubin
+        tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        proc = subprocess.run(nvcc_command(nvcc, cu, tmp),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        path.with_suffix(".log").write_text(proc.stdout)
+        if proc.returncode == 0:
+            os.replace(tmp, path)
+        else:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed on {path.with_suffix('.cu')} "
+                          f"(exit {proc.returncode}):\n{proc.stdout}")
+
+    width = min(2 * (os.cpu_count() or 1), len(todo))
+    with concurrent.futures.ThreadPoolExecutor(width) as pool:
+        for fut in [pool.submit(build, src, path) for src, path in todo]:
+            fut.result()
     thread = threading.current_thread().name
     with _lock:
         STATS.compiles += len(todo)

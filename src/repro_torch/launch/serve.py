@@ -66,6 +66,23 @@ correctness sweep and energy margin, and commits winners into the live
 store — the engine hot-swaps them before its next dispatch, no restart.
 Decisions journal to ``--autotune-log`` (summarize with
 ``repro_torch.launch.obsreport --kind autotune``).
+
+``--mesh N`` serves tensor-parallel over a 1-D ``("model",)`` mesh of N
+ranks, one process each on this host (``repro_torch.dist.spawn``), rank r
+on ``cuda:(r % device_count)`` (NCCL when every rank has a card of its
+own, else gloo: two ranks sharing one card), or on the CPU with ``--device
+cpu`` (gloo).  Each rank holds its share of the heads, kv heads and MLP
+hidden dim and all-reduces the two seams of every layer
+(``--compressed-collectives``: int8 payloads, not token-exact).  Rank 0
+decides when each request is due and every rank submits the same requests
+and steps the same number of times; after the run the ranks' tokens are
+compared, and rank 0 prints the JSON line with ``"mesh"``, ``"tp_path"``
+and ``"backend"`` added.  ``--tp-mode gspmd``, or a config the manual path
+cannot shard (``dist.tp.tp_eligible``), fails, as does ``--autotune`` with
+``--mesh``: neither is ported (ROADMAP.md, Queue 1 item 2).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+        --paged --prefill-chunk 128 --requests 17 --mesh 2
 """
 
 from __future__ import annotations
@@ -77,12 +94,20 @@ import json
 import time
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch import configs, obs
 from repro_torch.core.registry import schedule_cache
+from repro_torch.dist import spawn
+from repro_torch.launch.mesh import Mesh, mesh_for
 from repro_torch.models import model as M
 from repro_torch.serve.engine import (ContinuousEngine, Engine, ServeConfig,
                                       static_batches)
+
+#: seconds a ``--mesh`` rank waits in one collective before the job fails:
+#: longer than any gap between two seams (a prefill's first kernel build
+#: included)
+MESH_TIMEOUT_S = 300.0
 
 
 @dataclasses.dataclass
@@ -116,25 +141,49 @@ def _pct(xs: list[float]) -> dict[str, float]:
             for p, q in (("p50_ms", 50), ("p95_ms", 95), ("p99_ms", 99))}
 
 
+def _due(traffic: list[TrafficSpec], order: list[int], i: int, t0: float,
+         idle: bool) -> int:
+    """How far into ``order`` the requests are due now; with nothing in
+    flight, sleeps until the next arrival first."""
+    now = time.perf_counter() - t0
+    if idle and i < len(order) and traffic[order[i]].arrival > now:
+        time.sleep(traffic[order[i]].arrival - now)
+        now = traffic[order[i]].arrival
+    while i < len(order) and traffic[order[i]].arrival <= now:
+        i += 1
+    return i
+
+
 def drive_continuous(eng: ContinuousEngine, traffic: list[TrafficSpec],
-                     prompts: list[np.ndarray], extras=None) -> dict:
+                     prompts: list[np.ndarray], extras=None,
+                     mesh: Mesh | None = None) -> dict:
+    """Submit the traffic at its arrival times and step the engine until
+    it drains.  On a mesh the ranks must take the same steps: the first
+    rank of the ``"model"`` axis decides on its clock which requests are
+    due and broadcasts how many, and after the run the ranks' tokens are
+    compared (a difference raises)."""
     order = sorted(range(len(traffic)), key=lambda i: traffic[i].arrival)
     handles = []
     t0 = time.perf_counter()
     i = 0
     while i < len(order) or not eng.pool.idle:
-        now = time.perf_counter() - t0
-        while i < len(order) and traffic[order[i]].arrival <= now:
-            j = order[i]
+        due = _due(traffic, order, i, t0, eng.pool.idle)
+        if mesh is not None:
+            due = mesh.broadcast_int(due, "model")
+        for j in order[i:due]:
             handles.append(eng.submit(prompts[j], traffic[j].new_tokens,
                                       extra=extras[j] if extras else None))
-            i += 1
-        if eng.pool.idle:
-            # nothing in flight: sleep until the next arrival is due
-            time.sleep(max(traffic[order[i]].arrival - now, 0.0))
-            continue
-        eng.step()
+        i = due
+        if not eng.pool.idle:
+            eng.step()
     wall = time.perf_counter() - t0
+    if mesh is not None:
+        outputs = [r.tokens for r in handles]
+        every = [None] * mesh.shape["model"]
+        dist.all_gather_object(every, outputs, group=mesh.group("model"))
+        if any(o != outputs for o in every):
+            raise RuntimeError("tensor-parallel ranks emitted different "
+                               "tokens")
     lat = [r.finished_at - r.submitted_at for r in handles]
     ttft = [r.admitted_at - r.submitted_at for r in handles]
     toks = sum(len(r.tokens) for r in handles)
@@ -243,15 +292,56 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--autotune-log", default=None,
                     help="autotune decision journal JSONL (default: "
                          "<sip-cache>.autotune.jsonl)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="serve tensor-parallel over N ranks, one process "
+                         "each (1-D 'model' mesh; shards heads/kv-heads/"
+                         "mlp); rank r on cuda:(r % device_count), or the "
+                         "CPU with --device cpu")
+    ap.add_argument("--tp-mode", choices=("auto", "shard_map", "gspmd"),
+                    default="auto",
+                    help="tensor-parallel path with --mesh: the manual "
+                         "seams (shard_map; auto = shard_map when the "
+                         "config is TP-eligible); gspmd is not ported")
+    ap.add_argument("--compressed-collectives", action="store_true",
+                    help="int8-compress the two per-layer seam all-reduces "
+                         "(with --mesh).  Approximate: trades exact token "
+                         "parity for collective bytes")
     args = ap.parse_args(argv)
     if args.autotune and not args.sip_cache:
         ap.error("--autotune requires --sip-cache (a live store to promote "
                  "into)")
     if args.autotune and args.static:
         ap.error("--autotune requires the continuous engine (drop --static)")
+    if args.static and args.mesh:
+        ap.error("--mesh requires the continuous engine (drop --static)")
+    if args.compressed_collectives and not args.mesh:
+        ap.error("--compressed-collectives requires --mesh")
+    if args.autotune and args.mesh:
+        ap.error("--autotune with --mesh is not ported yet (ROADMAP.md, "
+                 "Queue 1 item 2)")
+    if args.mesh:
+        M.resolve_device(args.device)
+        spawn.run(_serve_rank, args.mesh, args=(args,), device=args.device,
+                  timeout_s=MESH_TIMEOUT_S, deadline_s=float("inf"))
+    else:
+        serve(args)
 
+
+def _serve_rank(rank: int, args) -> dict:
+    """One rank of ``--mesh``: the mesh over the job's ranks, then
+    :func:`serve` on it."""
+    return serve(args, mesh_for((args.mesh,), ("model",)))
+
+
+def serve(args, mesh: Mesh | None = None) -> dict:
+    """Serve the traffic ``args`` describe (on one rank of ``mesh`` when it
+    is given) and print the report; with a mesh only its first rank prints
+    and writes the trace, metrics and workload files.  Returns the
+    report."""
+    lead = mesh is None or mesh.rank == 0
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
-    params = M.init_lm(cfg, seed=args.seed, device=args.device)
+    params = M.init_lm(cfg, seed=args.seed, device=mesh.device if mesh
+                       else args.device)
     rng = np.random.default_rng(args.seed)
     traffic = make_traffic(args, rng)
     # global maxima, not max(plen_i + new_i): a static batch left-pads to its
@@ -264,7 +354,8 @@ def main(argv: list[str] | None = None) -> None:
                        num_pages=args.num_pages or None,
                        prefill_chunk=args.prefill_chunk or None,
                        prefix_cache=not args.no_prefix_cache,
-                       admission=args.admission)
+                       admission=args.admission, tp_mode=args.tp_mode,
+                       compressed_collectives=args.compressed_collectives)
     prompts = [rng.integers(0, cfg.vocab, t.prompt_len).astype(np.int32)
                for t in traffic]
     extras = None
@@ -278,11 +369,11 @@ def main(argv: list[str] | None = None) -> None:
             (t.prompt_len, cfg.d_model)).astype(np.float32)}
             for t in traffic]
 
-    tracer = obs.Tracer() if args.trace else None
+    tracer = obs.Tracer() if args.trace and lead else None
     # streaming mode: records hit the JSONL as they happen, so an external
     # autotune daemon can tail the file while this process serves
     recorder = (obs.WorkloadRecorder(args.record_workloads)
-                if args.record_workloads
+                if args.record_workloads and lead
                 else obs.WorkloadRecorder() if args.autotune else None)
     reg = obs.MetricsRegistry()
     service = None
@@ -317,22 +408,29 @@ def main(argv: list[str] | None = None) -> None:
         else:
             eng = ContinuousEngine(params, cfg, scfg,
                                    example_extra=extras[0] if extras
-                                   else None, obs=reg, recorder=recorder)
+                                   else None, obs=reg, recorder=recorder,
+                                   mesh=mesh)
+            del params          # a mesh rank keeps only its slice
             if service is not None:
                 service.start()
             try:
-                report = drive_continuous(eng, traffic, prompts, extras)
+                report = drive_continuous(eng, traffic, prompts, extras,
+                                          mesh=mesh)
             finally:
                 if service is not None:
                     service.stop()
                     service.log.close()
-            print(f"[serve:continuous] {json.dumps(report)}")
+            if mesh is not None:
+                report.update(mesh=list(mesh.shape.values()),
+                              tp_path=eng.tp_path, backend=mesh.backend)
+            if lead:
+                print(f"[serve:continuous] {json.dumps(report)}")
             if service is not None:
                 print(f"[serve] autotune: {json.dumps(service.metrics())}")
     if tracer is not None:
         tracer.save(args.trace)
         print(f"[serve] trace written to {args.trace}")
-    if args.metrics_json:
+    if args.metrics_json and lead:
         reg.save_json(args.metrics_json)
         print(f"[serve] metrics snapshot written to {args.metrics_json}")
     if recorder is not None:
@@ -340,6 +438,7 @@ def main(argv: list[str] | None = None) -> None:
         if args.record_workloads:
             print(f"[serve] workload mix ({len(recorder)} records) written "
                   f"to {args.record_workloads}")
+    return report
 
 
 if __name__ == "__main__":

@@ -19,6 +19,10 @@ backward (they raise on a call that autograd would record).
 An encoder-decoder's decoder adds :func:`cross_attention` over the K/V that
 :func:`encode_kv` projects once from the encoder output.
 
+Under tensor-parallel serving (``repro_torch.dist.tp``) ``cfg`` is a
+rank's local config: its share of the heads and kv heads, whose params and
+caches it holds, and every count here is that share.
+
 Layouts are ``repro``'s: activations (B, S, H, D), weights ``wq`` (d, H, D)
 and ``wo`` (H, D, d), where H is :func:`phys_heads`.  A padded config's
 extra heads have zero ``wo`` rows, which the reference also masks at use,
@@ -34,6 +38,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.dist.tp import tp_allreduce
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.paged_attention import kernel as pg_kernel
@@ -82,10 +87,14 @@ def _proj(x: torch.Tensor, w: torch.Tensor,
 
 
 def _out(p, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """einsum('bshk,hkd->bsd') over the real heads' ``wo`` rows."""
+    """einsum('bshk,hkd->bsd') over the real heads' ``wo`` rows.  Under
+    tensor-parallel serving the heads are this rank's share, so the product
+    is a partial sum, reduced over the ranks here (the manual-TP seam;
+    the identity off a mesh)."""
     b, s, h, hd = o.shape
     wo = p["wo"][:cfg.n_heads].to(o.dtype)
-    return o.reshape(b, s, h * hd) @ wo.reshape(h * hd, wo.shape[-1])
+    return tp_allreduce(o.reshape(b, s, h * hd)
+                        @ wo.reshape(h * hd, wo.shape[-1]))
 
 
 def _qkv(p, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor):

@@ -1,10 +1,15 @@
-"""Dense MLP variants: SwiGLU / GeGLU / GELU."""
+"""Dense MLP variants: SwiGLU / GeGLU / GELU.
+
+Under tensor-parallel serving the hidden dim is this rank's share
+(``cfg.d_ff`` of its local config), so the down projection is a partial
+sum, reduced over the ranks (``tp_allreduce``, the identity off a mesh)."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.tp import tp_allreduce
 from repro_torch.models import modules as nn
 from repro_torch.models.config import ModelConfig
 
@@ -20,4 +25,4 @@ def mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = F.gelu(nn.dense(p["w_up"], x, dt), approximate="tanh")
     else:
         raise ValueError(cfg.mlp_type)
-    return nn.dense(p["w_down"], h, dt)
+    return tp_allreduce(nn.dense(p["w_down"], h, dt))

@@ -155,6 +155,82 @@ def map_params(fn, shapes: dict[str, Any], path: tuple[str, ...] = ()):
             else fn(path + (k,), v) for k, v in shapes.items()}
 
 
+#: each leaf's logical axes behind its layer axes, as the reference's
+#: ``nn.param`` calls name them (``repro.models``: attention, mlp, ssm)
+_LEAF_AXES = {
+    "embed": ("vocab", "embed"), "dec_embed": ("vocab", "embed"),
+    "lm_head": ("embed", "vocab"), "q_norm": ("head_dim",),
+    "k_norm": ("head_dim",),
+    "wq": ("embed", "heads", "head_dim"), "wk": ("embed", "kv_heads",
+                                                 "head_dim"),
+    "wv": ("embed", "kv_heads", "head_dim"), "wo": ("heads", "head_dim",
+                                                    "embed"),
+    "w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+    "w_down": ("mlp", "embed"),
+    "in_proj": ("embed", "ssm_inner"), "conv_w": (None, "conv_ch"),
+    "conv_b": ("conv_ch",), "A_log": ("ssm_heads",), "D": ("ssm_heads",),
+    "dt_bias": ("ssm_heads",), "norm": ("ssm_inner",),
+    "out_proj": ("ssm_inner", "embed"),
+    **dict.fromkeys(("ln1", "ln2", "ln", "ln_f", "ln_x", "enc_ln", "dec_ln"),
+                    ("embed",)),
+}
+#: an MoE layer's ``ffn`` leaves (the reference's ``init_moe``)
+_MOE_AXES = {"router": ("embed", "experts"),
+             "w_gate": ("experts", "embed", "mlp"),
+             "w_up": ("experts", "embed", "mlp"),
+             "w_down": ("experts", "mlp", "embed")}
+
+
+def param_logical_axes(cfg: ModelConfig) -> dict[str, Any]:
+    """The logical axes of every param leaf, the tree of
+    :func:`param_shapes` with a tuple of axis names at each leaf: the
+    reference's ``param_logical_axes``, leaf for leaf.  Stacked layer axes
+    are ``"layers"`` (a hybrid's groups have two)."""
+    def axes(path, shape):
+        moe_leaf = cfg.family == "moe" and "ffn" in path
+        base = (_MOE_AXES if moe_leaf else _LEAF_AXES)[path[-1]]
+        return ("layers",) * (len(shape) - len(base)) + base
+
+    return map_params(axes, param_shapes(cfg))
+
+
+def cache_logical_axes(cfg: ModelConfig) -> dict[str, Any]:
+    """The logical axes of every leaf of the caches :func:`prefill` returns
+    (the module docstring's layouts), the reference's
+    ``cache_logical_axes`` leaf for leaf (an encoder-decoder's ``cross``
+    is a ``{'k', 'v'}`` dict here, a ``(k, v)`` tuple there).  Under
+    tensor-parallel serving only ``kv_heads`` shards."""
+    x = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    kv = {"k": x, "v": x, "len": ("layers",)}
+    ssm_ = {"conv": (None, "batch", None, "conv_ch"),
+            "ssd": (None, "batch", "ssm_heads", "ssm_state", None)}
+    if cfg.family in ATTENTION_FAMILIES:
+        return kv
+    if cfg.family == "ssm":
+        return ssm_
+    if cfg.family == "hybrid":
+        out = {"mamba": {k: (None,) + v for k, v in ssm_.items()},
+               "attn": kv}
+        if cfg.n_layers % cfg.hybrid_group:
+            out["trailing"] = ssm_
+        return out
+    if cfg.family == "enc_dec":
+        return {"self": kv, "cross": {"k": x, "v": x}}
+    raise ValueError(cfg.family)
+
+
+def serve_cache_axes(cfg: ModelConfig) -> dict[str, Any]:
+    """:func:`cache_logical_axes` adapted to the serving caches
+    (:func:`alloc_slot_caches`, :func:`alloc_paged_caches`): each ``len``
+    gains its trailing slot axis, replicated; a paged store keeps the
+    5-axis tuple, its page axis where ``batch`` was."""
+    def adapt(tree):
+        return {k: adapt(v) if isinstance(v, dict)
+                else v + (None,) if k == "len" else v
+                for k, v in tree.items()}
+    return adapt(cache_logical_axes(cfg))
+
+
 def init_lm(cfg: ModelConfig, *, seed: int = 0,
             device: str | torch.device = "cuda",
             dtype: torch.dtype | None = None) -> Params:

@@ -21,10 +21,11 @@ Dispatch scope: global (``cfg.moe_groups == 0``), or within each of
 averaged over the groups.  Decode and chunked prefill are ``dropless``:
 capacity = the tokens of the dispatch, and the groups are not used.
 
-Under tensor-parallel serving the reference all-reduces the down
-projection's partial sums here (``tp_allreduce``, the identity off a
-mesh); the port has no mesh yet (ROADMAP.md, Queue 1 item 2), and that
-seam is marked in :func:`_dispatch_ffn`.
+Under tensor-parallel serving the experts, the router and the dispatch are
+replicated on every rank and each expert's FFN hidden dim is sharded, so
+the down projection's outputs are partial sums, all-reduced in
+:func:`_dispatch_ffn` (``tp_allreduce``, the identity off a mesh), as the
+reference does.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.tp import tp_allreduce
 from repro_torch.models.config import ModelConfig
 
 #: the aux losses every decoder block returns (zeros for a dense MLP)
@@ -103,9 +105,9 @@ def _dispatch_ffn(p, xt: torch.Tensor, gate_vals: torch.Tensor,
     # every dropped copy lands in the spare last row, which is cut off
     buf = xt.new_zeros((e * cap + 1, d))
     buf[dest] = xt[sorted_token]
-    out = _expert_ffn(p, buf[:-1].reshape(e, cap, d), cfg)
-    # manual-TP seam (the reference's tp_allreduce): the partial sums of
-    # the down projection would be all-reduced here under serving TP
+    # manual-TP seam: under serving TP each rank holds a share of every
+    # expert's hidden dim, so the down projection is a partial sum
+    out = tp_allreduce(_expert_ffn(p, buf[:-1].reshape(e, cap, d), cfg))
 
     gathered = out.reshape(e * cap, d)[dest.clamp_max(e * cap - 1)]
     gathered = torch.where(keep[:, None], gathered, 0.0)

@@ -58,12 +58,26 @@ promotion) is picked up before the next dispatch, restart-free
 (:meth:`ContinuousEngine._maybe_refresh_schedules`).  An optional
 :class:`~repro_torch.obs.recorder.WorkloadRecorder` logs the live
 (shape, dtype, occupancy) mix, record for record as the JAX engine does.
-Tensor-parallel serving is not ported yet (ROADMAP.md, Queue 1 item 2).
+
+Tensor-parallel serving: ``ContinuousEngine(..., mesh=)`` on every rank of
+a mesh with a ``"model"`` axis (``repro_torch.launch.mesh``) runs the
+reference's manual path (``tp_mode`` "shard_map", or "auto" on a config
+``dist.tp.tp_eligible`` admits).  Each rank keeps its slice of the params
+(``dist.tp.tp_shard``), runs the model with its local config (its share of
+the heads, kv heads and ``d_ff``), allocates its caches with its kv heads,
+and sums the two partial products of each layer over the ranks
+(``dist.tp.tp_allreduce``; int8-compressed with ``compressed_collectives``).
+The logits are then the same on every rank, and so is every sampled token,
+so every rank must submit the same requests and step the same number of
+times (``launch.serve`` decides admissions on one rank).  The reference's
+GSPMD path (``tp_mode`` "gspmd", or "auto" on an ineligible config) is not
+ported and raises ``NotImplementedError`` (ROADMAP.md, Queue 1 item 2).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable
@@ -72,6 +86,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.registry import active_schedule_cache
+from repro_torch.dist import tp
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig, check_supported
 from repro_torch.obs import metrics as obs_metrics
@@ -100,6 +115,15 @@ class ServeConfig:
     admission: str = "queue"        # "queue": wait for pages/slots;
                                     # "reject": submit raises PagesExhausted
                                     # unless the request can start NOW
+    # ---- tensor-parallel serving (ContinuousEngine(mesh=...)) ------------
+    tp_mode: str = "auto"           # "auto": the manual path when the config
+                                    # is eligible (dist.tp.tp_eligible);
+                                    # "shard_map" forces it (raises if
+                                    # ineligible); "gspmd" is not ported
+    compressed_collectives: bool = False  # int8-compress the two per-layer
+                                    # seam all-reduces (bounded error, NOT
+                                    # token-exact)
+    compress_block: int = 64        # quantization block for compressed seams
 
 
 def _device_of(params) -> torch.device:
@@ -259,6 +283,30 @@ def _ratio(num: float, den: float) -> float:
     return num / den if den > 0 else 0.0
 
 
+def _resolve_tp_path(cfg: ModelConfig, scfg: ServeConfig,
+                     mesh) -> tuple[str, str]:
+    """The sharded path for ``mesh`` under ``scfg.tp_mode`` (the reference's
+    choice): ``("shard_map", reason)``, the manual path, or a raise where
+    the reference would take its GSPMD path, which is not ported."""
+    if "model" not in mesh.axis_names:
+        raise ValueError(f"serving mesh needs a 'model' axis, got "
+                         f"{mesh.axis_names}")
+    if scfg.tp_mode not in ("auto", "shard_map", "gspmd"):
+        raise ValueError(f"tp_mode must be 'auto'/'shard_map'/'gspmd', "
+                         f"got {scfg.tp_mode!r}")
+    ok, reason = tp.tp_eligible(cfg, mesh.shape["model"])
+    if scfg.tp_mode == "shard_map" and not ok:
+        raise ValueError(f"tp_mode='shard_map' but {reason}")
+    if scfg.tp_mode == "gspmd" or not ok:
+        raise NotImplementedError(
+            f"tp_mode={scfg.tp_mode!r} on {cfg.name} ({reason}) needs the "
+            f"compiler-placed (GSPMD) serving path, which repro_torch does "
+            f"not have yet (ROADMAP.md, Queue 1 item 2); the manual path "
+            f"serves {tp.TP_FAMILIES} configs whose heads, kv heads and "
+            f"d_ff divide the 'model' axis")
+    return "shard_map", reason
+
+
 class ContinuousEngine:
     """Continuous-batching engine (see module docstring).
 
@@ -277,7 +325,10 @@ class ContinuousEngine:
     (optional) logs every submit, prefill and decode dispatch.
     ``example_extra`` is one request's unbatched extra inputs: an
     encoder-decoder's ``enc_embeds`` (T, d) sizes its cross caches, and
-    every request's must have that shape.
+    every request's must have that shape.  ``mesh`` (a
+    ``repro_torch.launch.mesh.Mesh``) makes the engine one rank of a
+    tensor-parallel job (module docstring): ``params`` are the whole
+    model's, of which the engine keeps this rank's slice.
     """
 
     def __init__(self, params, cfg: ModelConfig,
@@ -288,15 +339,28 @@ class ContinuousEngine:
                  recorder: WorkloadRecorder | None = None,
                  mesh=None):
         check_supported(cfg)
+        self.scfg = scfg = ServeConfig() if scfg is None else scfg
+        # tensor-parallel serving: this rank keeps its slice of the params
+        # and runs the model with its local config (module docstring)
+        self.mesh = mesh
+        self.tp_path: str | None = None
+        self.tp_reason = ""
         if mesh is not None:
-            raise NotImplementedError(
-                "repro_torch has no tensor-parallel serving yet (ROADMAP.md, "
-                "Queue 1 item 2: distribution)")
+            self.tp_path, self.tp_reason = _resolve_tp_path(cfg, scfg, mesh)
+            n = mesh.shape["model"]
+            params = tp.tp_shard(params, M.param_logical_axes(cfg),
+                                 mesh.coord("model"), n)
+            cfg = tp.local_config(cfg, n)
+        elif scfg.compressed_collectives:
+            raise ValueError("compressed_collectives requires a serving mesh "
+                             "(the seams only exist on the manual TP path)")
         self.params = params
         self.cfg = cfg = dataclasses.replace(cfg, use_pallas=True)
-        self.scfg = scfg = ServeConfig() if scfg is None else scfg
         self.capacity = scfg.capacity
         self.device = _device_of(params)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"params on {self.device}, but this rank of the "
+                             f"mesh runs on {mesh.device}")
         self.on_token = on_token
         self.obs = obs if obs is not None else obs_metrics.MetricsRegistry()
         self.recorder = recorder
@@ -367,6 +431,15 @@ class ContinuousEngine:
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
+
+    def _seams(self):
+        """The manual-TP scope every model dispatch runs under (none off a
+        mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return tp.tp_context(self.mesh.group("model"),
+                             compressed=self.scfg.compressed_collectives,
+                             block=self.scfg.compress_block)
 
     def _make_dispatchers(self) -> None:
         """(Re)build what the engine dispatches through; called at
@@ -483,22 +556,23 @@ class ContinuousEngine:
         finished during this step."""
         self._maybe_refresh_schedules()
         finished: list[Request] = []
-        if self.paged:
-            self._admit_paged(finished)
-            if self._chunk_tasks:
-                self._chunk_step(finished)
-            self._decode_paged(finished)
-            self._g_page_occ.set(_ratio(self.pages.used_pages,
-                                        self.pages.usable_pages))
-        else:
-            groups: dict[tuple, list[tuple[int, Request]]] = {}
-            for slot, req in self.pool.admit():
-                # coalesce same-shape admissions into one batched prefill
-                groups.setdefault(_shape_key(req), []).append((slot, req))
-            for group in groups.values():
-                self._admit_group(group, finished)
-            if self.pool.occupancy:
-                self._decode_contiguous(finished)
+        with self._seams():
+            if self.paged:
+                self._admit_paged(finished)
+                if self._chunk_tasks:
+                    self._chunk_step(finished)
+                self._decode_paged(finished)
+                self._g_page_occ.set(_ratio(self.pages.used_pages,
+                                            self.pages.usable_pages))
+            else:
+                groups: dict[tuple, list[tuple[int, Request]]] = {}
+                for slot, req in self.pool.admit():
+                    # coalesce same-shape admissions into one batched prefill
+                    groups.setdefault(_shape_key(req), []).append((slot, req))
+                for group in groups.values():
+                    self._admit_group(group, finished)
+                if self.pool.occupancy:
+                    self._decode_contiguous(finished)
         self._c["steps"].inc()
         self._c["occupancy_sum"].inc(self.pool.occupancy)
         self._c["queue_depth_sum"].inc(self.pool.queue_depth)

@@ -1,0 +1,126 @@
+"""Rank functions of the port's tensor-parallel CPU tests.
+
+``repro_torch.dist.spawn.run`` starts every rank in a fresh process that
+imports its function by name, so the functions live here, in a module that
+imports neither JAX nor the JAX package: each rank then pays only for
+``torch`` and ``repro_torch``.  Arguments and results are numpy arrays and
+plain Python values.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.dist import collectives, tp
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import model as M
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.serve.engine import ContinuousEngine
+
+
+def collectives_and_parity(rank: int, xs: list[np.ndarray], block: int,
+                           params_np, cfg, tokens: np.ndarray, max_len: int,
+                           n_decode: int) -> dict:
+    """compressed_all_reduce of this rank's ``xs[rank]`` (float32 and
+    bfloat16), then greedy prefill + ``n_decode`` decode steps of ``cfg``
+    sharded over the job (exact seams) and a prefill with compressed
+    seams."""
+    mesh = mesh_lib.mesh_for((dist.get_world_size(),), ("model",))
+    x = torch.from_numpy(xs[rank])
+    out32 = collectives.compressed_all_reduce(x, mesh.group("model"), block)
+    out16 = collectives.compressed_all_reduce(x.bfloat16(),
+                                              mesh.group("model"), block)
+    n = mesh.shape["model"]
+    params = tp.tp_shard(params_from_numpy(params_np, cfg, device="cpu"),
+                         M.param_logical_axes(cfg), mesh.coord("model"), n)
+    local = tp.local_config(cfg, n)
+    inputs = {"tokens": torch.as_tensor(tokens)}
+    with torch.inference_mode(), tp.tp_context(mesh.group("model")):
+        logits, caches = M.prefill(params, inputs, local, max_len=max_len)
+        prefill_logits = logits.numpy().copy()
+        toks = [torch.argmax(logits, -1).to(torch.int32)]
+        for _ in range(n_decode):
+            logits, caches = M.decode_step(params, caches, toks[-1], local)
+            toks.append(torch.argmax(logits, -1).to(torch.int32))
+    with torch.inference_mode(), tp.tp_context(mesh.group("model"),
+                                               compressed=True):
+        compressed, _ = M.prefill(params, inputs, local, max_len=max_len)
+    return {"f32": out32.numpy(), "bf16_dtype": str(out16.dtype),
+            "bf16": out16.float().numpy(),
+            "tokens": torch.stack(toks, 1).numpy(),
+            "last_logits": logits.numpy(), "prefill_logits": prefill_logits,
+            "compressed_logits": compressed.numpy()}
+
+
+def mesh_axes(rank: int, shape: tuple, axes: tuple) -> dict:
+    """A mesh over the job: each axis group's sum of the ranks on it, this
+    rank's coordinates, and what the production mesh says of this job."""
+    mesh = mesh_lib.mesh_for(shape, axes)
+    sums = {}
+    for axis in axes:
+        t = torch.tensor([float(rank)])
+        dist.all_reduce(t, group=mesh.group(axis))
+        sums[axis] = t.item()
+    try:
+        mesh_lib.make_production_mesh()
+        production = "built"
+    except ValueError as e:
+        production = str(e)
+    host = mesh_lib.make_host_mesh()
+    return {"shape": mesh.shape, "axis_names": mesh.axis_names,
+            "coords": {a: mesh.coord(a) for a in axes}, "sums": sums,
+            "backend": mesh.backend, "device": str(mesh.device),
+            "chips": mesh_lib.chips(mesh), "production": production,
+            "host_shape": host.shape,
+            "broadcast": mesh.broadcast_int(100 + rank, axes[-1])}
+
+
+def raises_on_rank_1(rank: int) -> None:
+    """Rank 1 fails while rank 0 waits in a collective for it."""
+    if rank == 1:
+        raise ValueError("rank 1 failed on purpose")
+    dist.all_reduce(torch.ones(1))
+
+
+def desync(rank: int) -> None:
+    """Rank 0 enters an all-reduce that rank 1 never joins."""
+    if rank == 0:
+        dist.all_reduce(torch.ones(4))
+
+
+def sleeps(rank: int, seconds: float) -> None:
+    time.sleep(seconds)
+
+
+def serve_runs(rank: int, cases: list[dict]) -> list[dict]:
+    """Each case: a config, its numpy params, requests ``(prompt, budget,
+    extra)``, and runs ``(ServeConfig, order)``; every run is a fresh
+    tensor-parallel ContinuousEngine over the job's ranks, its requests
+    submitted in ``order`` ("fifo" or "reversed").  -> per case, per run,
+    the tokens of every request by its index, and the engine's stats."""
+    mesh = mesh_lib.mesh_for((dist.get_world_size(),), ("model",))
+    out = []
+    for case in cases:
+        cfg = case["cfg"]
+        params = params_from_numpy(case["params"], cfg, device="cpu")
+        runs = []
+        for scfg, order in case["runs"]:
+            eng = ContinuousEngine(params, cfg, scfg, mesh=mesh)
+            idxs = list(range(len(case["requests"])))
+            if order == "reversed":
+                idxs.reverse()
+            uid_to_idx = {}
+            for i in idxs:
+                prompt, budget, extra = case["requests"][i]
+                uid_to_idx[eng.submit(prompt, budget, extra=extra).uid] = i
+            got = eng.run(max_steps=1000)
+            runs.append({"tokens": {i: got[u].tolist()
+                                    for u, i in uid_to_idx.items()},
+                         "kv_heads": int(eng.caches["k"].shape[-2]),
+                         "tp_path": eng.tp_path})
+        out.append(runs)
+    return out

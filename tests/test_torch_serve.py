@@ -16,6 +16,7 @@ from repro.models.config import ModelConfig as JConfig  # noqa: E402
 from repro.serve import engine as jengine  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as pg_kernel  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serve import engine as tengine  # noqa: E402
@@ -186,9 +187,14 @@ class TestContinuous:
             assert streamed[uid] == w.tolist()
 
     def test_mesh_raises(self, params):
+        """A mesh the manual TP path cannot shard CFG over (2 kv heads on 4
+        ranks) needs the GSPMD path, which the port does not have."""
         _, tp = params
+        mesh = Mesh(shape={"model": 4}, rank=0, device=torch.device("cpu"),
+                    backend="gloo", groups={"model": None},
+                    coords={"model": 0})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tengine.ContinuousEngine(tp, CFG, mesh=object())
+            tengine.ContinuousEngine(tp, CFG, mesh=mesh)
 
 
 class TestAdmission:

@@ -1,0 +1,106 @@
+"""What gloo does with CUDA tensors when two ranks share one card: which
+collectives run, and how long a bf16 all-reduce of a decode step's and a
+prefill's seam takes.  Needs a CUDA card.
+
+    python3 tools/gloo_probe.py [--ranks 2]
+
+Prints the card's name and power limit, then one JSON line per rank:
+``ok``/``err`` of all-reduce in four dtypes, the list form of all-gather
+(int8 and float32, as ``compressed_all_reduce`` calls it), broadcast and
+``init_device_mesh("cuda")``, and ``all_reduce_ms`` at (8, 1, 2048) and
+(1, 384, 2048) bf16: the mean of 20 calls after 3, host clock around a
+synchronized loop.  Ranks run through ``repro_torch.dist.spawn``, which
+picks gloo for ranks that share a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+from repro_torch.dist import spawn  # noqa: E402
+
+
+def _trial(out: dict, name: str, fn) -> None:
+    try:
+        out[name] = {"ok": True, "r": fn()}
+    except RuntimeError as e:       # a collective gloo does not run
+        out[name] = {"ok": False, "err": f"{e}"[:300]}
+
+
+def _rank(rank: int, n: int) -> dict:
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"rank": rank, "backend": dist.get_backend()}
+
+    def all_reduce(dtype):
+        x = torch.full((4, 5), rank + 1, dtype=dtype, device=dev)
+        dist.all_reduce(x)
+        return x.float().sum().item()
+
+    def all_gather(dtype):
+        x = torch.full((3,), rank + 1, dtype=dtype, device=dev)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x)
+        return [p.tolist() for p in parts]
+
+    def broadcast():
+        x = torch.full((2,), rank + 7, dtype=torch.int64, device=dev)
+        dist.broadcast(x, 0)
+        return x.tolist()
+
+    def device_mesh():
+        from torch.distributed.device_mesh import init_device_mesh
+        mesh = init_device_mesh("cuda", (n,), mesh_dim_names=("model",))
+        return dist.get_backend(mesh.get_group("model"))
+
+    def seconds(shape):
+        x = torch.randn(shape, device=dev).bfloat16()
+        for _ in range(3):
+            dist.all_reduce(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            dist.all_reduce(x)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 20 * 1e3
+
+    for dt in (torch.float32, torch.bfloat16, torch.int8, torch.int32):
+        _trial(out, f"all_reduce_{dt}", lambda dt=dt: all_reduce(dt))
+    for dt in (torch.int8, torch.float32):
+        _trial(out, f"all_gather_{dt}", lambda dt=dt: all_gather(dt))
+    _trial(out, "broadcast_int64", broadcast)
+    _trial(out, "init_device_mesh", device_mesh)
+    out["all_reduce_ms"] = {str(s): seconds(s)
+                            for s in ((8, 1, 2048), (1, 384, 2048))}
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ranks", type=int, default=2)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("gloo_probe: no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
+                      "device_count": torch.cuda.device_count()}))
+    for out in spawn.run(_rank, args.ranks, args=(args.ranks,),
+                         device="cuda", timeout_s=60, deadline_s=300):
+        print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
