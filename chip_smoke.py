@@ -35,6 +35,7 @@ import hashlib
 import io
 import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -59,10 +60,10 @@ from repro_torch.core.energy import (UnassemblableSchedule,  # noqa: E402
 from repro_torch.checkpoint.ckpt import flatten  # noqa: E402
 from repro_torch.core.testing import InputSpec, probabilistic_test  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, batch_for_model  # noqa: E402
-from repro_torch.dist import spawn  # noqa: E402
+from repro_torch.dist import partition, pipeline, spawn  # noqa: E402
 from repro_torch.dist import tp as tp_mod  # noqa: E402
-from repro_torch.ft import (ChaosEngine, FaultPlan, FTManager,  # noqa: E402
-                            Supervisor)
+from repro_torch.ft import (ChaosEngine, FaultPlan, FTConfig,  # noqa: E402
+                            FTManager, Supervisor)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels._emit import random_legal_order  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
@@ -85,6 +86,7 @@ from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch import tune as tune_cli  # noqa: E402
 from repro_torch.launch import verify as verify_cli  # noqa: E402
 from repro_torch.launch.mesh import mesh_for  # noqa: E402
+from repro_torch.models import blocks as model_blocks  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -2914,6 +2916,334 @@ def phase_train_resume(workdir: Path) -> dict:
     return out
 
 
+# ======================================================= sharded training
+#: the sharded phases' job: 2 ranks sharing this card over gloo
+SHARDED_RANKS = 2
+#: train_sharded's steps: one untimed, then the timed ones
+SHARDED_STEPS = 3
+#: the elastic phase: steps, checkpoint cadence, the heartbeat clock's tick
+#: (the lost worker times out 4 steps after it stops: step 7 of 8)
+ELASTIC_STEPS, ELASTIC_EVERY, ELASTIC_TICK = 8, 4, 0.3
+#: seconds the sharded job may take in all
+SHARDED_DEADLINE_S = 600.0
+AXES = ("data", "model")
+
+
+def _step_traffic(pshard, mesh) -> dict:
+    """Bytes a rank moves in one sharded step: the whole params its
+    all-gathers build (float32 leaves cut by some axis) and the whole
+    float32 gradient its all-reduces sum over the data ranks."""
+    leaves = adamw.leaves(pshard)
+    full = [math.prod(sh.shape) * 4 for sh in leaves]
+    return {"gathered_gb": sum(b for b, sh in zip(full, leaves)
+                               if not sh.replicated) / 1e9,
+            "reduced_gb": (sum(full) / 1e9
+                           if train_steps.data_ways(mesh) > 1 else 0.0)}
+
+
+def _span_s(events, names) -> dict:
+    """Each span's seconds, summed per name, per step."""
+    out = {n: [] for n in names}
+    for e in events:
+        if e["name"] in out:
+            out[e["name"]].append(e["dur"] / 1e6)
+    return out
+
+
+def _train_sharded_full(mesh) -> dict:
+    """``train_sharded`` on one rank: qwen3-1.7b at full width on a (2, 1)
+    mesh, ``train``'s data and optimizer, ``SHARDED_STEPS`` sharded steps
+    (the first untimed), traced."""
+    cfg = configs.get("qwen3-1.7b")
+    dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
+    ocfg = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1,
+                           decay_steps=TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = train_loop.make_train_state(cfg, mesh, seed=0)
+    pshard = train_steps.param_shardings(cfg, mesh)
+    local_gb = sum(t.numel() * t.element_size()
+                   for t in adamw.leaves({"p": params, "o": opt})) / 1e9
+    reset_launches()
+    losses, times, modes = [], [], []
+    with obs.tracing() as tracer:
+        for step in range(SHARDED_STEPS):
+            batch = batch_for_model(cfg, dcfg, step, device=mesh.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = train_steps.sharded_train_step(
+                params, opt, batch, cfg=cfg, opt_cfg=ocfg, mesh=mesh,
+                shardings=pshard)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(m["loss"].item())
+            modes.append(m["mode"])
+    launches = row_launches()
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_s": times, "modes": modes,
+            "launches": launches, "peak_mem_gb": peak / 1e9,
+            "local_state_gb": local_gb, **_step_traffic(pshard, mesh),
+            "spans_s": _span_s(tracer.events(), (
+                "train.gather", "train.grads", "train.reduce",
+                "train.adamw"))}
+
+
+def _differential_sharded(mesh_shapes, dev: torch.device) -> dict:
+    """``differential_train_sharded`` on one rank: qwen3's smoke config in
+    float32, one sharded step on each mesh against the one-device step on
+    this card from the same weights and batch; params and both moments."""
+    cfg = dataclasses.replace(configs.get_smoke("qwen3-1.7b"),
+                              dtype="float32", param_dtype="float32")
+    dcfg = DataConfig(global_batch=8, seq_len=64, vocab=cfg.vocab)
+    ocfg = adamw.OptConfig()
+    start = M.init_lm(cfg, seed=0, device=dev, dtype=torch.float32)
+    batch = batch_for_model(cfg, dcfg, 0, device=dev)
+    one = M.map_params(lambda _, t: t.clone(), start)
+    one_opt = adamw.init_opt_state(one)
+    one, one_opt, m1 = train_steps.train_step(one, one_opt, batch, cfg=cfg,
+                                              opt_cfg=ocfg)
+    want = flatten({"params": one, "mu": one_opt["mu"],
+                    "nu": one_opt["nu"]})
+    out = {}
+    for shape in mesh_shapes:
+        mesh = mesh_for(shape, AXES)
+        pshard = train_steps.param_shardings(cfg, mesh)
+        params = partition.local_tree(
+            M.map_params(lambda _, t: t.clone(), start), pshard)
+        opt = adamw.init_opt_state(params)
+        params, opt, m = train_steps.sharded_train_step(
+            params, opt, batch, cfg=cfg, opt_cfg=ocfg, mesh=mesh,
+            shardings=pshard)
+        sh = {"params": pshard, "mu": pshard, "nu": pshard}
+        got = {k: flatten(sh)[k].gather(v) for k, v in flatten(
+            {"params": params, "mu": opt["mu"], "nu": opt["nu"]}).items()}
+        out[str(list(shape))] = {
+            "max_rel_err": _max_rel_grad_err(got, want), "mode": m["mode"],
+            "loss": m["loss"].item(), "loss_one_device": m1["loss"].item()}
+    return out
+
+
+def _pipeline_full() -> dict:
+    """``pipeline`` on one rank: qwen3-1.7b's first two decoder blocks at
+    full width, float32, one a stage over a (2,) ("stage",) mesh, 4
+    microbatches of one (128, 2048) row; forward and each block's gradient
+    of mean(y ** 2) against the two blocks in sequence on this rank."""
+    cfg = dataclasses.replace(configs.get("qwen3-1.7b"), n_layers=2,
+                              dtype="float32")
+    mesh = mesh_for((SHARDED_RANKS,), ("stage",))
+    dev = mesh.device
+    blocks_p = M.init_lm(cfg, seed=2, device=dev,
+                         dtype=torch.float32)["blocks"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((4, 128, cfg.d_model), generator=gen, device=dev)
+
+    def stage(p, h):
+        return model_blocks.decoder_block(p, h, cfg, causal=True)[0]
+
+    live = M.map_params(lambda _, t: t.clone().requires_grad_(), blocks_p)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        y = pipeline.pipeline_apply(stage, live, x, mesh=mesh, axis="stage",
+                                    n_micro=4)
+        torch.mean(y ** 2).backward()
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    launches = row_launches()
+
+    def summed(_, t):           # each rank holds its own stage's gradient
+        g = t.grad.clone()
+        torch.distributed.all_reduce(g, group=mesh.group("stage"))
+        return g
+    got = flatten(M.map_params(summed, live))
+    seq = M.map_params(lambda _, t: t.clone().requires_grad_(), blocks_p)
+    with torch.enable_grad():
+        h = x
+        for lp in model_blocks.layer_views(seq):
+            h = stage(lp, h)
+        torch.mean(h ** 2).backward()
+    want = flatten(M.map_params(lambda _, t: t.grad, seq))
+    scale = h.abs().max().item()
+    return {"forward_max_rel_err": (y - h).abs().max().item() / scale,
+            "grad_max_rel_err": _max_rel_grad_err(got, want),
+            "stage_s": pipe_s,
+            "stages": SHARDED_RANKS, "n_micro": 4,
+            "bubble_fraction": pipeline.bubble_fraction(SHARDED_RANKS, 4),
+            "launches": launches, "stage": mesh.coord("stage")}
+
+
+def _train_elastic(workdir: str) -> dict:
+    """``train_elastic`` on one rank: qwen3's smoke config, float32, under
+    the Supervisor on a (2, 1) mesh, 2 workers of a chip each, worker 1
+    lost for good at step 4 (``kill@4:w1:perm``), the ladder ((2, 1), (1,
+    1)); and the same run uninterrupted."""
+    cfg = dataclasses.replace(configs.get_smoke("qwen3-1.7b"),
+                              dtype="float32", param_dtype="float32")
+    dcfg = DataConfig(global_batch=8, seq_len=64, vocab=cfg.vocab)
+    ocfg = adamw.OptConfig(peak_lr=1e-3, warmup_steps=2,
+                           decay_steps=ELASTIC_STEPS)
+    root = Path(workdir) / "train_elastic"
+
+    def tcfg(name):
+        return train_loop.TrainConfig(
+            total_steps=ELASTIC_STEPS, ckpt_every=ELASTIC_EVERY,
+            ckpt_dir=str(root / name), log_every=1000)
+    base = train_loop.train(cfg, dcfg, tcfg("base"), ocfg,
+                            mesh=mesh_for((SHARDED_RANKS, 1), AXES))
+    ladder = (((SHARDED_RANKS, 1), AXES), ((1, 1), AXES))
+    t = [0.0]
+    ft = FTManager(n_workers=2, cfg=FTConfig(
+        heartbeat_timeout_s=1.0, chips_per_worker=1, mesh_ladder=ladder),
+        clock=lambda: t[0])
+    beat = ft.heartbeat
+
+    def ticking(w, lat):        # a clock that moves one tick a heartbeat
+        t[0] += ELASTIC_TICK
+        beat(w, lat)
+
+    ft.heartbeat = ticking
+    chaos = ChaosEngine(FaultPlan.parse("kill@4:w1:perm", n_workers=2))
+    reset_launches()
+    t0 = time.perf_counter()
+    sup = Supervisor(
+        functools.partial(train_loop.train, cfg, dcfg, tcfg("chaos"), ocfg,
+                          ft=ft, chaos=chaos),
+        ft=ft, chaos=chaos, mesh=mesh_for((SHARDED_RANKS, 1), AXES),
+        mesh_factory=lambda target: mesh_for(*target),
+        sleep=lambda s: None)
+    res = sup.run()
+    s = res["supervisor"]
+    return {"base_loss": base["final_loss"], "step": res["step"],
+            "final_loss": res["final_loss"],
+            "outside_mesh": bool(res.get("outside_mesh")),
+            "events": [{k: v for k, v in e.items() if k != "attempt"}
+                       for e in s["events"]],
+            "final_mesh": list(s["final_mesh"][0]),
+            "run_s": time.perf_counter() - t0, "launches": row_launches()}
+
+
+def _sharded_rank(rank: int, workdir: str) -> dict:
+    """One rank of the sharded job: its phases in turn (``train_elastic``
+    last: the rank it leaves out waits for the job's end)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = mesh_for((SHARDED_RANKS, 1), AXES)
+    out = {"train_sharded": _train_sharded_full(mesh)}
+    out["differential_train_sharded"] = _differential_sharded(
+        ((SHARDED_RANKS, 1), (1, SHARDED_RANKS)), mesh.device)
+    torch.cuda.empty_cache()
+    out["pipeline"] = _pipeline_full()
+    torch.cuda.empty_cache()
+    out["train_elastic"] = _train_elastic(workdir)
+    return out
+
+
+def phase_train_sharded(workdir: Path, info: dict, train: dict) -> dict:
+    """The sharded-training phases, one job of 2 ranks sharing this card
+    over gloo (NCCL refuses two ranks on one GPU), each phase its line:
+
+    * ``train_sharded``: qwen3-1.7b at full width, all 28 layers, bf16 over
+      float32 masters, ``train``'s B8 S128 data, on a (2, 1) ("data",
+      "model") mesh: each rank holds half of every embed dim of the params
+      and moments, gathers the params whole for a step, runs its 4 rows and
+      all-reduces the float32 gradient.  One untimed step, then the timed
+      ones: step p50, tokens/s, peak memory a rank, the bytes a step
+      gathers and reduces, the loss mode, the spans.  Losses must be finite
+      and equal on both ranks, and the first (the same weights and batch
+      as ``train``'s first step) within 1e-2 of ``train``'s; the others
+      are reported beside ``train``'s.
+    * ``differential_train_sharded``: qwen3's smoke config in float32, one
+      sharded step on (2, 1) and on (1, 2) against the one-device step on
+      this card: max relative error under 2e-4 (the reference's bound).
+    * ``pipeline``: qwen3's first two blocks at full width, float32, one a
+      stage: forward and gradients against the blocks in sequence, 1e-4.
+    * ``train_elastic``: the smoke config under the Supervisor, ladder
+      ((2, 1), (1, 1)), ``kill@4:w1:perm``, 8 steps, a checkpoint every 4:
+      step 8, one ``elastic_reshape``, final mesh [1, 1], the final loss
+      within 5e-3 of the uninterrupted run's; rank 1 leaves the mesh.
+
+    No kernel launches on these paths (the model runs its plain versions
+    under grad).  Two processes on one card, every collective through host
+    memory: nothing here measures training across cards."""
+    note = "2 ranks share 1 card over gloo: not multi-GPU training"
+    # the ranks need ~29 GB each: hand back what this process's allocator
+    # still holds from the earlier phases
+    torch.cuda.empty_cache()
+    parent_gb = torch.cuda.memory_reserved() / 1e9
+    t0 = time.perf_counter()
+    ranks = spawn.run(_sharded_rank, SHARDED_RANKS, args=(str(workdir),),
+                      device="cuda", timeout_s=TP_TIMEOUT_S,
+                      deadline_s=SHARDED_DEADLINE_S)
+    job_s = time.perf_counter() - t0
+    shutil.rmtree(workdir / "train_elastic", ignore_errors=True)
+    for r in ranks:
+        for phase, res in r.items():
+            if any(res.get("launches", {}).get(k) for k in MODEL_ROWS):
+                raise AssertionError(f"{phase}: a kernel launched: "
+                                     f"{res['launches']}")
+
+    ts = [r["train_sharded"] for r in ranks]
+    losses = ts[0]["losses"]
+    one = train["losses"][:SHARDED_STEPS]
+    first_rel = abs(losses[0] - one[0]) / abs(one[0])
+    if not all(np.isfinite(losses)) or any(t["losses"] != losses
+                                           for t in ts) or first_rel > 1e-2:
+        raise AssertionError(f"train_sharded: losses "
+                             f"{[t['losses'] for t in ts]}, train's {one}")
+    cfg = configs.get("qwen3-1.7b")
+    timed = ts[0]["step_s"][1:]
+    p50 = float(np.median(timed))
+    tokens = TRAIN_DATA["global_batch"] * TRAIN_DATA["seq_len"]
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "param_dtype": cfg.param_dtype, "mesh": [SHARDED_RANKS, 1],
+           "axes": list(AXES), **TRAIN_DATA, "steps": SHARDED_STEPS,
+           "losses": losses, "losses_one_device": one,
+           "first_loss_rel_diff": first_rel,
+           "step_s": [t["step_s"] for t in ts],
+           "step_p50_ms": p50 * 1e3, "tokens_per_s": tokens / p50,
+           "rank_peak_mem_gb": [t["peak_mem_gb"] for t in ts],
+           "local_state_gb": ts[0]["local_state_gb"],
+           "gathered_gb_per_step": ts[0]["gathered_gb"],
+           "reduced_gb_per_step": ts[0]["reduced_gb"],
+           "loss_modes": sorted({m for t in ts for m in t["modes"]}),
+           "spans_s_rank0": ts[0]["spans_s"], "launches": ts[0]["launches"],
+           "job_s": job_s, "parent_reserved_gb": parent_gb,
+           "nvidia_smi": info["nvidia_smi"], "note": note}
+    emit("train_sharded", **out)
+
+    diff = [r["differential_train_sharded"] for r in ranks]
+    worst = max(v["max_rel_err"] for d in diff for v in d.values())
+    if worst >= 2e-4:
+        raise AssertionError(f"differential_train_sharded: {diff}")
+    emit("differential_train_sharded", meshes=diff[0], max_rel_err=worst,
+         limit=2e-4, dtype="float32", note=note)
+
+    pipe = [r["pipeline"] for r in ranks]
+    if any(p["forward_max_rel_err"] >= 1e-4 or p["grad_max_rel_err"] >= 1e-4
+           for p in pipe) or sorted(p["stage"] for p in pipe) != [0, 1]:
+        raise AssertionError(f"pipeline: {pipe}")
+    emit("pipeline", **{k: v for k, v in pipe[0].items() if k != "stage"},
+         rank_grad_max_rel_err=[p["grad_max_rel_err"] for p in pipe],
+         limit=1e-4, note=note)
+
+    el = [r["train_elastic"] for r in ranks]
+    lead = el[0]
+    rel = abs(lead["final_loss"] - lead["base_loss"]) / abs(lead["base_loss"])
+    if lead["step"] != ELASTIC_STEPS or lead["final_mesh"] != [1, 1] \
+            or [e["kind"] for e in lead["events"]] != ["elastic_reshape"] \
+            or rel > 5e-3 or not el[1]["outside_mesh"] \
+            or any(e["events"] != lead["events"] for e in el):
+        raise AssertionError(f"train_elastic: {el}")
+    emit("train_elastic", **{k: v for k, v in lead.items()
+                             if k != "outside_mesh"},
+         final_loss_rel_diff=rel, limit=5e-3,
+         rank1_outside_mesh=el[1]["outside_mesh"], note=note)
+    return out
+
+
 def kernels_line(gemm: dict, flash: dict, gather: dict, ssd: dict,
                  rms: dict, sip: dict, serve: dict, serve_ssm: dict,
                  serve_hybrid: dict, serve_swa: dict, serve_moe: dict,
@@ -3040,6 +3370,7 @@ def main() -> int:
     train = phase_train(info)
     phase_differential_train()
     phase_train_resume(workdir)
+    phase_train_sharded(workdir, info, train)
     print(json.dumps(kernels_line(gemm, flash, gather, ssd, rms, sip, serve,
                                   serve_ssm, serve_hybrid, serve_swa,
                                   serve_moe, serve_vlm, serve_encdec, train,

@@ -1,5 +1,6 @@
-"""Distributed serving: tensor parallelism at explicit seams (the port of the
-serving half of ``repro.dist``).
+"""Distribution (the port of ``repro.dist``): tensor-parallel serving at
+explicit seams, and the logical-axis rules and pipeline of sharded
+training.
 
 * :mod:`repro_torch.dist.collectives` — per-block symmetric int8
   quantization and an int8-compressed all-reduce.
@@ -8,13 +9,16 @@ serving half of ``repro.dist``).
   and the eligibility gate.
 * :mod:`repro_torch.dist.spawn` — an N-rank job of processes on one host,
   one process group among them, failing instead of hanging.
+* :mod:`repro_torch.dist.partition` — logical axes resolved to mesh axes
+  under rule tables, and each rank's block of a tensor as GSPMD lays it
+  out (what the sharded train step and checkpoints use).
+* :mod:`repro_torch.dist.pipeline` — GPipe over one mesh axis, with a
+  differentiable rotation.
 
 Meshes over a job's ranks are built by :mod:`repro_torch.launch.mesh`.  The
-reference's compiler-placed sharding (``dist/partition.py`` under GSPMD)
-and its pipeline (``dist/pipeline.py``) are not ported (ROADMAP.md, Queue 1
-item 2).
+engine's GSPMD serving path is not ported (ROADMAP.md, Queue 1 item 2).
 """
 
-from repro_torch.dist import collectives, spawn, tp
+from repro_torch.dist import collectives, partition, pipeline, spawn, tp
 
-__all__ = ["collectives", "spawn", "tp"]
+__all__ = ["collectives", "partition", "pipeline", "spawn", "tp"]

@@ -17,6 +17,13 @@ Failure is loud and bounded in time, never a hang:
 * the whole job must end by ``deadline_s``, or every rank is terminated and
   :func:`run` raises ``TimeoutError``.
 
+A rank that finishes waits for the others before it leaves (a rank that
+exits early would cut its peers' last collective short), on the job's
+store rather than in a collective: a rank that an elastic reshape left out
+of the mesh may wait there for the rest of the run, longer than any one
+collective may take.  A rank that dies instead ends the job through the
+parent, which sees its process fail.
+
 Rank r runs on ``cuda:(r % device_count)``, or on the CPU.  The backend is
 chosen once, from those devices: NCCL when every rank has a GPU of its own,
 else gloo (NCCL refuses two ranks on one GPU).  A rank asked for CUDA on a
@@ -76,6 +83,25 @@ class _Failure:
     trace: str
 
 
+def _count(store, key: str, n: int) -> None:
+    """Add this rank to ``key`` on the store and wait until all ``n`` have
+    (bounded by the job's deadline, not the collectives' timeout)."""
+    store.add(key, 1)
+    while store.add(key, 0) < n:
+        time.sleep(0.02)
+
+
+def _finish(rank: int, n: int) -> None:
+    """Every rank reaches here before any leaves.  Rank 0 holds the store,
+    so it leaves last: after the others have seen the count complete."""
+    store = dist.distributed_c10d._get_default_store()
+    _count(store, "repro_torch/finished", n)
+    if rank == 0:
+        _count(store, "repro_torch/left", n)
+    else:
+        store.add("repro_torch/left", 1)
+
+
 def _rank_main(rank: int, n: int, port: int, device_type: str,
                timeout_s: float, fn: Callable, args: tuple,
                results) -> None:
@@ -94,9 +120,7 @@ def _rank_main(rank: int, n: int, port: int, device_type: str,
         timeout=datetime.timedelta(seconds=timeout_s))
     try:
         out = fn(rank, *args)
-        # every rank reaches here before any leaves: a rank that exits
-        # early would cut its peers' last collective short
-        dist.barrier()
+        _finish(rank, n)
     except Exception:
         # its peers fail next, on the broken connection: the first failure
         # is the one to report

@@ -136,6 +136,19 @@ class FTManager:
                                      "mitigation": "reroute-or-replace"}
         return Action.CONTINUE, {}
 
+    def adopt(self, action: Action, info: dict[str, Any]) -> None:
+        """Take the verdict another manager reached from the same
+        heartbeats (a mesh's first rank decides for every rank): its dead
+        workers and restart count."""
+        if action is Action.CONTINUE:
+            return
+        for i in info["dead"]:
+            self.workers[i].alive = False
+        self.restarts = info["restarts"]
+        self.events.append({"t": self.clock(), "action": "failure",
+                            **{k: info[k] for k in ("dead", "alive",
+                                                    "restarts")}})
+
     def viable_mesh(self, alive_workers: int):
         """Largest ladder mesh that fits the surviving worker count
         (``cfg.chips_per_worker`` devices per host)."""

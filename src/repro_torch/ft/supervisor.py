@@ -10,9 +10,14 @@ catches, repairs, and re-enters it:
   are spaced by bounded exponential backoff.
 * :class:`~repro_torch.ft.errors.ReshapeRequired` — capacity was lost for
   good: rebuild the mesh from the failure's ladder target
-  (``mesh_factory``) and relaunch from the mesh-independent checkpoint.  The port's loop runs on
-  one device (``mesh=None``; meshes are ROADMAP.md Queue 1 item 2), so
-  without a factory an elastic event relaunches there.
+  (``mesh_factory``) and relaunch from the mesh-independent checkpoint,
+  which the loop reshards onto the new mesh.  On a job of ranks every
+  rank runs a supervisor and gets the same verdict (the loop broadcasts
+  the first rank's), so every rank calls the factory, which builds the
+  mesh collectively (``launch.mesh.mesh_for``); ranks the smaller mesh
+  leaves out return from ``train`` at once.  A one-device run
+  (``mesh=None``) without a factory relaunches on one device; a mesh
+  without a factory re-raises, never shrinking to one device unseen.
 * :class:`~repro_torch.ft.errors.NonFiniteLossError` — roll back to the last
   checkpoint and widen the data skip-window over the offending step so the
   bad batch is replaced with a disjoint substitute instead of re-exploding.
@@ -52,8 +57,8 @@ class Supervisor:
     training entry point — usually :func:`repro_torch.train.loop.train` with
     everything but the supervisor-owned arguments bound.  ``mesh_factory``
     maps an :class:`~repro_torch.ft.errors.ReshapeRequired` ladder target
-    ``(shape, axes)`` to a live mesh; without one, elastic events fall back
-    to ``mesh=None`` (single-device relaunch — still correct, just smaller).
+    ``(shape, axes)`` to a live mesh; without one, an elastic event on a
+    one-device run relaunches it there, and on a mesh re-raises.
     """
 
     def __init__(self, train_fn: Callable[..., dict[str, Any]], *,
@@ -121,8 +126,8 @@ class Supervisor:
             except ReshapeRequired as e:
                 if self.mesh_factory is not None:
                     mesh = self.mesh_factory(e.target)
-                else:
-                    mesh = None
+                elif mesh is not None:
+                    raise
                 self._record("elastic_reshape", restarts, step=e.step,
                              target=list(e.target[0]), **_safe_info(e))
             except (WorkerKilled, RestartRequired) as e:
@@ -140,8 +145,8 @@ class Supervisor:
 
 
 def _mesh_summary(mesh: Any) -> Any:
-    """(shape, axes) for a mesh object (``shape`` and ``axis_names``);
-    whatever the caller passed otherwise
+    """(shape, axes) for a mesh object (``shape`` and ``axis_names``): the
+    mesh the run finished on; whatever the caller passed otherwise
     (tests drive the supervisor with stand-in mesh objects)."""
     if mesh is None:
         return None

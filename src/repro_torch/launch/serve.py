@@ -99,16 +99,10 @@ import torch.distributed as dist
 from repro_torch import configs, obs
 from repro_torch.core.registry import schedule_cache
 from repro_torch.dist import spawn
-from repro_torch.launch.mesh import Mesh, mesh_for
+from repro_torch.launch.mesh import MESH_TIMEOUT_S, Mesh, mesh_for
 from repro_torch.models import model as M
 from repro_torch.serve.engine import (ContinuousEngine, Engine, ServeConfig,
                                       static_batches)
-
-#: seconds a ``--mesh`` rank waits in one collective before the job fails:
-#: longer than any gap between two seams (a prefill's first kernel build
-#: included)
-MESH_TIMEOUT_S = 300.0
-
 
 @dataclasses.dataclass
 class TrafficSpec:

@@ -1,28 +1,39 @@
-"""The train step (the port of ``repro/launch/steps.py`` ``:27-68``).
+"""The train steps and the shape and sharding helpers (the port of
+``repro/launch/steps.py``).
 
 ``train_step`` does loss + grad (with optional microbatch accumulation in
-float32) + AdamW, on the plain versions of the model's kernels
-(``use_pallas`` off), as the reference trains: the kernels have no
-backward.  The reference's ``prefill_step`` and ``serve_step`` serve only
-its dry run, and its shape and sharding helpers (``batch_sds``,
-``cache_sds``, the shardings and ``pick_microbatches``) belong to the mesh
-paths: both wait for ROADMAP.md Queue 1 item 2.
+float32) + AdamW on one device, on the plain versions of the model's
+kernels (``use_pallas`` off), as the reference trains: the kernels have no
+backward.  :func:`sharded_train_step` is the same step on a rank of a
+``("pod", "data", "model")`` mesh (see its docstring).  The shape records
+(``batch_sds``, ``cache_sds``, ``decode_tokens_sds``) are tensors on the
+``meta`` device, and the sharding helpers resolve them against the
+logical-axis rules (``dist/partition.py``).  The reference's
+``prefill_step`` and ``serve_step`` serve only its dry run, which is not
+ported (ROADMAP.md Queue 1 item 3).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import math
+from typing import Any, Iterator, Sequence
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.configs import ShapeSpec
+from repro_torch.dist import partition
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import adamw
 
 
 def loss_and_grads(params, batch, *, cfg: ModelConfig,
-                   num_microbatches: int = 1):
+                   num_microbatches: int = 1,
+                   denoms: Sequence[torch.Tensor] | None = None,
+                   share: float = 1.0):
     """(metrics, float32 grads) of ``M.loss_fn`` at ``params``.  Gradients
     flow to detached aliases of the leaves (no copy, and the caller's
     tensors are not marked), so params need not require grad.  A leaf the
@@ -31,34 +42,37 @@ def loss_and_grads(params, batch, *, cfg: ModelConfig,
     batch's leading dim is cut into that many slices and their gradients
     and metrics are summed in float32 and divided by the count.  The model
     runs with ``cfg.use_pallas`` off: the kernels' plain, differentiable
-    versions."""
+    versions.  ``denoms`` (one a microbatch) and ``share`` make each
+    microbatch's loss a slice's part of a larger batch's
+    (``M.loss_fn``)."""
     cfg = dataclasses.replace(cfg, use_pallas=False)
     flat = adamw.leaves(params)
     alias = {id(t): t.detach().requires_grad_() for t in flat}
     live = M.map_params(lambda _, t: alias[id(t)], params)
     inputs = [alias[id(t)] for t in flat]
 
-    def one(b):
+    def one(b, denom):
         with torch.enable_grad():
-            total, metrics = M.loss_fn(live, b, cfg)
+            total, metrics = M.loss_fn(live, b, cfg, denom=denom, share=share)
             grads = torch.autograd.grad(total, inputs, allow_unused=True)
         grads = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
                  if g is None else g.to(torch.float32)
                  for t, g in zip(flat, grads)]
         return {k: v.detach() for k, v in metrics.items()}, grads
 
-    if num_microbatches <= 1:
-        metrics, grads = one(batch)
+    n = max(num_microbatches, 1)
+    denoms = [None] * n if denoms is None else list(denoms)
+    if n == 1:
+        metrics, grads = one(batch, denoms[0])
     else:
-        n = num_microbatches
         if any(v.shape[0] % n for v in batch.values()):
             raise ValueError(f"a batch of {batch['labels'].shape[0]} rows "
                              f"does not split into {n} microbatches")
         parts = [dict(zip(batch, vals)) for vals in
                  zip(*(v.chunk(n, dim=0) for v in batch.values()))]
         metrics, grads = _zero_metrics(flat[0].device), None
-        for b in parts:
-            m, g = one(b)
+        for b, denom in zip(parts, denoms):
+            m, g = one(b, denom)
             grads = g if grads is None else [a.add_(x)
                                              for a, x in zip(grads, g)]
             metrics = {k: metrics[k] + m[k] for k in metrics}
@@ -85,3 +99,292 @@ def _zero_metrics(device: torch.device | str = "cpu") -> dict[str, Any]:
         return torch.zeros((), dtype=torch.float32, device=device)
     return {"loss": zero(), "aux/load_balance": zero(), "aux/router_z": zero()}
 
+
+# ======================================================== the sharded step
+#: the mesh axes the batch splits over, outermost first
+DATA_AXES = ("pod", "data")
+
+
+def data_ways(mesh) -> int:
+    """The number of batch slices on ``mesh``: its pod x data size."""
+    return math.prod(mesh.shape[a] for a in DATA_AXES if a in mesh.shape)
+
+
+def data_index(mesh) -> int:
+    """This rank's batch slice: its (pod, data) coordinates, row-major."""
+    i = 0
+    for a in DATA_AXES:
+        if a in mesh.shape:
+            i = i * mesh.shape[a] + mesh.coord(a)
+    return i
+
+
+def loss_mode(cfg: ModelConfig, mesh, rows: int, seq_len: int,
+              num_microbatches: int = 1) -> str:
+    """How :func:`sharded_train_step` forms the loss of a batch of ``rows``
+    rows of ``seq_len`` tokens:
+    ``"split"`` when each data rank can run its slice of every microbatch
+    and the sum over the slices is the whole batch's loss (a dense model,
+    an MoE model whose dispatch groups fall within a slice), else
+    ``"global"``: every data rank runs the whole batch (an MoE model whose
+    routing and capacity span the batch, or rows that do not split
+    evenly)."""
+    d, n = data_ways(mesh), max(num_microbatches, 1)
+    if d == 1:
+        return "split"
+    if rows % (d * n):
+        return "global"
+    if cfg.family == "moe":
+        g = cfg.moe_groups
+        if not g or g % d or rows // n * seq_len % g:
+            return "global"
+    return "split"
+
+
+def _local_rows(x: torch.Tensor, d: int, i: int, n: int) -> torch.Tensor:
+    """Data slice ``i`` of ``d`` of every one of ``n`` microbatches of the
+    rows of ``x``, in microbatch order: microbatch j's slice is rows
+    ``j R/n + i R/(n d)`` onwards, ``R/(n d)`` of them."""
+    r = x.shape[0]
+    return x.reshape((n, d, r // (n * d)) + x.shape[1:])[:, i] \
+        .reshape((r // d,) + x.shape[1:])
+
+
+def _items(tree, path: tuple[str, ...] = ()) -> Iterator:
+    """(path, leaf) of a nested dict in sorted key order, the order of
+    ``adamw.leaves``."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _items(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _all_reduce_data(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed in place over the mesh's data ranks."""
+    for a in DATA_AXES:
+        if mesh.shape.get(a, 1) > 1:
+            dist.all_reduce(x, group=mesh.group(a))
+    return x
+
+
+def sharded_train_step(params, opt_state, batch, *, cfg: ModelConfig,
+                       opt_cfg: adamw.OptConfig, mesh, shardings,
+                       num_microbatches: int = 1):
+    """One optimizer step on a rank of ``mesh``, GSPMD's contract: the math
+    of :func:`train_step` on the global ``batch``.  ``params`` and
+    ``opt_state`` are this rank's shards (``shardings``: the params' tree
+    of :class:`~repro_torch.dist.partition.NamedSharding`; the moments lie
+    as the params), updated in place.
+
+    * The params are gathered whole, in their stored dtype, for the step;
+      compute along ``"model"`` is replicated.
+    * In ``"split"`` mode (:func:`loss_mode`) the rank runs its slice of
+      every microbatch's rows; each slice's loss divides its token sum by
+      the whole microbatch's token count (one all-reduce of the counts),
+      and its aux losses (an MoE model's, over its own dispatch groups) are
+      scaled by its share, so the sum over the data ranks is the whole
+      batch's.  In ``"global"`` mode every data rank runs the whole batch.
+    * The gradients are summed (split) or averaged (global) over the data
+      ranks, leaf by leaf; the global norm is taken on the whole gradient,
+      in the single-device step's order, then each leaf is cut to the
+      rank's shard and AdamW runs on the shards.
+
+    -> (params, opt_state, metrics): the metrics of :func:`train_step`, the
+    whole batch's, and ``mode``.  Its parts are ``train.gather``,
+    ``train.grads``, ``train.reduce`` and ``train.adamw`` spans (host time:
+    device work shows in the span where the host next waits for it, a
+    collective's copy to the host)."""
+    n = max(num_microbatches, 1)
+    rows, seq = batch["labels"].shape
+    mode = loss_mode(cfg, mesh, rows, seq, n)
+    with obs_trace.span("train.gather"):
+        full = partition.gather_tree(params, shardings)
+    with obs_trace.span("train.grads", mode=mode):
+        metrics, grads = _grads(full, batch, cfg, mesh, mode, n)
+    del full
+    whole = list(_items(grads))     # the only references: freed leaf by leaf
+    del grads
+    with obs_trace.span("train.reduce"):
+        grads, norm = _reduce_grads(whole, shardings, mesh, mode)
+    with obs_trace.span("train.adamw"):
+        params, opt_state, opt_metrics = adamw.adamw_update(
+            grads, opt_state, params, opt_cfg, norm=norm)
+    return params, opt_state, {**metrics, **opt_metrics, "mode": mode}
+
+
+def _grads(full, batch, cfg: ModelConfig, mesh, mode: str, n: int):
+    """(metrics, whole float32 gradients) of this rank's part of the step:
+    its rows of every microbatch (split) or the whole batch (global)."""
+    d = data_ways(mesh)
+    rows = batch["labels"].shape[0]
+    if mode == "split" and d > 1:
+        i = data_index(mesh)
+        local = {k: _local_rows(v, d, i, n) for k, v in batch.items()}
+        mask = local.get("mask")
+        if mask is None:
+            counts = torch.full((n,), rows // n * local["labels"].shape[1],
+                                dtype=torch.float32, device=mesh.device)
+        else:
+            counts = _all_reduce_data(
+                torch.stack([m.sum() for m in mask.chunk(n, dim=0)])
+                .to(torch.float32), mesh)
+        lcfg = (dataclasses.replace(cfg, moe_groups=cfg.moe_groups // d)
+                if cfg.family == "moe" else cfg)
+        metrics, grads = loss_and_grads(
+            full, local, cfg=lcfg, num_microbatches=n,
+            denoms=list(torch.clamp(counts, min=1.0)), share=1.0 / d)
+        keys = sorted(metrics)
+        summed = _all_reduce_data(torch.stack([metrics[k] for k in keys]),
+                                  mesh)
+        return dict(zip(keys, summed.unbind())), grads
+    return loss_and_grads(full, batch, cfg=cfg, num_microbatches=n)
+
+
+def _reduce_grads(whole: list, shardings, mesh, mode: str):
+    """(this rank's shards of the gradients, the whole gradient's global
+    norm) from ``whole``, the (path, whole leaf) list in ``adamw.leaves``
+    order: each leaf summed (split) or averaged (global) over the data
+    ranks, its squares summed in the order of ``adamw.global_norm``, then
+    cut to the rank's shard and dropped from the list."""
+    d = data_ways(mesh)
+    by_path = dict(_items(shardings))
+    sumsq, local_grads = [], {}
+    for j, (path, g) in enumerate(whole):
+        whole[j] = None                 # the full leaf goes once it is cut
+        if d > 1:
+            _all_reduce_data(g, mesh)
+            if mode == "global":
+                g.div_(d)
+        sumsq.append(torch.sum(torch.square(g)))
+        local_grads[path] = by_path[path].local(g)
+        del g
+    return (M.map_params(lambda path, _: local_grads.pop(path), shardings),
+            torch.sqrt(sum(sumsq)))
+
+
+# =========================================================== shape records
+def _sds(shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_sds(cfg: ModelConfig, shape: ShapeSpec, *,
+              with_labels: bool = True) -> dict[str, torch.Tensor]:
+    """Shape records (``meta`` tensors) of a train or prefill batch."""
+    b, s = shape.global_batch, shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+    out: dict[str, torch.Tensor] = {}
+    if cfg.family == "enc_dec":
+        out["enc_embeds"] = _sds((b, cfg.enc_len, cfg.d_model), dt)
+        out["tokens"] = _sds((b, s), torch.int32)
+    elif cfg.input_mode == "embeddings":
+        out["embeds"] = _sds((b, s, cfg.d_model), dt)
+    else:
+        out["tokens"] = _sds((b, s), torch.int32)
+    if with_labels:
+        out["labels"] = _sds((b, s), torch.int32)
+    return out
+
+
+def cache_sds(cfg: ModelConfig, batch: int, max_len: int):
+    """Shape records of the decode caches, the structure of the port's
+    ``M.prefill`` output exactly (an encoder-decoder's ``cross`` is a
+    ``{'k', 'v'}`` dict, the reference's a tuple)."""
+    dt = getattr(torch, cfg.dtype)
+    kvl = M.kv_cache_len(cfg, max_len)
+
+    def kv(layers, length):
+        x = (layers, batch, length, cfg.n_kv_heads, cfg.hd)
+        return {"k": _sds(x, dt), "v": _sds(x, dt),
+                "len": _sds((layers,), torch.int32)}
+
+    def ssm_states(lead):
+        conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+        return {"conv": _sds(lead + (batch, cfg.conv_width - 1, conv_ch), dt),
+                "ssd": _sds(lead + (batch, cfg.ssm_heads, cfg.ssm_state,
+                                    cfg.ssm_headdim), torch.float32)}
+
+    if cfg.family in M.ATTENTION_FAMILIES:
+        return kv(cfg.n_layers, kvl)
+    if cfg.family == "ssm":
+        return ssm_states((cfg.n_layers,))
+    if cfg.family == "hybrid":
+        n_groups = cfg.n_layers // cfg.hybrid_group
+        trailing = cfg.n_layers % cfg.hybrid_group
+        out = {"mamba": ssm_states((n_groups, cfg.hybrid_group)),
+               "attn": kv(n_groups, kvl)}
+        if trailing:
+            out["trailing"] = ssm_states((trailing,))
+        return out
+    if cfg.family == "enc_dec":
+        x = (cfg.dec_layers, batch, cfg.enc_len, cfg.n_kv_heads, cfg.hd)
+        return {"self": kv(cfg.dec_layers, kvl),
+                "cross": {"k": _sds(x, dt), "v": _sds(x, dt)}}
+    raise ValueError(cfg.family)
+
+
+def decode_tokens_sds(batch: int) -> torch.Tensor:
+    return _sds((batch,), torch.int32)
+
+
+def param_sds(cfg: ModelConfig, dtype: torch.dtype | None = None):
+    """Shape records of the param tree (``cfg.param_dtype`` unless
+    ``dtype``)."""
+    dt = dtype or getattr(torch, cfg.param_dtype)
+    return M.map_params(lambda _, shape: _sds(shape, dt), M.param_shapes(cfg))
+
+
+# ------------------------------------------------------------- shardings
+BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+              "mask": ("batch", "seq"),
+              "embeds": ("batch", "seq", None),
+              "enc_embeds": ("batch", "seq", None)}
+
+
+def batch_shardings(batch_tree, mesh, rules: dict[str, Any] | None = None):
+    """The batch's NamedShardings by :data:`BATCH_AXES`; ``rules`` as in
+    :func:`param_shardings`."""
+    rules = partition.scope_rules(rules)
+    return {k: partition.named_sharding(BATCH_AXES[k], mesh,
+                                        shape=tuple(v.shape), rules=rules)
+            for k, v in batch_tree.items()}
+
+
+#: the reference's launch-side name of ``M.cache_logical_axes`` (the table
+#: lives with the cache layouts), kept for parity with it
+cache_axes = M.cache_logical_axes
+
+
+def cache_shardings(cfg: ModelConfig, mesh, batch: int, max_len: int,
+                    rules: dict[str, Any] | None = None):
+    """The decode caches' tree of NamedShardings; ``rules`` as in
+    :func:`param_shardings`."""
+    return partition.tree_shardings(M.cache_logical_axes(cfg), mesh,
+                                    sds_tree=cache_sds(cfg, batch, max_len),
+                                    rules=partition.scope_rules(rules))
+
+
+def param_shardings(cfg: ModelConfig, mesh,
+                    rules: dict[str, Any] | None = None):
+    """The params' tree of NamedShardings, from ``M.param_logical_axes``
+    at the params' shapes, under ``rules``, else under the innermost
+    ``partition.mesh_rules`` scope's (``DEFAULT_RULES`` outside one)."""
+    return partition.tree_shardings(M.param_logical_axes(cfg), mesh,
+                                    sds_tree=param_sds(cfg),
+                                    rules=partition.scope_rules(rules))
+
+
+def opt_shardings(pshard, mesh):
+    return {"mu": pshard, "nu": pshard,
+            "step": partition.named_sharding((), mesh, shape=())}
+
+
+# ------------------------------------------------------------ microbatching
+def pick_microbatches(cfg: ModelConfig, shape: ShapeSpec, mesh) -> int:
+    """Default microbatch count: keep per-device live tokens bounded."""
+    per_dev_tokens = shape.global_batch * shape.seq_len / data_ways(mesh)
+    target = 64 * 1024                      # tokens per device per microbatch
+    n = max(1, int(per_dev_tokens // target))
+    while shape.global_batch % n:
+        n -= 1
+    return n

@@ -46,7 +46,7 @@ them, and return the same dict.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -233,7 +233,9 @@ def serve_cache_axes(cfg: ModelConfig) -> dict[str, Any]:
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0,
             device: str | torch.device = "cuda",
-            dtype: torch.dtype | None = None) -> Params:
+            dtype: torch.dtype | None = None,
+            keep: Callable[[tuple[str, ...], torch.Tensor], torch.Tensor]
+            | None = None) -> Params:
     """Random weights from ``seed``, with ``repro``'s init scales: normal
     times 1 (embed, dec_embed), d**-0.5 (lm_head, wq, wk, wv, w_gate, w_up,
     router), (n_heads*hd)**-0.5 (wo), d_ff**-0.5 (w_down); norm gains are
@@ -244,7 +246,9 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
     to the compute dtype as the reference does); :data:`F32_LEAVES` stay
     float32.  Each leaf is allocated in its stored dtype and drawn in
     float32, a stacked leaf past :data:`DRAW_WHOLE` elements one slice of
-    its leading axis at a time."""
+    its leading axis at a time.  ``keep(path, leaf)``, when given, replaces
+    each whole leaf as soon as it is drawn (a rank of a mesh keeps its
+    shard), so the draws, and the weights, are those of the whole model."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or compute_dtype(cfg)
@@ -283,7 +287,10 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
             heads[cfg.n_heads:] = 0
         return out
 
-    return map_params(make, param_shapes(cfg))
+    if keep is None:
+        return map_params(make, param_shapes(cfg))
+    return map_params(lambda path, shape: keep(path, make(path, shape)),
+                      param_shapes(cfg))
 
 
 def _embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -366,12 +373,20 @@ def forward(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig):
 
 
 # ===================================================================== loss
-def loss_fn(p: Params, batch: dict[str, torch.Tensor], cfg: ModelConfig):
+def loss_fn(p: Params, batch: dict[str, torch.Tensor], cfg: ModelConfig, *,
+            denom: torch.Tensor | None = None, share: float = 1.0):
     """-> (total, metrics): the masked mean token cross-entropy over float32
     logits (the mask's sum clamped at 1) plus the aux losses, and the
     metrics ``loss``, ``aux/load_balance`` and ``aux/router_z``.
     ``cfg.logits_microbatch > 1`` takes the cross-entropy over that many
-    chunks of the sequence, as the reference does."""
+    chunks of the sequence, as the reference does.
+
+    For a slice of a larger batch (a data-parallel rank's rows): ``denom``
+    is the whole batch's token count (its mask's sum, clamped at 1) and
+    ``share`` the slice's share of the batch's rows; the loss divides the
+    slice's token sum by ``denom`` and the aux losses are scaled by
+    ``share``, so each term and metric summed over the slices is the whole
+    batch's."""
     logits, aux = forward(p, batch, cfg)
     labels = batch["labels"].long()
     mask = batch.get("mask")
@@ -387,11 +402,15 @@ def loss_fn(p: Params, batch: dict[str, torch.Tensor], cfg: ModelConfig):
                 labels.chunk(cfg.logits_microbatch, dim=1))], dim=1)
     else:
         token_loss = _xent(lf, labels)
-    if mask is not None:
-        denom = torch.clamp(mask.sum(), min=1.0)
-        loss = (token_loss * mask).sum() / denom
+    if denom is not None:
+        loss = (token_loss if mask is None else token_loss * mask).sum() \
+            / denom
+    elif mask is not None:
+        loss = (token_loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     else:
         loss = token_loss.mean()
+    if share != 1.0:
+        aux = {k: v * share for k, v in aux.items()}
     total = loss + sum(aux.values())
     metrics = {"loss": loss, **{f"aux/{k}": v for k, v in aux.items()}}
     return total, metrics

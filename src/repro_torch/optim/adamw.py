@@ -73,10 +73,14 @@ def global_norm(tree: Any) -> torch.Tensor:
                           for x in leaves(tree)))
 
 
-def clip_by_global_norm(grads: Any, max_norm: float):
+def clip_by_global_norm(grads: Any, max_norm: float,
+                        norm: torch.Tensor | None = None):
     """(grads scaled to at most ``max_norm`` in float32, their norm).  A
-    float32 gradient is scaled in place: ``grads`` is consumed."""
-    norm = global_norm(grads)
+    float32 gradient is scaled in place: ``grads`` is consumed.  ``norm``,
+    when given, is the norm to clip by (a shard's gradients are clipped by
+    the whole gradient's)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
     def clip(_, g):
@@ -86,11 +90,12 @@ def clip_by_global_norm(grads: Any, max_norm: float):
 
 @torch.no_grad()
 def adamw_update(grads: Any, state: dict[str, Any], params: Any,
-                 cfg: OptConfig):
+                 cfg: OptConfig, *, norm: torch.Tensor | None = None):
     """One AdamW step -> (params, state, metrics), params and state updated
     in place and returned.  ``grads`` is consumed: a float32 gradient is
-    clipped in place."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    clipped in place.  ``norm`` is the global norm to clip by where
+    ``grads`` is a shard of the gradient (default: ``grads``' own)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm)
     state["step"].add_(1)
     step = state["step"]
     lr = lr_at(step, cfg)

@@ -15,7 +15,16 @@ falls back to the previous verified step.  Whatever the loop raises, it
 first joins its in-flight checkpoint write, so a relaunch never reads a
 directory that a writer is still changing.
 
-The port runs on one device: a ``mesh`` raises (ROADMAP.md Queue 1 item 2).
+On a mesh (``launch/mesh.py``; one process a rank, every rank runs this
+loop) each rank holds its shards of the params and moments, laid out by
+``steps.param_shardings`` under the rules of the caller's
+``partition.mesh_rules`` scope (``DEFAULT_RULES`` outside one), and takes
+the sharded step (``steps.sharded_train_step``) on the global batch.
+Checkpoints are whole arrays written by the mesh's first rank, and a
+restore reshards them onto the current mesh.
+The FT verdict is the first rank's: it decides and broadcasts, so every
+rank raises the same failure at the same step.  A rank that an elastic
+reshape leaves out of the mesh returns at once (``outside_mesh``).
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ from typing import Any, Callable, Collection
 
 import torch
 
-from repro_torch.checkpoint.ckpt import CheckpointManager
+from repro_torch.checkpoint.ckpt import CheckpointManager, flatten
 from repro_torch.data.pipeline import DataConfig, batch_for_model
 from repro_torch.ft.chaos import ChaosEngine
 from repro_torch.ft.errors import (NonFiniteLossError, ReshapeRequired,
@@ -63,27 +72,33 @@ class TrainConfig:
     device: str = "cuda"
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "repro_torch trains on one device; meshes are ROADMAP.md "
-            "Queue 1 item 2 (distribution)")
+def state_shardings(mcfg: ModelConfig, mesh) -> dict[str, Any]:
+    """The NamedShardings of ``{"params": ..., "opt": ...}`` on ``mesh``."""
+    pshard = steps.param_shardings(mcfg, mesh)
+    return {"params": pshard, "opt": steps.opt_shardings(pshard, mesh)}
 
 
 def make_train_state(mcfg: ModelConfig, mesh=None, seed: int = 0, *,
                      device: str | torch.device = "cuda"):
     """(params, opt_state): the port's own seeded init (torch cannot
     reproduce ``jax.random``), with ``cfg.param_dtype`` master weights and
-    float32 moments."""
-    _no_mesh(mesh)
-    params = M.init_lm(mcfg, seed=seed, device=device,
-                       dtype=getattr(torch, mcfg.param_dtype))
+    float32 moments.  On a mesh, on the mesh's device, each leaf is drawn
+    whole, as on one device, and only this rank's shard of it is kept."""
+    if mesh is None:
+        params = M.init_lm(mcfg, seed=seed, device=device,
+                           dtype=getattr(torch, mcfg.param_dtype))
+        return params, adamw.init_opt_state(params)
+    pshard = flatten(steps.param_shardings(mcfg, mesh))
+    params = M.init_lm(
+        mcfg, seed=seed, device=mesh.device,
+        dtype=getattr(torch, mcfg.param_dtype),
+        keep=lambda path, full: pshard["/".join(path)].local(full))
     return params, adamw.init_opt_state(params)
 
 
-def _restore(ckpt: CheckpointManager, params, opt_state):
+def _restore(ckpt: CheckpointManager, params, opt_state, shardings=None):
     """Newest VERIFIED checkpoint (corrupt steps are skipped, counted, and
-    fall back)."""
+    fall back), resharded onto the current mesh with ``shardings``."""
     corrupt = obs_metrics.active_registry().counter("ft.ckpt_corrupt")
 
     def on_corrupt(step: int) -> None:
@@ -93,7 +108,7 @@ def _restore(ckpt: CheckpointManager, params, opt_state):
               f"falling back")
 
     step, state = ckpt.restore_latest({"params": params, "opt": opt_state},
-                                      on_corrupt=on_corrupt)
+                                      shardings, on_corrupt=on_corrupt)
     if step is None:
         return 0, params, opt_state
     print(f"[train] resumed from step {step}")
@@ -121,13 +136,23 @@ def train(mcfg: ModelConfig, dcfg: DataConfig, tcfg: TrainConfig,
     losses.  With ``ft`` given, every step heartbeats all workers and
     consults ``ft.decide()``; RESTART/ELASTIC verdicts raise for the
     supervisor to handle.  A step's time ``train.step_s`` is taken after
-    the device has finished it.
+    the device has finished it.  With ``mesh`` this rank trains its shards
+    on the mesh's device (see the module docstring); a rank outside the
+    mesh returns at once with ``outside_mesh`` set and no state.
     """
-    _no_mesh(mesh)
-    device = M.resolve_device(tcfg.device)
+    if mesh is not None and not mesh.contains:
+        print(f"[train] rank {mesh.rank} is outside the "
+              f"{list(mesh.shape.values())} mesh; leaving the loop")
+        return {"history": [], "params": None, "opt_state": None,
+                "step": None, "final_loss": float("nan"),
+                "outside_mesh": True}
+    device = M.resolve_device(tcfg.device) if mesh is None else mesh.device
     ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.ckpt_keep)
-    params, opt_state = make_train_state(mcfg, seed=tcfg.seed, device=device)
-    start_step, params, opt_state = _restore(ckpt, params, opt_state)
+    shardings = None if mesh is None else state_shardings(mcfg, mesh)
+    params, opt_state = make_train_state(mcfg, mesh, tcfg.seed, device=device)
+    start_step, params, opt_state = _restore(ckpt, params, opt_state,
+                                             shardings)
+    writer = mesh is None or mesh.rank == 0
 
     history: Any = (deque(maxlen=tcfg.log_history)
                     if tcfg.log_history is not None else [])
@@ -145,11 +170,18 @@ def train(mcfg: ModelConfig, dcfg: DataConfig, tcfg: TrainConfig,
             batch = batch_for_model(mcfg, dcfg, data_step, device=device)
             t0 = time.perf_counter()
             with obs_trace.span("train.step", step=step) as sp:
-                params, opt_state, metrics = steps.train_step(
-                    params, opt_state, batch, cfg=mcfg, opt_cfg=ocfg,
-                    num_microbatches=tcfg.num_microbatches)
+                if mesh is None:
+                    params, opt_state, metrics = steps.train_step(
+                        params, opt_state, batch, cfg=mcfg, opt_cfg=ocfg,
+                        num_microbatches=tcfg.num_microbatches)
+                else:
+                    params, opt_state, metrics = steps.sharded_train_step(
+                        params, opt_state, batch, cfg=mcfg, opt_cfg=ocfg,
+                        mesh=mesh, shardings=shardings["params"],
+                        num_microbatches=tcfg.num_microbatches)
                 _sync(device)
-                metrics = {k: float(v) for k, v in metrics.items()}
+                metrics = {k: v if isinstance(v, str) else float(v)
+                           for k, v in metrics.items()}
                 sp["loss"] = metrics.get("loss")
             dt = time.perf_counter() - t0
             loss = metrics.get("loss", 0.0)
@@ -166,8 +198,9 @@ def train(mcfg: ModelConfig, dcfg: DataConfig, tcfg: TrainConfig,
             h_step.record(dt)
             g_loss.set(loss)
             if ft is not None:
-                _heartbeat_and_decide(ft, chaos, step, dt)
-            if (step + 1) % tcfg.log_every == 0 or step == start_step:
+                _heartbeat_and_decide(ft, chaos, step, dt, mesh)
+            if writer and ((step + 1) % tcfg.log_every == 0
+                           or step == start_step):
                 print(f"[train] step {step + 1}/{tcfg.total_steps} "
                       f"loss={metrics['loss']:.4f} "
                       f"lr={metrics['lr']:.2e} {dt * 1e3:.0f}ms")
@@ -179,10 +212,12 @@ def train(mcfg: ModelConfig, dcfg: DataConfig, tcfg: TrainConfig,
                 with obs_trace.span("train.checkpoint", step=step + 1) as sp:
                     sp["blocked_s"] = ckpt.save(
                         step + 1, {"params": params, "opt": opt_state},
-                        blocking=not tcfg.async_ckpt)
+                        blocking=not tcfg.async_ckpt,
+                        shardings=shardings)
                 if chaos is not None and chaos.wants_corrupt(step + 1):
                     ckpt.wait()            # the fault hits a finished write
-                    chaos.corrupt_checkpoint(tcfg.ckpt_dir, step + 1)
+                    if writer:
+                        chaos.corrupt_checkpoint(tcfg.ckpt_dir, step + 1)
     finally:
         ckpt.wait()
     history = list(history)
@@ -192,15 +227,31 @@ def train(mcfg: ModelConfig, dcfg: DataConfig, tcfg: TrainConfig,
 
 
 def _heartbeat_and_decide(ft: FTManager, chaos: ChaosEngine | None,
-                          step: int, dt: float) -> None:
-    """Feed this step's heartbeats (all workers — this single-process loop
-    stands in for the fleet) and act on the coordinator's verdict."""
+                          step: int, dt: float, mesh=None) -> None:
+    """Feed this step's heartbeats (all workers — the loop stands in for
+    the fleet) and act on the coordinator's verdict.  On a mesh the first
+    rank's manager decides and broadcasts its verdict, and the others adopt
+    it: ranks that read their own clocks would disagree on time-outs and
+    stragglers, and then wait in different collectives."""
     for w in ft.workers:
         if chaos is not None and chaos.heartbeat_suppressed(w):
             continue
         factor = chaos.latency_factor(w, step) if chaos is not None else 1.0
         ft.heartbeat(w, dt * factor)
-    action, info = ft.decide()
+    if mesh is None or mesh.size == 1:
+        action, info = ft.decide()
+    else:
+        verdict = None
+        if mesh.rank == 0:
+            try:
+                verdict = ft.decide()
+            except RuntimeError as e:   # the budget, raised on every rank
+                verdict = (None, {"error": str(e)})
+        action, info = mesh.broadcast_object(verdict)
+        if action is None:
+            raise RuntimeError(info["error"])
+        if mesh.rank != 0:
+            ft.adopt(action, info)
     if action is Action.RESTART_FROM_CKPT:
         raise RestartRequired(f"worker(s) {info.get('dead')} died at "
                               f"step {step}", step=step, info=info)

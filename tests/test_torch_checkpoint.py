@@ -120,6 +120,34 @@ class TestRestoreFallback:
         assert mgr.all_steps() == [1]
         assert mgr.latest_step() == 1
 
+    def test_restore_latest_reads_and_hashes_each_array_once(
+            self, tmp_path, monkeypatch):
+        """A corrupt newest step and the fallback: each step's arrays are
+        read from the file and hashed once (a restore used to verify,
+        verify again, then load)."""
+        from repro_torch.checkpoint import ckpt as tckpt
+        mgr = CheckpointManager(str(tmp_path), keep=5)
+        mgr.save(1, _tree(1))
+        mgr.save(2, _tree(2))
+        corrupt_checkpoint_dir(str(tmp_path / "step_00000002"), "bitflip")
+        hashed, loads = [], []
+        sha, load = tckpt._sha, np.load
+        monkeypatch.setattr(tckpt, "_sha",
+                            lambda a: hashed.append(a.nbytes) or sha(a))
+        monkeypatch.setattr(tckpt.np, "load",
+                            lambda *a, **k: loads.append(a[0]) or
+                            load(*a, **k))
+        seen = []
+        step, restored = mgr.restore_latest(_tree(), on_corrupt=seen.append)
+        assert step == 1 and seen == [2]
+        _assert_tree_equal(restored, _tree(1))
+        n = len(flatten(_tree()))
+        assert len(loads) == 2                  # one open a step
+        assert len(hashed) <= 2 * n             # the damaged read may stop
+        hashed.clear()
+        _assert_tree_equal(mgr.restore(1, _tree()), _tree(1))
+        assert len(loads) == 3 and len(hashed) == n
+
     def test_restore_missing_leaf_raises(self, tmp_path):
         mgr = CheckpointManager(str(tmp_path))
         mgr.save(1, {"a": torch.zeros(3)})

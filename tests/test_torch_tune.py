@@ -155,11 +155,26 @@ def test_train_launcher_trains_on_cpu(tmp_path):
     assert float(last.group(1)) < float(first.group(1))
 
 
-def test_train_launcher_refuses_a_mesh():
+def test_train_launcher_trains_on_a_host_mesh(tmp_path):
+    """``--mesh host`` over 2 CPU ranks: sharded steps on a (2, 1) mesh, a
+    checkpoint, and one ``done`` line from rank 0."""
     res = _run("train", "--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
-               "--steps", "1", "--mesh", "host", check=False)
+               "--mesh", "host", "--ranks", "2", "--steps", "3", "--batch",
+               "4", "--seq", "16", "--ckpt-every", "2", "--ckpt-dir",
+               str(tmp_path / "ck"))
+    done = re.findall(r"\[train\] done: final loss ([0-9.]+) at step 3.*"
+                      r"mesh=\[2, 1\]", res.stdout)
+    assert len(done) == 1, res.stdout
+    assert sorted(os.listdir(tmp_path / "ck")) == ["LATEST", "step_00000002",
+                                                   "step_00000003"]
+
+
+def test_train_launcher_refuses_a_production_mesh():
+    res = _run("train", "--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+               "--steps", "1", "--mesh", "single", "--ranks", "2",
+               check=False)
     assert res.returncode != 0
-    assert "NotImplementedError" in res.stderr and "ROADMAP" in res.stderr
+    assert "--mesh single needs 256 ranks" in res.stderr
 
 
 def test_autotune_daemon_tunes_a_recorded_stream(tmp_path):

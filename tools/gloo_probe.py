@@ -9,8 +9,16 @@ Prints the card's name and power limit, then one JSON line per rank:
 (int8 and float32, as ``compressed_all_reduce`` calls it), broadcast and
 ``init_device_mesh("cuda")``, and ``all_reduce_ms`` at (8, 1, 2048) and
 (1, 384, 2048) bf16: the mean of 20 calls after 3, host clock around a
-synchronized loop.  Ranks run through ``repro_torch.dist.spawn``, which
-picks gloo for ranks that share a card.
+synchronized loop.  Then what sharded training uses: ``ok``/``err`` of
+``reduce_scatter``, ``reduce_scatter_tensor`` and
+``all_gather_into_tensor`` on CUDA tensors, and
+``bulk_ms``: all-gather (list form) and all-reduce of 256 MB and 1 GB
+float32 and bfloat16 buffers, the mean of 2 calls after 1, with the rate
+in GB/s of buffer bytes a rank; each rank prints these at once.  Last,
+``send``/``recv`` of a CPU tensor and of a CUDA tensor, and one more line
+a rank (or ``job_failed`` when the CUDA send broke the connection).  Ranks
+run through
+``repro_torch.dist.spawn``, which picks gloo for ranks that share a card.
 """
 
 from __future__ import annotations
@@ -81,7 +89,81 @@ def _rank(rank: int, n: int) -> dict:
     _trial(out, "init_device_mesh", device_mesh)
     out["all_reduce_ms"] = {str(s): seconds(s)
                             for s in ((8, 1, 2048), (1, 384, 2048))}
-    return out
+
+    def reduce_scatter():
+        parts = [torch.full((3,), rank + 1.0, device=dev) for _ in range(n)]
+        x = torch.empty(3, device=dev)
+        dist.reduce_scatter(x, parts)
+        return x.tolist()
+
+    def reduce_scatter_tensor():
+        x = torch.empty(3, device=dev)
+        dist.reduce_scatter_tensor(x, torch.full((3 * n,), rank + 1.0,
+                                                 device=dev))
+        return x.tolist()
+
+    def all_gather_into_tensor():
+        x = torch.empty(3 * n, device=dev)
+        dist.all_gather_into_tensor(x, torch.full((3,), rank + 1.0,
+                                                  device=dev))
+        return x.tolist()
+
+    def send_recv():
+        x = torch.full((4,), rank + 1.0, device=dev)
+        if rank == 0:
+            dist.send(x, 1)
+        elif rank == 1:
+            dist.recv(x, 0)
+        return x.tolist()
+
+    def send_recv_staged():
+        x = torch.full((4,), rank + 1.0)
+        if rank == 0:
+            dist.send(x, 1)
+        elif rank == 1:
+            dist.recv(x, 0)
+        return x.to(dev).tolist()
+
+    _trial(out, "reduce_scatter", reduce_scatter)
+    _trial(out, "reduce_scatter_tensor", reduce_scatter_tensor)
+    _trial(out, "all_gather_into_tensor", all_gather_into_tensor)
+
+    def bulk(op, nbytes, dtype):
+        x = torch.ones(nbytes // dtype.itemsize, dtype=dtype, device=dev)
+        if op == "all_gather":
+            parts = [torch.empty_like(x) for _ in range(n)]
+            call = lambda: dist.all_gather(parts, x)   # noqa: E731
+        else:
+            call = lambda: dist.all_reduce(x)          # noqa: E731
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            call()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 2 * 1e3
+        del x
+        torch.cuda.empty_cache()
+        return {"ms": ms, "gb_s": nbytes / ms / 1e6}
+
+    out["bulk_ms"] = {}
+    for op in ("all_gather", "all_reduce"):
+        for nbytes in (256 << 20, 1 << 30):
+            for dt in (torch.float32, torch.bfloat16):
+                key = f"{op}_{nbytes >> 20}MB_{dt}"
+                try:
+                    out["bulk_ms"][key] = bulk(op, nbytes, dt)
+                except RuntimeError as e:
+                    out["bulk_ms"][key] = {"err": f"{e}"[:300]}
+    # last: a failed send can break the ranks' connection for good, so
+    # what came before is printed first
+    print(json.dumps(out), flush=True)
+    _trial(out, "send_recv_cpu_staged",
+           lambda: send_recv_staged())
+    _trial(out, "send_recv", send_recv)
+    dist.barrier()
+    return {"rank": rank, "send_recv_cpu_staged":
+            out["send_recv_cpu_staged"], "send_recv": out["send_recv"]}
 
 
 def main() -> int:
@@ -96,9 +178,12 @@ def main() -> int:
                          text=True, check=True).stdout.strip())
     print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
                       "device_count": torch.cuda.device_count()}))
-    for out in spawn.run(_rank, args.ranks, args=(args.ranks,),
-                         device="cuda", timeout_s=60, deadline_s=300):
-        print(json.dumps(out))
+    try:
+        for out in spawn.run(_rank, args.ranks, args=(args.ranks,),
+                             device="cuda", timeout_s=300, deadline_s=900):
+            print(json.dumps(out))
+    except RuntimeError as e:      # a send/recv that broke the connection
+        print(json.dumps({"job_failed": f"{e}"[-600:]}))
     return 0
 
 
