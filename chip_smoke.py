@@ -9,7 +9,10 @@ contexts) at full width through the contiguous one, serve qwen3-1.7b
 tensor-parallel over 2 ranks (processes sharing the one card over gloo;
 exact and int8-compressed seams) and hold 2- and 4-rank serving to
 one-device generation, hold qwen3 with padded
-heads to the unpadded model, train qwen3-1.7b at full width (AdamW, float32
+heads to the unpadded model, serve mamba2-2.7b at full width over 2 ranks
+through the GSPMD layout (each rank its blocks, a layer gathered at a
+time) and zamba2, seamless and padded or forced qwen3 at small depth
+against one-device generation, tune live beside a 2-rank qwen3 engine, train qwen3-1.7b at full width (AdamW, float32
 master weights, bf16 compute; no kernel launches on the training path, as
 the reference trains with none), hold training on the card to the CPU's,
 resume a crashed supervised run from its checkpoint to the uninterrupted
@@ -51,8 +54,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs, kernels, obs  # noqa: E402
 from repro_torch.autotune import (AutotuneConfig, AutotuneService,  # noqa: E402
-                                  EventLog, load_events, recorder_source,
-                                  serve_targets, validate_events)
+                                  EventLog, Staging, load_events,
+                                  recorder_source, serve_targets,
+                                  validate_events)
 from repro_torch.core import (Schedule, ScheduleCache, SipKernel,  # noqa: E402
                               TuneConfig, registry, schedule_cache)
 from repro_torch.core.energy import (UnassemblableSchedule,  # noqa: E402
@@ -82,6 +86,7 @@ from repro_torch.kernels.ssd import kernel as sk  # noqa: E402
 from repro_torch.kernels.ssd import ops as sk_ops  # noqa: E402
 from repro_torch.kernels.ssd import ref as sk_ref  # noqa: E402
 from repro_torch.launch import obsreport as obsreport_cli  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch import tune as tune_cli  # noqa: E402
 from repro_torch.launch import verify as verify_cli  # noqa: E402
@@ -2629,6 +2634,376 @@ def phase_differential_tp() -> dict:
     return out
 
 
+# ===================================================== serving on a mesh, 2
+#: serve_gspmd: mamba2-2.7b at full width on the contiguous engine, the
+#: first requests of ``_ssm_requests`` with their budgets cut (a dispatch
+#: gathers the whole model, a layer at a time, over gloo)
+GSPMD_SERVE = ServeConfig(max_len=512, capacity=4)
+GSPMD_REQUESTS, GSPMD_NEW = 3, 3
+#: the job that runs serve_gspmd, differential_gspmd and autotune_tp: its
+#: ranks, and the seconds it may take in all
+MESH_RANKS, MESH_DEADLINE_S = 2, 400.0
+#: autotune_tp's requests (of ``_serve_requests``: 115, 80, 104 and 31
+#: tokens, each a whole-prompt prefill at batch 1), their budget, and the
+#: seconds the service may take to get a promotion served
+AUTOTUNE_TP_REQUESTS, AUTOTUNE_TP_NEW, AUTOTUNE_TP_LIMIT_S = \
+    (3, 8, 16, 5), 6, 150.0
+
+
+def _gb(tree) -> float:
+    return sum(t.numel() * t.element_size()
+               for t in flatten(tree).values()) / 1e9
+
+
+def _gspmd_requests(vocab: int):
+    prompts, _ = _ssm_requests(vocab)
+    return prompts[:GSPMD_REQUESTS], [GSPMD_NEW] * GSPMD_REQUESTS
+
+
+def _timed_run(eng: ContinuousEngine, prompts, budgets,
+               extras=None) -> dict:
+    """The requests, submitted at once, through ``eng`` until it drains,
+    traced: every request's tokens, the wall, decode step p50, the
+    dispatches and the kernels' launches."""
+    extras = extras or [None] * len(prompts)
+    tracer = obs.Tracer()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with obs.tracing(tracer):
+        handles = [eng.submit(p, b, extra=e)
+                   for p, b, e in zip(prompts, budgets, extras)]
+        eng.run(max_steps=10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = tracer.events()
+    decode_us = [e["dur"] for e in events if e["name"] == "serve.decode"]
+    tokens = [list(r.tokens) for r in handles]
+    return {"tokens": tokens, "wall_s": wall,
+            "tokens_per_s": sum(map(len, tokens)) / wall,
+            "decode_step_p50_ms": float(np.percentile(decode_us, 50)) / 1e3,
+            "prefill_dispatches": sum(e["name"] == "serve.prefill"
+                                      for e in events),
+            "decode_steps": len(decode_us), "launches": row_launches()}
+
+
+def gspmd_one_device(params, cfg) -> dict:
+    """``serve_gspmd``'s requests through a one-device engine of its
+    ``ServeConfig`` on this card (mamba2-2.7b's ``serve_ssm`` weights):
+    the tokens its ranks must give, bitwise, and the times beside
+    theirs."""
+    prompts, budgets = _gspmd_requests(cfg.vocab)
+    return _timed_run(ContinuousEngine(params, cfg, GSPMD_SERVE), prompts,
+                      budgets)
+
+
+def _serve_gspmd_rank(mesh) -> dict:
+    """``serve_gspmd`` on one rank: mamba2-2.7b at full width, bf16, seed
+    0, on the contiguous engine over the mesh (``tp_mode`` auto: the
+    GSPMD path), its blocks at rest, its peak, and the bytes a dispatch
+    gathers."""
+    cfg = configs.get("mamba2-2.7b")
+    params = M.init_lm(cfg, seed=0, device=mesh.device)
+    full_gb = _gb(params)
+    eng = ContinuousEngine(params, cfg, GSPMD_SERVE, mesh=mesh)
+    del params          # the rank keeps only its blocks
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = {"params_gb": _gb(eng.params), "caches_gb": _gb(eng.caches)}
+    out = _timed_run(eng, *_gspmd_requests(cfg.vocab))
+    dispatches = out["prefill_dispatches"] + out["decode_steps"]
+    out.update(tp_path=eng.tp_path, tp_reason=eng.tp_reason,
+               full_params_gb=full_gb, resident_gb=resident,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               gathered_gb_per_dispatch=eng.layout.gathered_bytes / 1e9
+               / dispatches)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _differential_gspmd_cases() -> list[dict]:
+    """``differential_gspmd``'s configs at full width, float32, depth cut:
+    zamba2 (one group of 6 with the shared block, one trailing block),
+    seamless (2 + 2 layers, each request its own 4,096-frame context),
+    qwen3 with 16 heads padded to 24 on the paged engine, and qwen3 forced
+    onto the GSPMD path on the paged engine (2 layers each); two requests
+    of one length each (one prefill group), 3 new tokens; and the rows
+    each config's path must launch."""
+    paged = ServeConfig(max_len=128, capacity=2, paged=True, page_size=16,
+                        prefill_chunk=64)
+    qwen3 = dataclasses.replace(configs.get("qwen3-1.7b"), n_layers=2,
+                                dtype="float32")
+    seamless = dataclasses.replace(configs.get("seamless-m4t-large-v2"),
+                                   enc_layers=2, dec_layers=2, n_layers=4,
+                                   dtype="float32")
+    cases = [
+        ("zamba2", dataclasses.replace(configs.get("zamba2-7b"), n_layers=7,
+                                       dtype="float32"),
+         ServeConfig(max_len=128, capacity=2), 23,
+         (sk.FUNCTION, "flash_attention_causal_f32")),
+        ("seamless", seamless, ServeConfig(max_len=64, capacity=2), 5,
+         ("flash_attention_f32", "flash_attention_causal_f32")),
+        ("padded", dataclasses.replace(qwen3, padded_heads=24), paged, 23,
+         ("flash_attention_causal_f32", "paged_gather")),
+        ("qwen3_gspmd", qwen3, dataclasses.replace(paged, tp_mode="gspmd"),
+         23, ("flash_attention_causal_f32", "paged_gather"))]
+    out = []
+    for i, (name, cfg, scfg, n, rows) in enumerate(cases):
+        rng = np.random.default_rng(40 + i)
+        prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+                   for _ in range(2)]
+        extras = (_enc_contexts(2, cfg, 50 + i) if cfg.family == "enc_dec"
+                  else [None, None])
+        out.append({"name": name, "cfg": cfg, "scfg": scfg,
+                    "prompts": prompts, "budgets": [3, 3], "extras": extras,
+                    "rows": rows})
+    return out
+
+
+def _differential_gspmd_rank(mesh) -> dict:
+    """``differential_gspmd`` on one rank: each case's requests through the
+    engine over the mesh (seed 1's weights): tokens, path, launches."""
+    out = {}
+    for case in _differential_gspmd_cases():
+        cfg = case["cfg"]
+        params = M.init_lm(cfg, seed=1, device=mesh.device)
+        eng = ContinuousEngine(params, cfg, case["scfg"], mesh=mesh,
+                               example_extra=case["extras"][0])
+        del params
+        run = _timed_run(eng, case["prompts"], case["budgets"],
+                         case["extras"])
+        out[case["name"]] = {"tokens": run["tokens"],
+                             "launches": run["launches"],
+                             "tp_path": eng.tp_path,
+                             "tp_reason": eng.tp_reason,
+                             "gathered_gb": eng.layout.gathered_bytes / 1e9}
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def _autotune_tp_rank(mesh) -> dict:
+    """``autotune_tp`` on one rank: qwen3-1.7b at full width on
+    ``SERVE_PAGED`` over the mesh (the manual path), as ``launch.serve
+    --autotune --mesh`` runs it: the service on the first rank only,
+    tuning what that rank dispatches (the engine's local config), its
+    promotions staged and applied by every rank at a step boundary
+    (``launch.serve.schedule_sync``).  A warm-up, a run without the
+    service (recorded, so the service starts from its mix), then runs
+    beside it until a promotion has swapped in and a promoted non-default
+    schedule has served on the first rank (its call, broadcast)."""
+    cfg = configs.get("qwen3-1.7b")
+    params = M.init_lm(cfg, seed=0, device=mesh.device)
+    every, _ = _serve_requests(cfg.vocab)
+    prompts = [every[i] for i in AUTOTUNE_TP_REQUESTS]
+    budgets = [AUTOTUNE_TP_NEW] * len(prompts)
+    lead = mesh.rank == 0
+    store = ScheduleCache()
+    recorder = obs.WorkloadRecorder() if lead else None
+    staging = Staging() if lead else None
+    sync = serve_cli.schedule_sync(mesh, store, staging)
+
+    def run(budgets, recorder=None):
+        tracer = obs.Tracer()
+        with schedule_cache(store), obs.tracing(tracer):
+            eng = ContinuousEngine(params, cfg, SERVE_PAGED,
+                                   recorder=recorder, mesh=mesh)
+            handles = [eng.submit(p, b) for p, b in zip(prompts, budgets)]
+            while not eng.pool.idle:
+                sync()
+                eng.step()
+        torch.cuda.current_stream().synchronize()
+        swaps = [e["args"]["step"] for e in tracer.events()
+                 if e["name"] == "serve.schedule_swap"]
+        return eng, {"tokens": [list(r.tokens) for r in handles],
+                     "schedule_swaps": eng.stats["schedule_swaps"],
+                     "swap_steps": swaps}
+
+    eng, _ = run([2] * len(prompts))
+    svc = None
+    if lead:
+        svc = AutotuneService(
+            store, source=recorder_source(recorder),
+            target_for=serve_targets(eng.cfg, eng.scfg),
+            config=AutotuneConfig(interval_s=1.0, budget=2, tune=LIVE_TUNE),
+            log=EventLog(), device=mesh.device.type, staging=staging)
+    local_heads = (eng.cfg.n_heads, eng.cfg.n_kv_heads)
+    del eng
+    baseline = run(budgets, recorder)[1]
+    reset_launches()
+    passes = []
+    t0 = time.perf_counter()
+    if svc is not None:
+        svc.start()
+    try:
+        while True:
+            passes.append(run(budgets, recorder)[1])
+            done = None
+            if svc is not None:
+                served = _promoted_served(store, list(svc.log.events))
+                done = bool(sum(p["schedule_swaps"] for p in passes)) and any(
+                    r["serving_launches"] and not r["default"]
+                    for r in served)
+                if not done and time.perf_counter() - t0 \
+                        > AUTOTUNE_TP_LIMIT_S:
+                    raise AssertionError(
+                        f"autotune_tp: no promoted non-default schedule "
+                        f"served within {AUTOTUNE_TP_LIMIT_S} s: swaps "
+                        f"{[p['schedule_swaps'] for p in passes]}, "
+                        f"promotions {served}, service {svc.metrics()}")
+            if mesh.broadcast_object(done):
+                break
+    finally:
+        if svc is not None:
+            svc.stop(timeout=None)
+    with_service_s = time.perf_counter() - t0
+    launches = row_launches()
+    events = mesh.broadcast_object(
+        [e for e in svc.log.events if e["kind"] in ("promoted", "error")]
+        if svc is not None else None)
+    out = {"baseline": baseline, "passes": passes,
+           "promoted": _promoted_served(store, events),
+           "errors": [e["error"] for e in events if e["kind"] == "error"],
+           "local_heads": local_heads, "launches": launches,
+           "with_service_s": with_service_s, "version": store.version}
+    if svc is not None:
+        out["service"] = svc.metrics()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_serve_rank(rank: int) -> dict:
+    """One rank of the mesh serving job: ``serve_gspmd``,
+    ``differential_gspmd`` and ``autotune_tp`` in turn."""
+    mesh = _tp_rank_setup(MESH_RANKS)
+    out = {"serve_gspmd": _serve_gspmd_rank(mesh)}
+    out["differential_gspmd"] = _differential_gspmd_rank(mesh)
+    out["autotune_tp"] = _autotune_tp_rank(mesh)
+    return {**out, "rank": rank, "device": str(mesh.device)}
+
+
+def phase_mesh_serving(one_device: dict) -> dict:
+    """The configs the manual path cannot shard, served on a ``("model",)``
+    mesh of 2 ranks through the GSPMD layout, and live autotuning beside
+    a sharded engine: one job of 2 ranks sharing this card over gloo
+    (NCCL refuses two ranks on one GPU), each phase its line.
+
+    * ``serve_gspmd``: mamba2-2.7b at full width, bf16, contiguous,
+      ``tp_mode`` auto.  Each rank keeps its ``SERVE_RULES`` blocks and
+      gathers a layer at a time; it must take the GSPMD path, launch the
+      SSD kernel once a layer and prefill dispatch, and give
+      ``gspmd_one_device``'s tokens bitwise, as the other rank does.
+      Resident GB at rest beside the whole model's, peak GB, GB gathered
+      a dispatch, decode step p50 and tokens/s, a rank.
+    * ``differential_gspmd``: ``_differential_gspmd_cases``, each token for
+      token ``Engine.generate`` on one device (computed here, seed 1),
+      each row of its path launched on both ranks.
+    * ``autotune_tp``: ``_autotune_tp_rank``; at least one promotion, the
+      same swaps at the same steps on both ranks, the promoted non-default
+      schedule launched on both after the swap, and every run's tokens
+      equal on both ranks and to the run without the service.
+
+    Two processes on one card, every gather through host memory: nothing
+    here measures serving across cards.  Returns the ranks' results."""
+    note = "2 ranks share 1 card over gloo: nothing of serving across cards"
+    refs = {}
+    for case in _differential_gspmd_cases():
+        params = M.init_lm(case["cfg"], seed=1, device="cuda")
+        ref = Engine(params, case["cfg"],
+                     ServeConfig(max_len=case["scfg"].max_len))
+        refs[case["name"]] = [ref.generate(p[None], b, extra_inputs=e and {
+            k: v[None] for k, v in e.items()})[0].tolist()
+            for p, b, e in zip(case["prompts"], case["budgets"],
+                               case["extras"])]
+        del params, ref
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn.run(_mesh_serve_rank, MESH_RANKS, device="cuda",
+                      timeout_s=TP_TIMEOUT_S, deadline_s=MESH_DEADLINE_S)
+    job_s = time.perf_counter() - t0
+
+    sg = [r["serve_gspmd"] for r in ranks]
+    n_layers = configs.get("mamba2-2.7b").n_layers
+    for o in sg:
+        if o["tp_path"] != "gspmd" or o["tokens"] != one_device["tokens"] \
+                or o["launches"][sk.FUNCTION] \
+                < n_layers * o["prefill_dispatches"]:
+            raise AssertionError(
+                f"serve_gspmd: path {o['tp_path']}, tokens {o['tokens']} "
+                f"(one device {one_device['tokens']}), launches "
+                f"{o['launches']} in {o['prefill_dispatches']} prefills")
+    keep = ("tokens_per_s", "decode_step_p50_ms", "wall_s", "peak_mem_gb",
+            "resident_gb", "gathered_gb_per_dispatch", "launches")
+    emit("serve_gspmd", arch="mamba2-2.7b", dtype="bfloat16",
+         n_layers=n_layers, requests=GSPMD_REQUESTS, new_tokens=GSPMD_NEW,
+         capacity=GSPMD_SERVE.capacity, mesh=[MESH_RANKS],
+         tp_path=sg[0]["tp_path"], tp_reason=sg[0]["tp_reason"],
+         token_identical_to_one_device=True,
+         full_params_gb=sg[0]["full_params_gb"],
+         prefill_dispatches=sg[0]["prefill_dispatches"],
+         decode_steps=sg[0]["decode_steps"],
+         **{f"rank_{k}": [o[k] for o in sg] for k in keep},
+         one_device={k: one_device[k] for k in (
+             "tokens_per_s", "decode_step_p50_ms", "wall_s")},
+         job_s=job_s, note=note)
+
+    diff = [r["differential_gspmd"] for r in ranks]
+    for case in _differential_gspmd_cases():
+        name = case["name"]
+        for rank, d in enumerate(diff):
+            got = d[name]
+            if got["tp_path"] != "gspmd" or got["tokens"] != refs[name] \
+                    or any(got["launches"][row] < 1 for row in case["rows"]):
+                raise AssertionError(
+                    f"differential_gspmd {name} rank {rank}: {got}, "
+                    f"Engine gave {refs[name]}")
+    emit("differential_gspmd", dtype="float32", mesh=[MESH_RANKS],
+         token_identical=True,
+         cases={c["name"]: {
+             "arch": c["cfg"].name, "n_layers": c["cfg"].n_layers,
+             "paged": c["scfg"].paged, "tp_mode": c["scfg"].tp_mode,
+             "tp_reason": diff[0][c["name"]]["tp_reason"],
+             "rows": list(c["rows"]),
+             "rank_launches": [d[c["name"]]["launches"] for d in diff],
+             "gathered_gb": diff[0][c["name"]]["gathered_gb"]}
+             for c in _differential_gspmd_cases()}, note=note)
+
+    at = [r["autotune_tp"] for r in ranks]
+    lead = at[0]
+    served = [[p for p in a["promoted"] if not p["default"]] for a in at]
+    if lead["service"]["promotions"] < 1 or lead["errors"] \
+            or not all(any(p["serving_launches"] for p in s)
+                       for s in served) \
+            or any([p["swap_steps"] for p in a["passes"]]
+                   != [p["swap_steps"] for p in lead["passes"]]
+                   or a["version"] != lead["version"] for a in at) \
+            or not sum(p["schedule_swaps"] for p in lead["passes"]):
+        raise AssertionError(f"autotune_tp: service {lead.get('service')}, "
+                             f"errors {lead['errors']}, promoted "
+                             f"{[a['promoted'] for a in at]}, swap steps "
+                             f"{[[p['swap_steps'] for p in a['passes']] for a in at]}")
+    for a in at:
+        for i, p in enumerate(a["passes"]):
+            if p["tokens"] != lead["baseline"]["tokens"] \
+                    or a["baseline"]["tokens"] != lead["baseline"]["tokens"]:
+                raise AssertionError(f"autotune_tp: run {i + 1} tokens "
+                                     f"differ from the run without the "
+                                     f"service, or across ranks")
+    emit("autotune_tp", arch="qwen3-1.7b", dtype="bfloat16",
+         mesh=[MESH_RANKS], tp_path="shard_map",
+         local_heads=lead["local_heads"], requests=len(AUTOTUNE_TP_REQUESTS),
+         token_identical=True, service=lead["service"],
+         swaps_per_run=[p["schedule_swaps"] for p in lead["passes"]],
+         swap_steps=[p["swap_steps"] for p in lead["passes"]],
+         store_version=lead["version"],
+         rank_promoted=[a["promoted"] for a in at],
+         rank_launches=[a["launches"] for a in at],
+         with_service_s=lead["with_service_s"], note=note)
+    return {"serve_gspmd": sg, "differential_gspmd": diff, "autotune_tp": at}
+
+
 # ================================================================ training
 #: the train phase: the reference launcher's defaults (B8, S128)
 TRAIN_DATA = dict(global_batch=8, seq_len=128)
@@ -3248,14 +3623,17 @@ def kernels_line(gemm: dict, flash: dict, gather: dict, ssd: dict,
                  rms: dict, sip: dict, serve: dict, serve_ssm: dict,
                  serve_hybrid: dict, serve_swa: dict, serve_moe: dict,
                  serve_vlm: dict, serve_encdec: dict, train: dict,
-                 serve_tp: dict) -> dict:
+                 serve_tp: dict, mesh: dict) -> dict:
     """One row per kernel, its launches from its own main path: the bf16
     causal flash kernel's from ``serve``, the float32 one's from ``sip``,
     the bidirectional one's from ``serve_encdec``; beside them each row's
     launches on the hybrid, sliding-window, MoE, VLM and encoder-decoder
     serve paths, on the training path (``train``: none, as the reference
-    trains on its plain versions), and on one rank of the tensor-parallel
-    serve path (``serve_tp``, rank 0; the other rank's are equal)."""
+    trains on its plain versions), on one rank of the tensor-parallel
+    serve path (``serve_tp``, rank 0; the other rank's are equal), and on
+    each rank of the mesh serving job (``phase_mesh_serving``):
+    ``serve_gspmd``, ``differential_gspmd`` (its cases summed) and
+    ``autotune_tp`` (its runs beside the service)."""
     rows = []
     for mod, source, name, res, path in (
             (gf, gf.SOURCE, "gemm_fused_leaky_relu", gemm, sip),
@@ -3277,6 +3655,13 @@ def kernels_line(gemm: dict, flash: dict, gather: dict, ssd: dict,
                      "launches_encdec": serve_encdec["launches"][name],
                      "launches_train": train["launches"][name],
                      "launches_tp": serve_tp["launches"][name],
+                     "launches_gspmd": [r["launches"][name]
+                                        for r in mesh["serve_gspmd"]],
+                     "launches_differential_gspmd": [
+                         sum(c["launches"][name] for c in r.values())
+                         for r in mesh["differential_gspmd"]],
+                     "launches_autotune_tp": [r["launches"][name]
+                                              for r in mesh["autotune_tp"]],
                      "max_abs_err": res["max_abs_err"],
                      "ms": res["ms"], "plain_ms": res["plain_ms"],
                      "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
@@ -3318,6 +3703,7 @@ def main() -> int:
     cfg = configs.get("mamba2-2.7b")
     params = M.init_lm(cfg, seed=0, device="cuda")
     serve_ssm = phase_serve_ssm(params, cfg)
+    gspmd_ref = gspmd_one_device(params, cfg)
     phase_profile(params, cfg, ServeConfig(max_len=512, capacity=8),
                   phase="profile_ssm")
     del params
@@ -3367,6 +3753,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_differential_encdec(sip["cache"], workdir)
     phase_differential_padded(sip["cache"], workdir)
+    mesh = phase_mesh_serving(gspmd_ref)
     train = phase_train(info)
     phase_differential_train()
     phase_train_resume(workdir)
@@ -3374,7 +3761,7 @@ def main() -> int:
     print(json.dumps(kernels_line(gemm, flash, gather, ssd, rms, sip, serve,
                                   serve_ssm, serve_hybrid, serve_swa,
                                   serve_moe, serve_vlm, serve_encdec, train,
-                                  serve_tp)),
+                                  serve_tp, mesh)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}))

@@ -39,6 +39,8 @@ _EXPORTS = {
     "validate_events": "repro_torch.autotune.log",
     "AutotuneConfig": "repro_torch.autotune.service",
     "AutotuneService": "repro_torch.autotune.service",
+    "Staging": "repro_torch.autotune.service",
+    "apply_staged": "repro_torch.autotune.service",
     "WorkloadDistribution": "repro_torch.autotune.service",
     "jsonl_source": "repro_torch.autotune.service",
     "recorder_source": "repro_torch.autotune.service",

@@ -31,6 +31,14 @@ inside one deployment, no restart:
    dropped from the live store; the engine falls back to the default
    schedule and the store stops accumulating dead shapes.
 
+On a mesh of ranks (``launch.serve --autotune --mesh N``) the service runs
+on the first rank only, and its commits and evictions go to a
+:class:`Staging` instead of the live store: ``launch.serve`` broadcasts
+what is staged at a step boundary and every rank applies it to its own store
+(:func:`apply_staged`), so every rank swaps before the same dispatch and
+launches the same schedules.  Ranks in lockstep must never run different
+orders.
+
 Every decision lands in the :class:`~repro_torch.autotune.log.EventLog`
 journal and the ``autotune.*`` metrics, so ``launch/obsreport.py --kind
 autotune`` can reconstruct what the service did and why.
@@ -157,6 +165,49 @@ class WorkloadDistribution:
         return len(self._counts)
 
 
+class Staging:
+    """The live store's writes held for a step boundary: commits (a
+    cycle's ``PendingPut`` batch) and drops, in the order the service made
+    them.  :meth:`take` hands them over (and forgets them); every rank of
+    a mesh then applies the same list (:func:`apply_staged`)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._ops: list[tuple] = []
+
+    def commit(self, puts) -> None:
+        if puts:
+            with self._lock:
+                self._ops.append(("commit", list(puts)))
+
+    def drop(self, kernel_name: str, signature: str) -> None:
+        with self._lock:
+            self._ops.append(("drop", kernel_name, signature))
+
+    def pending(self, kernel_name: str, signature: str) -> int:
+        """Entries for one key that staged commits will add."""
+        with self._lock:
+            return sum(p.kernel_name == kernel_name
+                       and p.signature == signature
+                       for op in self._ops if op[0] == "commit"
+                       for p in op[1])
+
+    def take(self) -> list[tuple]:
+        with self._lock:
+            ops, self._ops = self._ops, []
+        return ops
+
+
+def apply_staged(store: ScheduleCache, ops) -> None:
+    """Apply a :meth:`Staging.take` list to ``store``, in order: each
+    commit one version bump, as the service's own commit is."""
+    for op in ops or ():
+        if op[0] == "commit":
+            store.commit(op[1])
+        else:
+            store.drop(op[1], op[2])
+
+
 # ------------------------------------------------------------------ sources
 def recorder_source(recorder: WorkloadRecorder
                     ) -> Callable[[], tuple[dict, float]]:
@@ -205,7 +256,9 @@ class AutotuneService:
     The worker thread holds explicit references to every store — worker
     threads do not inherit the ``schedule_cache`` contextvar scope, and must
     not depend on it.  ``device`` is where searches and sweeps run (see the
-    module docstring for the card's stream).
+    module docstring for the card's stream).  With ``staging`` the cycle's
+    commit and evictions are staged there, not applied to ``live`` (a mesh
+    of ranks, module docstring).
     """
 
     def __init__(self, live: ScheduleCache, *,
@@ -217,8 +270,10 @@ class AutotuneService:
                  log: EventLog | None = None,
                  obs: obs_metrics.MetricsRegistry | None = None,
                  registry_: KernelRegistry | None = None,
-                 device: str = "cuda"):
+                 device: str = "cuda",
+                 staging: Staging | None = None):
         self.live = live
+        self.staging = staging
         self.source = source
         self.target_for = target_for
         self.config = (config if config is not None
@@ -452,7 +507,10 @@ class AutotuneService:
 
         # one commit = one version bump = one engine re-trace per cycle,
         # however many schedules promoted
-        self.live.commit(staged)
+        if self.staging is not None:
+            self.staging.commit(staged)
+        else:
+            self.live.commit(staged)
         evicted = self._evict(shares)
         if self.state is not None and len(self.state.completed) > 256:
             # the journal's completed list only matters to tune-session
@@ -479,7 +537,12 @@ class AutotuneService:
             if shares.get(key, 0.0) >= self.config.share_floor:
                 continue
             kernel, sig = self._promoted.pop(key)
-            dropped = self.live.drop(kernel, sig)
+            if self.staging is not None:
+                dropped = (len(self.live.entries(kernel, sig))
+                           + self.staging.pending(kernel, sig))
+                self.staging.drop(kernel, sig)
+            else:
+                dropped = self.live.drop(kernel, sig)
             self._rounds.pop(key, None)
             if dropped:
                 evicted += 1

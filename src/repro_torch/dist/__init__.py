@@ -11,12 +11,13 @@ training.
   one process group among them, failing instead of hanging.
 * :mod:`repro_torch.dist.partition` — logical axes resolved to mesh axes
   under rule tables, and each rank's block of a tensor as GSPMD lays it
-  out (what the sharded train step and checkpoints use).
+  out (what the sharded train step and checkpoints use), and the serving
+  layout of the engine's GSPMD path with the model's layer-by-layer
+  gathers.
 * :mod:`repro_torch.dist.pipeline` — GPipe over one mesh axis, with a
   differentiable rotation.
 
-Meshes over a job's ranks are built by :mod:`repro_torch.launch.mesh`.  The
-engine's GSPMD serving path is not ported (ROADMAP.md, Queue 1 item 2).
+Meshes over a job's ranks are built by :mod:`repro_torch.launch.mesh`.
 """
 
 from repro_torch.dist import collectives, partition, pipeline, spawn, tp

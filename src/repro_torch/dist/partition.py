@@ -25,6 +25,14 @@ a :func:`mesh_rules` scope overrides them for the state that
 along ``"data"``).  Activations are not laid out by rules (:func:`shard`
 is the identity), so their axes' rules ("act_seq", "embed_act") change
 nothing here.
+
+Serving on the GSPMD path (``serve/engine.py``) keeps each rank's blocks
+of the params and caches under :data:`SERVE_RULES` (a
+:class:`ServeLayout`) and runs the model inside :func:`materialising`:
+the model's layer loops call :func:`whole` and :func:`whole_cache` on
+what a layer reads, :func:`take` for an embedding lookup and
+:func:`write_back` for the caches a layer wrote, so a rank gathers one
+layer at a time and computes what one device computes.
 """
 
 from __future__ import annotations
@@ -180,25 +188,46 @@ class NamedSharding:
     def local_shape(self) -> tuple[int, ...]:
         return tuple(n // self._ways(e) for n, e in zip(self.shape, self.spec))
 
-    def local(self, full: torch.Tensor) -> torch.Tensor:
-        """This rank's block of ``full`` (a tensor of :attr:`shape`): a new
-        tensor of its own, or ``full`` itself when nothing cuts it."""
+    def block(self, entry) -> int:
+        """This rank's block index along a dimension cut by ``entry``."""
+        block = 0
+        for a in _names(entry):
+            block = block * self.mesh.shape[a] + self.mesh.coord(a)
+        return block
+
+    def view(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``full`` (a tensor of :attr:`shape`) as a
+        view of it; ``full`` itself when nothing cuts it."""
         if self.shape is not None and tuple(full.shape) != self.shape:
             raise ValueError(f"a tensor of {tuple(full.shape)} is not the "
                              f"{self.shape} this sharding lays out")
-        if self.replicated:
-            return full
         out = full
         for dim, entry in enumerate(self.spec):
             ways = self._ways(entry)
-            if ways == 1:
-                continue
-            block = 0
-            for a in _names(entry):
-                block = block * self.mesh.shape[a] + self.mesh.coord(a)
-            size = full.shape[dim] // ways
-            out = out.narrow(dim, block * size, size)
-        return out.clone()
+            if ways > 1:
+                size = full.shape[dim] // ways
+                out = out.narrow(dim, self.block(entry) * size, size)
+        return out
+
+    def local(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``full`` (a tensor of :attr:`shape`): a new
+        tensor of its own, or ``full`` itself when nothing cuts it."""
+        out = self.view(full)
+        return full if self.replicated else out.clone()
+
+    def inner(self, ndim: int) -> "NamedSharding":
+        """The sharding of one ``ndim``-dimensional slice of the tensor
+        along its leading dimensions (a layer of a stacked leaf), which
+        must not be cut."""
+        k = len(self.shape) - ndim
+        if k == 0:
+            return self
+        if k < 0 or any(self._ways(e) > 1 for e in self.spec[:k]):
+            raise ValueError(f"{ndim} trailing dims of {self.spec} over "
+                             f"{self.shape} are not a slice along uncut "
+                             f"leading dims")
+        return NamedSharding(self.mesh, PartitionSpec(*self.spec[k:]),
+                             self.shape[k:])
 
     def gather(self, shard: torch.Tensor) -> torch.Tensor:
         """The full tensor from every rank's block (``shard`` is this
@@ -263,6 +292,122 @@ def gather_tree(tree: Any, shardings: Any) -> Any:
     """Every leaf of this rank's tree of blocks gathered whole, leaf by leaf
     (every rank of the mesh calls it)."""
     return _zip_map(lambda sh, t: sh.gather(t), tree, shardings)
+
+
+def blocks_zeros(tree: Any, shardings: Any, device) -> Any:
+    """Zeros of this rank's block shape for every leaf of ``tree`` (whole
+    tensors, or meta tensors that only give shapes and dtypes)."""
+    return _zip_map(lambda sh, t: torch.zeros(sh.local_shape, dtype=t.dtype,
+                                              device=device), tree, shardings)
+
+
+# ------------------------------------------------------------ serving layout
+@dataclasses.dataclass
+class ServeLayout:
+    """The state of a serving rank at rest, laid out as the reference's
+    GSPMD path lays it out: the :class:`NamedSharding` of every param leaf
+    (``params``) and of every serving-cache leaf (``caches``), whose
+    blocks are all the rank keeps.  ``gathered_bytes`` counts the whole
+    tensors its dispatches have gathered."""
+
+    params: Any
+    caches: Any
+    gathered_bytes: int = 0
+
+    def gather(self, tree: Any, shardings: Any) -> Any:
+        """A tree of this rank's blocks (whole leaves, or one layer's
+        slices of stacked ones) gathered whole, leaf by leaf; an uncut
+        leaf is returned as it is."""
+        if isinstance(tree, dict):
+            return {k: self.gather(v, shardings[k]) for k, v in tree.items()}
+        sh = shardings.inner(tree.dim())
+        if sh.replicated:
+            return tree
+        out = sh.gather(tree)
+        self.gathered_bytes += out.numel() * out.element_size()
+        return out
+
+
+_LAYOUT: contextvars.ContextVar[ServeLayout | None] = \
+    contextvars.ContextVar("repro_torch_dist_serve_layout", default=None)
+
+
+@contextlib.contextmanager
+def materialising(layout: ServeLayout) -> Iterator[ServeLayout]:
+    """Run model code on a serving rank whose state is ``layout``'s blocks:
+    inside, :func:`whole`, :func:`whole_cache` and :func:`take` gather what
+    a layer reads just before it runs, and :func:`write_back` keeps the
+    rank's block of what it wrote.  Outside, all four are the identity (or
+    a plain copy), so one-device paths pay one context lookup a layer."""
+    token = _LAYOUT.set(layout)
+    try:
+        yield layout
+    finally:
+        _LAYOUT.reset(token)
+
+
+def _at(tree: Any, path: Sequence[str]) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def whole(tree: Any, *path: str) -> Any:
+    """The params at ``path`` of the param tree (a leaf, a subtree, or one
+    layer's view of stacked leaves), whole: gathered inside a
+    :func:`materialising` scope, ``tree`` itself outside one."""
+    layout = _LAYOUT.get()
+    if layout is None:
+        return tree
+    return layout.gather(tree, _at(layout.params, path))
+
+
+def whole_cache(tree: Any, *path: str) -> Any:
+    """:func:`whole` for the serving caches: ``tree`` holds some leaves of
+    the cache subtree at ``path`` (one layer's slices, say)."""
+    layout = _LAYOUT.get()
+    if layout is None:
+        return tree
+    return layout.gather(tree, _at(layout.caches, path))
+
+
+def write_back(view: dict, new: dict, *path: str) -> None:
+    """Store ``new`` (the leaves a layer wrote: whole inside a
+    :func:`materialising` scope) into the resident cache slices ``view``
+    of the subtree at ``path``: this rank's block of each, in place; a
+    leaf that is its view's own tensor (written in place already) is
+    skipped."""
+    layout = _LAYOUT.get()
+    shardings = None if layout is None else _at(layout.caches, path)
+    for k, v in view.items():
+        n = new[k]
+        if n is v:
+            continue
+        if shardings is not None:
+            n = shardings[k].inner(n.dim()).view(n)
+        v.copy_(n)
+
+
+def take(table: torch.Tensor, ids: torch.Tensor, *path: str) -> torch.Tensor:
+    """``whole(table, *path)[ids]`` (an embedding lookup) without the whole
+    table: each rank looks its own rows up, the lookups are gathered, and
+    each id takes its owner's row, so only the rows ``ids`` name cross the
+    ranks.  A table cut past its row dimension is gathered whole."""
+    layout = _LAYOUT.get()
+    if layout is None:
+        return table[ids]
+    sh = _at(layout.params, path)
+    if sh.replicated:
+        return table[ids]
+    if any(sh._ways(e) > 1 for e in sh.spec[1:]):
+        return layout.gather(table, sh)[ids]
+    rows, ways = table.shape[0], sh._ways(sh.spec[0])
+    mine = table[(ids - sh.block(sh.spec[0]) * rows).clamp(0, rows - 1)]
+    every = NamedSharding(sh.mesh, PartitionSpec(sh.spec[0]),
+                          (ways,) + tuple(mine.shape)).gather(mine[None])
+    layout.gathered_bytes += every.numel() * every.element_size()
+    owner = (ids // rows)[None, ..., None].expand((1,) + tuple(mine.shape))
+    return torch.take_along_dim(every, owner, dim=0)[0]
 
 
 # ---------------------------------------------------------------- constraint

@@ -71,18 +71,27 @@ Decisions journal to ``--autotune-log`` (summarize with
 ranks, one process each on this host (``repro_torch.dist.spawn``), rank r
 on ``cuda:(r % device_count)`` (NCCL when every rank has a card of its
 own, else gloo: two ranks sharing one card), or on the CPU with ``--device
-cpu`` (gloo).  Each rank holds its share of the heads, kv heads and MLP
-hidden dim and all-reduces the two seams of every layer
-(``--compressed-collectives``: int8 payloads, not token-exact).  Rank 0
-decides when each request is due and every rank submits the same requests
-and steps the same number of times; after the run the ranks' tokens are
-compared, and rank 0 prints the JSON line with ``"mesh"``, ``"tp_path"``
-and ``"backend"`` added.  ``--tp-mode gspmd``, or a config the manual path
-cannot shard (``dist.tp.tp_eligible``), fails, as does ``--autotune`` with
-``--mesh``: neither is ported (ROADMAP.md, Queue 1 item 2).
+cpu`` (gloo).  On the manual path each rank holds its share of the heads,
+kv heads and MLP hidden dim and all-reduces the two seams of every layer
+(``--compressed-collectives``: int8 payloads, not token-exact).  On the
+GSPMD path (``--tp-mode gspmd``, or ``auto`` on a config the manual path
+cannot shard, ``dist.tp.tp_eligible``: mamba2, zamba2, seamless, padded
+heads, heads that do not divide the mesh) each rank keeps its
+``SERVE_RULES`` blocks of the params and caches and gathers a layer at a
+time (``serve/engine.py``).  Rank 0 decides when each request is due and
+every rank submits the same requests and steps the same number of times;
+after the run the ranks' tokens are compared, and rank 0 prints the JSON
+line with ``"mesh"``, ``"tp_path"``, ``"tp_reason"`` and ``"backend"``
+added.  With ``--autotune`` the service runs on rank 0, tuning what that
+rank dispatches; its promotions and evictions are staged and broadcast at
+the next step boundary, and every rank applies them to its own store, so
+all ranks swap before the same dispatch.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --paged --prefill-chunk 128 --requests 17 --mesh 2
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        --requests 3 --new-tokens 3 --mesh 2
 """
 
 from __future__ import annotations
@@ -92,12 +101,14 @@ import contextlib
 import dataclasses
 import json
 import time
+from typing import Callable
 
 import numpy as np
 import torch.distributed as dist
 
 from repro_torch import configs, obs
-from repro_torch.core.registry import schedule_cache
+from repro_torch.core.cache import ScheduleCache
+from repro_torch.core.registry import cache_for_path, schedule_cache
 from repro_torch.dist import spawn
 from repro_torch.launch.mesh import MESH_TIMEOUT_S, Mesh, mesh_for
 from repro_torch.models import model as M
@@ -148,14 +159,29 @@ def _due(traffic: list[TrafficSpec], order: list[int], i: int, t0: float,
     return i
 
 
+def schedule_sync(mesh: Mesh, store: ScheduleCache,
+                  staging=None) -> Callable[[], None]:
+    """The step-boundary hook of ``--autotune`` on a mesh: every rank
+    applies to ``store`` what the first rank's service staged
+    (``staging``, None on the other ranks), broadcast from it."""
+    from repro_torch.autotune import apply_staged
+
+    def sync() -> None:
+        apply_staged(store, mesh.broadcast_object(
+            staging.take() if staging is not None else None))
+    return sync
+
+
 def drive_continuous(eng: ContinuousEngine, traffic: list[TrafficSpec],
                      prompts: list[np.ndarray], extras=None,
-                     mesh: Mesh | None = None) -> dict:
+                     mesh: Mesh | None = None,
+                     sync: Callable[[], None] | None = None) -> dict:
     """Submit the traffic at its arrival times and step the engine until
     it drains.  On a mesh the ranks must take the same steps: the first
     rank of the ``"model"`` axis decides on its clock which requests are
     due and broadcasts how many, and after the run the ranks' tokens are
-    compared (a difference raises)."""
+    compared (a difference raises).  ``sync`` runs on every rank at every
+    step boundary (``schedule_sync``)."""
     order = sorted(range(len(traffic)), key=lambda i: traffic[i].arrival)
     handles = []
     t0 = time.perf_counter()
@@ -164,6 +190,8 @@ def drive_continuous(eng: ContinuousEngine, traffic: list[TrafficSpec],
         due = _due(traffic, order, i, t0, eng.pool.idle)
         if mesh is not None:
             due = mesh.broadcast_int(due, "model")
+        if sync is not None:
+            sync()
         for j in order[i:due]:
             handles.append(eng.submit(prompts[j], traffic[j].new_tokens,
                                       extra=extras[j] if extras else None))
@@ -294,8 +322,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--tp-mode", choices=("auto", "shard_map", "gspmd"),
                     default="auto",
                     help="tensor-parallel path with --mesh: the manual "
-                         "seams (shard_map; auto = shard_map when the "
-                         "config is TP-eligible); gspmd is not ported")
+                         "seams (shard_map) or the GSPMD layout (gspmd); "
+                         "auto = shard_map when the config is TP-eligible")
     ap.add_argument("--compressed-collectives", action="store_true",
                     help="int8-compress the two per-layer seam all-reduces "
                          "(with --mesh).  Approximate: trades exact token "
@@ -310,15 +338,42 @@ def main(argv: list[str] | None = None) -> None:
         ap.error("--mesh requires the continuous engine (drop --static)")
     if args.compressed_collectives and not args.mesh:
         ap.error("--compressed-collectives requires --mesh")
-    if args.autotune and args.mesh:
-        ap.error("--autotune with --mesh is not ported yet (ROADMAP.md, "
-                 "Queue 1 item 2)")
     if args.mesh:
         M.resolve_device(args.device)
         spawn.run(_serve_rank, args.mesh, args=(args,), device=args.device,
                   timeout_s=MESH_TIMEOUT_S, deadline_s=float("inf"))
     else:
         serve(args)
+
+
+def _autotune(args, eng: ContinuousEngine, recorder, reg, mesh):
+    """``--autotune``: the service beside ``eng`` (on a mesh, on its first
+    rank only, staging its writes) and the step-boundary sync a mesh
+    needs.  -> (service or None, sync or None).  The service tunes what
+    this engine dispatches: ``eng.cfg``, a manual-path rank's local
+    config."""
+    from repro_torch.autotune import (AutotuneConfig, AutotuneService,
+                                      EventLog, Staging, TuneHistory,
+                                      recorder_source, serve_targets)
+    from repro_torch.tuning.state import SearchState
+    store = cache_for_path(args.sip_cache)
+    staging = Staging() if mesh is not None and mesh.rank == 0 else None
+    sync = None if mesh is None else schedule_sync(mesh, store, staging)
+    if mesh is not None and mesh.rank != 0:
+        return None, sync
+    state_path = args.sip_cache + ".autotune.state.json"
+    service = AutotuneService(
+        store, source=recorder_source(recorder),
+        target_for=serve_targets(eng.cfg, eng.scfg),
+        config=AutotuneConfig(interval_s=args.autotune_interval,
+                              budget=args.autotune_budget),
+        history=TuneHistory(args.sip_cache + ".history.json"),
+        state=(SearchState.load(state_path)
+               or SearchState(path=state_path)),
+        log=EventLog(args.autotune_log
+                     or args.sip_cache + ".autotune.jsonl"),
+        obs=reg, device=args.device, staging=staging)
+    return service, sync
 
 
 def _serve_rank(rank: int, args) -> dict:
@@ -368,28 +423,10 @@ def serve(args, mesh: Mesh | None = None) -> dict:
     # autotune daemon can tail the file while this process serves
     recorder = (obs.WorkloadRecorder(args.record_workloads)
                 if args.record_workloads and lead
-                else obs.WorkloadRecorder() if args.autotune else None)
+                else obs.WorkloadRecorder() if args.autotune and lead
+                else None)
     reg = obs.MetricsRegistry()
-    service = None
-    if args.autotune:
-        from repro_torch.autotune import (AutotuneConfig, AutotuneService,
-                                          EventLog, TuneHistory,
-                                          recorder_source, serve_targets)
-        from repro_torch.core.registry import cache_for_path
-        from repro_torch.tuning.state import SearchState
-        state_path = args.sip_cache + ".autotune.state.json"
-        service = AutotuneService(
-            cache_for_path(args.sip_cache),
-            source=recorder_source(recorder),
-            target_for=serve_targets(cfg, scfg),
-            config=AutotuneConfig(interval_s=args.autotune_interval,
-                                  budget=args.autotune_budget),
-            history=TuneHistory(args.sip_cache + ".history.json"),
-            state=(SearchState.load(state_path)
-                   or SearchState(path=state_path)),
-            log=EventLog(args.autotune_log
-                         or args.sip_cache + ".autotune.jsonl"),
-            obs=reg, device=args.device)
+    service = sync = None
     with contextlib.ExitStack() as stack:
         if tracer is not None:
             stack.enter_context(obs.tracing(tracer))
@@ -405,18 +442,21 @@ def serve(args, mesh: Mesh | None = None) -> dict:
                                    else None, obs=reg, recorder=recorder,
                                    mesh=mesh)
             del params          # a mesh rank keeps only its slice
+            if args.autotune:
+                service, sync = _autotune(args, eng, recorder, reg, mesh)
             if service is not None:
                 service.start()
             try:
                 report = drive_continuous(eng, traffic, prompts, extras,
-                                          mesh=mesh)
+                                          mesh=mesh, sync=sync)
             finally:
                 if service is not None:
                     service.stop()
                     service.log.close()
             if mesh is not None:
                 report.update(mesh=list(mesh.shape.values()),
-                              tp_path=eng.tp_path, backend=mesh.backend)
+                              tp_path=eng.tp_path, tp_reason=eng.tp_reason,
+                              backend=mesh.backend)
             if lead:
                 print(f"[serve:continuous] {json.dumps(report)}")
             if service is not None:

@@ -10,6 +10,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.dist import partition
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import modules as nn
@@ -85,19 +86,25 @@ def layer_views(stacked: dict[str, Any]) -> list[dict[str, Any]]:
 
 
 def mamba_stack(stacked, x: torch.Tensor, cfg: ModelConfig, *, states=None,
-                return_state: bool = False):
+                return_state: bool = False,
+                path: tuple[str, ...] = ("blocks",),
+                state_path: tuple[str, ...] = ()):
     """The mamba blocks ``stacked`` on axis 0, in turn -> (x, states).
     Decode passes their ``states`` (conv/SSD, stacked on axis 0) and they
     are advanced in place; prefill (``return_state``) gets the new states
-    stacked; otherwise ``states`` stays None."""
+    stacked; otherwise ``states`` stays None.  ``path`` and
+    ``state_path`` (default: the root of the caches, an ssm model's) name
+    the params and states in their trees, for ``dist.partition``'s
+    layer-by-layer hooks."""
     layers = layer_views(stacked)
     views = [None] * len(layers) if states is None else layer_views(states)
     new = []
     for lp, st in zip(layers, views):
-        x, ns = mamba_block(lp, x, cfg, state=st, return_state=return_state)
+        full = None if st is None else partition.whole_cache(st, *state_path)
+        x, ns = mamba_block(partition.whole(lp, *path), x, cfg, state=full,
+                            return_state=return_state)
         if st is not None:
-            for k, v in ns.items():
-                st[k].copy_(v)
+            partition.write_back(st, ns, *state_path)
         elif ns is not None:
             new.append(ns)
     if new:
@@ -120,7 +127,8 @@ def hybrid_group(gp, shared, x: torch.Tensor, cfg: ModelConfig,
     run.  Decode (``states`` and ``attn_cache`` given) leaves an off
     group's cache, its ``len`` included, untouched."""
     x, states = mamba_stack(gp, x, cfg, states=states,
-                            return_state=return_state)
+                            return_state=return_state, path=("groups",),
+                            state_path=("mamba",))
     if return_state and attn_cache is None:          # prefill
         if apply_attn:
             x, _, cache = decoder_block(shared, x, cfg, causal=True,

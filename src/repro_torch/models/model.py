@@ -42,6 +42,13 @@ Cache layouts, written out (``repro`` finds them structurally with
 
 The decode paths update caches in place where the JAX package donates
 them, and return the same dict.
+
+The serving entry points (:func:`prefill`, :func:`decode_step`,
+:func:`decode_tokens`, :func:`prefill_chunk`) read every param through
+``dist.partition``'s hooks, a layer at a time: on a GSPMD-path serving
+rank (inside ``partition.materialising``) they gather the layer's param
+and cache blocks whole before it runs and keep the rank's block of each
+cache it wrote; elsewhere the hooks hand the tensors back as they are.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.dist import partition
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
 from repro_torch.models import modules as nn
@@ -295,8 +303,8 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
 
 def _embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Token embeddings (an encoder-decoder's decoder's: ``dec_embed``)."""
-    table = p["dec_embed"] if cfg.family == "enc_dec" else p["embed"]
-    return table[tokens.long()].to(compute_dtype(cfg))
+    name = "dec_embed" if cfg.family == "enc_dec" else "embed"
+    return partition.take(p[name], tokens.long(), name).to(compute_dtype(cfg))
 
 
 def embed_inputs(p: Params, inputs: dict[str, torch.Tensor],
@@ -310,7 +318,12 @@ def embed_inputs(p: Params, inputs: dict[str, torch.Tensor],
 
 
 def _logits(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return nn.dense(p["lm_head"], x, x.dtype)
+    return nn.dense(partition.whole(p["lm_head"], "lm_head"), x, x.dtype)
+
+
+def _norm(p: Params, name: str, x: torch.Tensor) -> torch.Tensor:
+    """The top-level RMSNorm ``name`` (``ln_f``, ``enc_ln``, ``dec_ln``)."""
+    return nn.rmsnorm_apply(partition.whole(p[name], name), x)
 
 
 # ============================================================== forward
@@ -334,9 +347,10 @@ def _encode(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig):
     enc = inputs["enc_embeds"].to(compute_dtype(cfg))
     auxes = []
     for lp in blocks.layer_views(p["enc_blocks"]):
-        enc, aux, _ = blocks.decoder_block(lp, enc, cfg, causal=False)
+        enc, aux, _ = blocks.decoder_block(
+            partition.whole(lp, "enc_blocks"), enc, cfg, causal=False)
         auxes.append(aux)
-    return nn.rmsnorm_apply(p["enc_ln"], enc), auxes
+    return _norm(p, "enc_ln", enc), auxes
 
 
 def forward(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig):
@@ -481,8 +495,9 @@ def prefill(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig,
         kv = _kv_caches(len(flags), b, s, max_len, cfg, x)
         states = []
         groups = blocks.layer_views(p["groups"])
+        shared = partition.whole(p["shared_attn"], "shared_attn")
         for i, (gp, flag) in enumerate(zip(groups, flags)):
-            x, st, cache = blocks.hybrid_group(gp, p["shared_attn"], x, cfg,
+            x, st, cache = blocks.hybrid_group(gp, shared, x, cfg,
                                                flag, return_state=True)
             states.append(st)
             _put_kv(kv, i, cache)
@@ -490,15 +505,16 @@ def prefill(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig,
                             for k in states[0]}, "attn": kv}
         if "trailing" in p:
             x, caches["trailing"] = blocks.mamba_stack(
-                p["trailing"], x, cfg, return_state=True)
+                p["trailing"], x, cfg, return_state=True, path=("trailing",))
     else:
         layers = blocks.layer_views(p["blocks"])
         caches = _kv_caches(len(layers), b, s, max_len, cfg, x)
         for i, lp in enumerate(layers):
-            x, _, cache = blocks.decoder_block(lp, x, cfg, causal=True,
-                                               return_cache=True)
+            x, _, cache = blocks.decoder_block(
+                partition.whole(lp, "blocks"), x, cfg, causal=True,
+                return_cache=True)
             _put_kv(caches, i, cache)
-    x = nn.rmsnorm_apply(p["ln_f"], x[:, -1:])
+    x = _norm(p, "ln_f", x[:, -1:])
     return _logits(p, x)[:, 0], caches
 
 
@@ -513,13 +529,14 @@ def _prefill_enc_dec(p: Params, inputs: dict[str, torch.Tensor],
     cross = {k: torch.empty(shape, dtype=x.dtype, device=x.device)
              for k in ("k", "v")}
     for i, lp in enumerate(layers):
+        lp = partition.whole(lp, "dec_blocks")
         ckv = attn_mod.encode_kv(lp["xattn"], enc, cfg)
         x, _, cache = blocks.decoder_block(lp, x, cfg, causal=True,
                                            return_cache=True, cross_kv=ckv)
         _put_kv(kv, i, cache)
         for k in ("k", "v"):
             cross[k][i] = ckv[k]
-    x = nn.rmsnorm_apply(p["dec_ln"], x[:, -1:])
+    x = _norm(p, "dec_ln", x[:, -1:])
     return _logits(p, x)[:, 0], {"self": kv, "cross": cross}
 
 
@@ -550,16 +567,23 @@ def decode_step(p: Params, caches, tokens: torch.Tensor, cfg: ModelConfig, *,
         kv = caches["attn"]
         groups = zip(blocks.layer_views(p["groups"]),
                      blocks.layer_views(caches["mamba"]), hybrid_flags(cfg))
+        shared = partition.whole(p["shared_attn"], "shared_attn")
         for i, (gp, states, flag) in enumerate(groups):
-            cache = {"k": kv["k"][i], "v": kv["v"][i], "len": kv["len"][i]}
+            view = {"k": kv["k"][i], "v": kv["v"][i]}
+            # an off group leaves its cache alone: nothing to gather
+            full = partition.whole_cache(view, "attn") if flag else view
+            cache = {**full, "len": kv["len"][i]}
             x, _, new = blocks.hybrid_group(
-                gp, p["shared_attn"], x, cfg, flag, states=states,
+                gp, shared, x, cfg, flag, states=states,
                 attn_cache=cache, pos_offset=cache["len"])
+            partition.write_back(view, full, "attn")
             kv["len"][i] = new["len"]   # k/v were written in place
         if "trailing" in p:
             x, _ = blocks.mamba_stack(p["trailing"], x, cfg,
-                                      states=caches["trailing"])
-    x = nn.rmsnorm_apply(p["ln_f"], x)
+                                      states=caches["trailing"],
+                                      path=("trailing",),
+                                      state_path=("trailing",))
+    x = _norm(p, "ln_f", x)
     return _logits(p, x)[:, 0], caches
 
 
@@ -568,12 +592,17 @@ def _decode_enc_dec(p: Params, caches, x: torch.Tensor, cfg: ModelConfig):
     self-attention caches advance in place, the cross K/V are read."""
     kv, cross = caches["self"], caches["cross"]
     for i, lp in enumerate(blocks.layer_views(p["dec_blocks"])):
-        cache = {"k": kv["k"][i], "v": kv["v"][i], "len": kv["len"][i]}
+        view = {"k": kv["k"][i], "v": kv["v"][i]}
+        full = partition.whole_cache(view, "self")
+        cache = {**full, "len": kv["len"][i]}
         x, _, new = blocks.decoder_block(
-            lp, x, cfg, causal=True, pos_offset=cache["len"], cache=cache,
-            cross_kv={"k": cross["k"][i], "v": cross["v"][i]})
+            partition.whole(lp, "dec_blocks"), x, cfg, causal=True,
+            pos_offset=cache["len"], cache=cache,
+            cross_kv=partition.whole_cache(
+                {"k": cross["k"][i], "v": cross["v"][i]}, "cross"))
+        partition.write_back(view, full, "self")
         kv["len"][i] = new["len"]       # k/v were written in place
-    x = nn.rmsnorm_apply(p["dec_ln"], x)
+    x = _norm(p, "dec_ln", x)
     return _logits(p, x)[:, 0], caches
 
 
@@ -600,18 +629,22 @@ def decode_tokens(p: Params, caches, tokens: torch.Tensor, cfg: ModelConfig,
         else _embed(p, tokens, cfg)
     lens = caches["len"]
     for i, lp in enumerate(blocks.layer_views(p["blocks"])):
-        cache = {"k": caches["k"][i], "v": caches["v"][i], "len": lens[i]}
+        view = {"k": caches["k"][i], "v": caches["v"][i]}
+        full = partition.whole_cache(view)
+        cache = {**full, "len": lens[i]}
         if pt is not None:
             cache["pt"] = pt
             if active is not None:
                 cache["active"] = active
             if n_valid is not None:
                 cache["n_valid"] = n_valid
-        x, _, new = blocks.decoder_block(lp, x, cfg, causal=True,
+        x, _, new = blocks.decoder_block(partition.whole(lp, "blocks"), x,
+                                         cfg, causal=True,
                                          pos_offset=cache["len"],
                                          cache=cache)
+        partition.write_back(view, full)
         lens[i] = new["len"]        # in place: k/v were written in place too
-    x = nn.rmsnorm_apply(p["ln_f"], x)
+    x = _norm(p, "ln_f", x)
     return _logits(p, x), caches
 
 

@@ -69,9 +69,29 @@ and sums the two partial products of each layer over the ranks
 (``dist.tp.tp_allreduce``; int8-compressed with ``compressed_collectives``).
 The logits are then the same on every rank, and so is every sampled token,
 so every rank must submit the same requests and step the same number of
-times (``launch.serve`` decides admissions on one rank).  The reference's
-GSPMD path (``tp_mode`` "gspmd", or "auto" on an ineligible config) is not
-ported and raises ``NotImplementedError`` (ROADMAP.md, Queue 1 item 2).
+times (``launch.serve`` decides admissions on one rank).
+
+The reference's GSPMD path (``tp_mode`` "gspmd", or "auto" on a config
+the manual path cannot shard: ssm, hybrid, enc-dec, padded heads, or
+heads, kv heads or ``d_ff`` that do not divide the mesh) serves every
+family.  Its state at rest is laid out as GSPMD lays it out: each rank
+keeps only its ``NamedSharding`` blocks of every param and serving-cache
+leaf under ``dist.partition.SERVE_RULES`` (the head-like axes on
+``"model"``, the slot and page axes whole, so admission, eviction and
+``set_len`` splice the rank's blocks in place with no collective; a
+dimension that does not divide the mesh stays whole).  Its compute along
+``"model"`` is replicated: each dispatch runs inside
+``partition.materialising``, where the model gathers one layer's param
+and cache blocks whole just before the layer runs, drops them after and
+writes back only the rank's block of each cache it updated; a prefill's
+group cache comes out whole and is cut to the rank's block before it is
+spliced in.  Every rank thus computes what one device computes from the
+same bits, and its tokens are the one-device engine's.  Collectives are
+placed differently from the reference's, whose compiler shards the
+compute and places its own: here they are all-gathers of the blocks, a
+layer at a time, and a rank's peak holds its blocks and one layer whole.
+``compressed_collectives`` needs the manual path's seams and is refused
+on this one, as the reference refuses it.
 """
 
 from __future__ import annotations
@@ -79,6 +99,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import Any, Callable
 
@@ -86,7 +107,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.registry import active_schedule_cache
-from repro_torch.dist import tp
+from repro_torch.dist import partition, tp
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig, check_supported
 from repro_torch.obs import metrics as obs_metrics
@@ -117,9 +138,10 @@ class ServeConfig:
                                     # unless the request can start NOW
     # ---- tensor-parallel serving (ContinuousEngine(mesh=...)) ------------
     tp_mode: str = "auto"           # "auto": the manual path when the config
-                                    # is eligible (dist.tp.tp_eligible);
-                                    # "shard_map" forces it (raises if
-                                    # ineligible); "gspmd" is not ported
+                                    # is eligible (dist.tp.tp_eligible),
+                                    # else the GSPMD layout; "shard_map"
+                                    # forces the manual path (raises if
+                                    # ineligible), "gspmd" the layout
     compressed_collectives: bool = False  # int8-compress the two per-layer
                                     # seam all-reduces (bounded error, NOT
                                     # token-exact)
@@ -285,9 +307,9 @@ def _ratio(num: float, den: float) -> float:
 
 def _resolve_tp_path(cfg: ModelConfig, scfg: ServeConfig,
                      mesh) -> tuple[str, str]:
-    """The sharded path for ``mesh`` under ``scfg.tp_mode`` (the reference's
-    choice): ``("shard_map", reason)``, the manual path, or a raise where
-    the reference would take its GSPMD path, which is not ported."""
+    """The sharded path for ``mesh`` under ``scfg.tp_mode``, as the
+    reference picks it: ``("shard_map", reason)``, the manual path, or
+    ``("gspmd", reason)``; ``reason`` is ``tp.tp_eligible``'s."""
     if "model" not in mesh.axis_names:
         raise ValueError(f"serving mesh needs a 'model' axis, got "
                          f"{mesh.axis_names}")
@@ -297,14 +319,11 @@ def _resolve_tp_path(cfg: ModelConfig, scfg: ServeConfig,
     ok, reason = tp.tp_eligible(cfg, mesh.shape["model"])
     if scfg.tp_mode == "shard_map" and not ok:
         raise ValueError(f"tp_mode='shard_map' but {reason}")
-    if scfg.tp_mode == "gspmd" or not ok:
-        raise NotImplementedError(
-            f"tp_mode={scfg.tp_mode!r} on {cfg.name} ({reason}) needs the "
-            f"compiler-placed (GSPMD) serving path, which repro_torch does "
-            f"not have yet (ROADMAP.md, Queue 1 item 2); the manual path "
-            f"serves {tp.TP_FAMILIES} configs whose heads, kv heads and "
-            f"d_ff divide the 'model' axis")
-    return "shard_map", reason
+    path = "shard_map" if scfg.tp_mode != "gspmd" and ok else "gspmd"
+    if scfg.compressed_collectives and path != "shard_map":
+        raise ValueError(f"compressed_collectives needs the shard_map TP "
+                         f"path ({reason})")
+    return path, reason
 
 
 class ContinuousEngine:
@@ -328,7 +347,9 @@ class ContinuousEngine:
     every request's must have that shape.  ``mesh`` (a
     ``repro_torch.launch.mesh.Mesh``) makes the engine one rank of a
     tensor-parallel job (module docstring): ``params`` are the whole
-    model's, of which the engine keeps this rank's slice.
+    model's, of which the engine keeps this rank's slice (manual path) or
+    blocks (GSPMD path, whose :class:`~repro_torch.dist.partition.
+    ServeLayout` is ``layout``).
     """
 
     def __init__(self, params, cfg: ModelConfig,
@@ -345,12 +366,20 @@ class ContinuousEngine:
         self.mesh = mesh
         self.tp_path: str | None = None
         self.tp_reason = ""
+        self.layout: partition.ServeLayout | None = None
+        pshard = None
         if mesh is not None:
             self.tp_path, self.tp_reason = _resolve_tp_path(cfg, scfg, mesh)
-            n = mesh.shape["model"]
-            params = tp.tp_shard(params, M.param_logical_axes(cfg),
-                                 mesh.coord("model"), n)
-            cfg = tp.local_config(cfg, n)
+            if self.tp_path == "shard_map":
+                n = mesh.shape["model"]
+                params = tp.tp_shard(params, M.param_logical_axes(cfg),
+                                     mesh.coord("model"), n)
+                cfg = tp.local_config(cfg, n)
+            else:
+                pshard = partition.tree_shardings(
+                    M.param_logical_axes(cfg), mesh, sds_tree=params,
+                    rules=partition.SERVE_RULES)
+                params = partition.local_tree(params, pshard)
         elif scfg.compressed_collectives:
             raise ValueError("compressed_collectives requires a serving mesh "
                              "(the seams only exist on the manual TP path)")
@@ -394,8 +423,8 @@ class ContinuousEngine:
             self.pages = PagePool(num_pages, ps, obs=self.obs)
             self.prefix = (PrefixCache(self.pages, obs=self.obs)
                            if scfg.prefix_cache else None)
-            self.caches = M.alloc_paged_caches(cfg, scfg.capacity, ps,
-                                               num_pages, device=self.device)
+            alloc = functools.partial(M.alloc_paged_caches, cfg,
+                                      scfg.capacity, ps, num_pages)
             # host-side page tables, (capacity, n_slot_pages) int32 — passed
             # into every paged dispatch; a slot's row is zeroed while free
             self._pt = np.zeros((scfg.capacity, self._n_slot_pages), np.int32)
@@ -405,9 +434,19 @@ class ContinuousEngine:
             self._prefilling: set[int] = set()
         else:
             enc = self._example_extra_shapes.get("enc_embeds")
-            self.caches = M.alloc_slot_caches(
-                cfg, scfg.capacity, scfg.max_len, device=self.device,
-                enc_len=enc[0] if enc else None)
+            alloc = functools.partial(M.alloc_slot_caches, cfg,
+                                      scfg.capacity, scfg.max_len,
+                                      enc_len=enc[0] if enc else None)
+        if pshard is None:
+            self.caches = alloc(device=self.device)
+        else:
+            # the GSPMD layout: only this rank's blocks are ever allocated
+            whole = alloc(device="meta")
+            cshard = partition.tree_shardings(
+                M.serve_cache_axes(cfg), mesh, sds_tree=whole,
+                rules=partition.SERVE_RULES)
+            self.layout = partition.ServeLayout(pshard, cshard)
+            self.caches = partition.blocks_zeros(whole, cshard, self.device)
         self._make_dispatchers()
         # schedule hot-swap: the store the engine is built under and its
         # version; _maybe_refresh_schedules() swaps when the version moves
@@ -433,10 +472,13 @@ class ContinuousEngine:
         return torch.as_tensor(a, device=self.device)
 
     def _seams(self):
-        """The manual-TP scope every model dispatch runs under (none off a
+        """The scope every model dispatch runs under: the manual path's
+        seams, or the GSPMD path's layer-by-layer gathers (none off a
         mesh)."""
         if self.mesh is None:
             return contextlib.nullcontext()
+        if self.layout is not None:
+            return partition.materialising(self.layout)
         return tp.tp_context(self.mesh.group("model"),
                              compressed=self.scfg.compressed_collectives,
                              block=self.scfg.compress_block)
@@ -471,7 +513,8 @@ class ContinuousEngine:
         self._c["schedule_swaps"].inc()
         self._prefill_shapes_seen.clear()
         self._make_dispatchers()
-        obs_trace.instant("serve.schedule_swap", version=cache.version)
+        obs_trace.instant("serve.schedule_swap", version=cache.version,
+                          step=int(self._c["steps"].value))
 
     # -------------------------------------------------------------- ingress
     def submit(self, prompt: np.ndarray, max_new_tokens: int,
@@ -643,6 +686,7 @@ class ContinuousEngine:
             if self.paged:
                 logits, grp = M.prefill(self.params, inputs, self.cfg,
                                         max_len=n_pg * ps)
+                grp = self._local_group(grp)
                 page_rows = np.asarray(
                     [self._slot_pages[s][:n_pg] for s in slots], np.int32)
                 self.caches = M.insert_pages(self.caches, grp,
@@ -651,7 +695,8 @@ class ContinuousEngine:
             else:
                 logits, grp = M.prefill(self.params, inputs, self.cfg,
                                         max_len=self.scfg.max_len)
-                self.caches = M.insert_slots(self.caches, grp,
+                self.caches = M.insert_slots(self.caches,
+                                             self._local_group(grp),
                                              self._dev(slots))
             toks = _pick(logits, self.scfg.temperature,
                          self._gen).cpu().numpy()
@@ -676,6 +721,16 @@ class ContinuousEngine:
                 self._register_prefix(req, slot)
             self.tokens[slot] = int(tok)
             self._emit(slot, req, int(tok), finished)
+
+    def _local_group(self, grp):
+        """A prefill's group cache as the caches hold it: whole, or on the
+        GSPMD path this rank's blocks of it (the divisibility fallback
+        taken on the group's own shapes, which cut as the slots' do)."""
+        if self.layout is None:
+            return grp
+        return partition.local_tree(grp, partition.tree_shardings(
+            M.cache_logical_axes(self.cfg), self.mesh, sds_tree=grp,
+            rules=partition.SERVE_RULES))
 
     # ------------------------------------------------------ paged internals
     def _admissible(self, worst: int) -> bool:

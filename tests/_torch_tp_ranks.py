@@ -9,14 +9,21 @@ plain Python values.
 
 from __future__ import annotations
 
+import json
 import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
+from repro_torch.autotune import Staging
+from repro_torch.checkpoint.ckpt import flatten
+from repro_torch.core.cache import ScheduleCache
+from repro_torch.core.registry import registry, schedule_cache
 from repro_torch.dist import collectives, tp
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import serve as serve_cli
 from repro_torch.models import model as M
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve.engine import ContinuousEngine
@@ -124,3 +131,110 @@ def serve_runs(rank: int, cases: list[dict]) -> list[dict]:
                          "tp_path": eng.tp_path})
         out.append(runs)
     return out
+
+
+def _resident_blocks(eng, params) -> dict:
+    """Whether every leaf the GSPMD-path engine ``eng`` keeps is its
+    ``NamedSharding.local`` block: each param leaf that of the whole
+    ``params``, each cache leaf of its block's shape; and how many leaves
+    are cut, and the elements kept against the whole model's."""
+    ok, cut, kept, total = True, 0, 0, 0
+    for sh, leaf, full in zip(flatten(eng.layout.params).values(),
+                              flatten(eng.params).values(),
+                              flatten(params).values()):
+        ok &= torch.equal(leaf, sh.local(full))
+        cut += not sh.replicated
+        kept, total = kept + leaf.numel(), total + full.numel()
+    for sh, leaf in zip(flatten(eng.layout.caches).values(),
+                        flatten(eng.caches).values()):
+        ok &= tuple(leaf.shape) == sh.local_shape
+        cut += not sh.replicated
+    return {"blocks_ok": bool(ok), "cut_leaves": cut,
+            "param_share": kept / total}
+
+
+def serve_gspmd_runs(rank: int, cases: list[dict],
+                     swap: tuple | None = None) -> dict:
+    """Each case: a config, its numpy params, requests ``(prompt, budget,
+    extra)``, the engine's ``example_extra`` and runs ``(ServeConfig,
+    order)``; every run is a fresh ContinuousEngine over the job's ranks.
+    -> ``runs``: per case, per run, the tokens of every request by its
+    index, the path taken and why, and (GSPMD path) what
+    ``_resident_blocks`` says; ``swap``: ``staged_swap(rank, *swap)``'s
+    result, when ``swap`` is given."""
+    mesh = mesh_lib.mesh_for((dist.get_world_size(),), ("model",))
+    out = []
+    for case in cases:
+        cfg = case["cfg"]
+        params = params_from_numpy(case["params"], cfg, device="cpu")
+        runs = []
+        for scfg, order in case["runs"]:
+            eng = ContinuousEngine(params, cfg, scfg, mesh=mesh,
+                                   example_extra=case.get("example_extra"))
+            idxs = list(range(len(case["requests"])))
+            if order == "reversed":
+                idxs.reverse()
+            uid_to_idx = {}
+            for i in idxs:
+                prompt, budget, extra = case["requests"][i]
+                uid_to_idx[eng.submit(prompt, budget, extra=extra).uid] = i
+            got = eng.run(max_steps=1000)
+            run = {"tokens": {i: got[u].tolist()
+                              for u, i in uid_to_idx.items()},
+                   "tp_path": eng.tp_path, "tp_reason": eng.tp_reason}
+            if eng.layout is not None:
+                run.update(_resident_blocks(eng, params),
+                           gathered_bytes=eng.layout.gathered_bytes)
+            runs.append(run)
+        out.append(runs)
+    return {"runs": out,
+            "swap": None if swap is None else staged_swap(rank, *swap)}
+
+
+class PromoteAt(Staging):
+    """The first rank's staging, with ``puts`` staged just before the
+    ``at``-th step boundary takes it (as a service cycle would stage a
+    promotion between two steps)."""
+
+    def __init__(self, at: int, puts):
+        super().__init__()
+        self.at, self.puts, self.calls = at, puts, 0
+
+    def take(self):
+        self.calls += 1
+        if self.calls == self.at:
+            self.commit(self.puts)
+        return super().take()
+
+
+def staged_swap(rank: int, cfg, params_np, prompts, budgets, scfg,
+                puts, at: int) -> dict:
+    """``launch.serve.drive_continuous`` over the job's ranks with the
+    ``--autotune`` step-boundary sync: the first rank stages ``puts``
+    before boundary ``at`` and every rank applies them to its own store.
+    -> the tokens by request, the swaps and the step each came at, the
+    store's version and the schedules the promoted signatures resolve."""
+    mesh = mesh_lib.mesh_for((dist.get_world_size(),), ("model",))
+    params = params_from_numpy(params_np, cfg, device="cpu")
+    store = ScheduleCache()
+    staging = PromoteAt(at, puts) if rank == 0 else None
+    tracer = obs.Tracer()
+    traffic = [serve_cli.TrafficSpec(len(p), b, 0.0)
+               for p, b in zip(prompts, budgets)]
+    tokens: dict[int, list[int]] = {}
+    with schedule_cache(store), obs.tracing(tracer):
+        eng = ContinuousEngine(
+            params, cfg, scfg, mesh=mesh,
+            on_token=lambda req, tok: tokens.setdefault(req.uid,
+                                                        []).append(tok))
+        serve_cli.drive_continuous(
+            eng, traffic, prompts, mesh=mesh,
+            sync=serve_cli.schedule_sync(mesh, store, staging))
+    swaps = [e["args"] for e in tracer.events()
+             if e["name"] == "serve.schedule_swap"]
+    return {"tokens": tokens, "swaps": eng.stats["schedule_swaps"],
+            "swap_steps": [a["step"] for a in swaps],
+            "version": store.version, "tp_path": eng.tp_path,
+            "resolved": [dict(registry.get(p.kernel_name, store)
+                              .schedule_for(json.loads(p.signature)).knobs)
+                         for p in puts]}

@@ -188,13 +188,18 @@ class TestContinuous:
 
     def test_mesh_raises(self, params):
         """A mesh the manual TP path cannot shard CFG over (2 kv heads on 4
-        ranks) needs the GSPMD path, which the port does not have."""
+        ranks) takes the GSPMD path, and says why; forcing the manual path
+        there raises."""
         _, tp = params
         mesh = Mesh(shape={"model": 4}, rank=0, device=torch.device("cpu"),
                     backend="gloo", groups={"model": None},
                     coords={"model": 0})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tengine.ContinuousEngine(tp, CFG, mesh=mesh)
+        eng = tengine.ContinuousEngine(tp, CFG, mesh=mesh)
+        assert eng.tp_path == "gspmd"
+        assert "n_kv_heads=2 not divisible by 4" in eng.tp_reason
+        with pytest.raises(ValueError, match="tp_mode='shard_map' but"):
+            tengine.ContinuousEngine(tp, CFG, tengine.ServeConfig(
+                tp_mode="shard_map"), mesh=mesh)
 
 
 class TestAdmission:

@@ -5,9 +5,10 @@ dispatch drops a copy) and VLM smoke configs with 8 query and 4 kv heads.
 Every rank's greedy tokens equal the 1-device port engine's and the JAX
 package's single-request ``Engine.generate`` on the same weights; with
 int8-compressed seams every request is served and the ranks still agree.
-The paths the port does not have (GSPMD, ineligible configs, ``--autotune``
-with ``--mesh``) raise, and ``launch.serve --mesh 2`` prints its JSON
-line."""
+``tp_mode="gspmd"`` and the configs the manual path cannot shard take the
+GSPMD path (``tests/test_torch_serve_gspmd.py`` holds its tokens), and
+``launch.serve --mesh 2`` prints its JSON line, with ``--autotune`` too
+and on such a config."""
 
 import concurrent.futures
 import dataclasses
@@ -166,10 +167,10 @@ def test_compressed_seams_serve_every_request(served, case, n):
         assert all(0 <= t < served[0][case]["cfg"].vocab for t in got[0][i])
 
 
-# ====================================================== what is refused
+# ============================================= which path, and what is refused
 def _mesh(n: int = 2) -> Mesh:
-    """A rank's mesh view without a process group: enough for the engine's
-    checks, which all run before any collective."""
+    """A rank's mesh view without a process group: enough to build an
+    engine, which runs no collective before its first dispatch."""
     return Mesh(shape={"model": n}, rank=0, device=torch.device("cpu"),
                 backend="gloo", groups={"model": None}, coords={"model": 0})
 
@@ -181,11 +182,15 @@ def small():
 
 
 def test_gspmd_raises(small):
+    """A config the manual path could shard, forced onto the GSPMD path:
+    the engine keeps its blocks of the global config's params."""
     cfg, scfg = small
     params = tm.init_lm(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tengine.ContinuousEngine(params, cfg, dataclasses.replace(
-            scfg, tp_mode="gspmd"), mesh=_mesh())
+    eng = tengine.ContinuousEngine(params, cfg, dataclasses.replace(
+        scfg, tp_mode="gspmd"), mesh=_mesh())
+    assert (eng.tp_path, eng.tp_reason) == ("gspmd", "ok")
+    assert eng.cfg.n_heads == cfg.n_heads and eng.layout is not None
+    assert eng.params["lm_head"].shape[1] == cfg.vocab // 2
 
 
 @pytest.mark.parametrize("arch,over,reason", [
@@ -193,12 +198,13 @@ def test_gspmd_raises(small):
     ("qwen3-1.7b", {"padded_heads": 8}, "padded_heads uses a q->kv head map"),
     ("qwen3-1.7b", {}, "n_kv_heads=2 not divisible by 4 shards")])
 def test_ineligible_configs_raise(arch, over, reason):
+    """Each takes the GSPMD path, naming why; only forcing the manual path
+    raises."""
     cfg = tconfigs.get_smoke(arch, **over)
     params = tm.init_lm(cfg, device="cpu")
     scfg = tengine.ServeConfig(max_len=32, capacity=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2") as e:
-        tengine.ContinuousEngine(params, cfg, scfg, mesh=_mesh(4))
-    assert reason in str(e.value)
+    eng = tengine.ContinuousEngine(params, cfg, scfg, mesh=_mesh(4))
+    assert eng.tp_path == "gspmd" and reason in eng.tp_reason
     with pytest.raises(ValueError, match="tp_mode='shard_map' but"):
         tengine.ContinuousEngine(params, cfg, dataclasses.replace(
             scfg, tp_mode="shard_map"), mesh=_mesh(4))
@@ -213,8 +219,7 @@ def test_compressed_collectives_need_a_mesh(small):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--autotune", "--sip-cache", "x.json", "--mesh", "2"],
-     "--autotune with --mesh is not ported"),
+    (["--autotune", "--mesh", "2"], "--autotune requires --sip-cache"),
     (["--static", "--mesh", "2"], "--mesh requires the continuous engine"),
     (["--compressed-collectives"], "--compressed-collectives requires "
                                    "--mesh")])
@@ -226,26 +231,59 @@ def test_launcher_refuses(flags, message, capsys):
     assert message in capsys.readouterr().err
 
 
-def test_launcher_serves_on_a_mesh_of_2():
+def _launch(*flags: str) -> subprocess.CompletedProcess:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "qwen3-1.7b", "--smoke", "--device", "cpu", "--paged", "--mesh",
-         "2", "--requests", "8", "--capacity", "3"],
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+         "--device", "cpu", *flags],
         env=env, capture_output=True, text=True, timeout=240, cwd=ROOT)
+
+
+def _report(out: subprocess.CompletedProcess) -> dict:
     assert out.returncode == 0, out.stderr[-3000:]
     lines = [ln for ln in out.stdout.splitlines()
              if ln.startswith("[serve:continuous] ")]
     assert len(lines) == 1, out.stdout
-    report = json.loads(lines[0].split(" ", 1)[1])
+    return json.loads(lines[0].split(" ", 1)[1])
+
+
+def test_launcher_serves_on_a_mesh_of_2():
+    report = _report(_launch("--arch", "qwen3-1.7b", "--paged", "--mesh",
+                             "2", "--requests", "8", "--capacity", "3"))
     assert report["mesh"] == [2] and report["tp_path"] == "shard_map"
+    assert report["tp_reason"] == "ok"
     assert report["backend"] == "gloo" and report["tokens"] > 0
 
 
+def test_launcher_autotunes_on_a_mesh_of_2(tmp_path):
+    """``--autotune`` with ``--mesh``: the service tunes on rank 0 beside a
+    sharded engine and the job serves every request, the ranks' tokens
+    equal (the launcher compares them)."""
+    cache = tmp_path / "live.json"
+    out = _launch("--arch", "qwen3-1.7b", "--paged", "--prefill-chunk",
+                  "16", "--mesh", "2", "--requests", "8", "--capacity", "3",
+                  "--sip-cache", str(cache), "--autotune",
+                  "--autotune-interval", "1")
+    report = _report(out)
+    assert report["tp_path"] == "shard_map" and report["tokens"] > 0
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("[serve] autotune: ")]
+    assert len(lines) == 1, out.stdout
+    metrics = json.loads(lines[0].split(" ", 2)[2])
+    assert metrics["cycles"] >= 1 and metrics["errors"] == 0
+    assert (tmp_path / "live.json.autotune.jsonl").exists()
+
+
 def test_launcher_mesh_fails_on_an_ineligible_config(capfd):
-    """mamba2 cannot shard: the job fails, naming why; it does not fall
-    back to one rank."""
-    with pytest.raises(RuntimeError, match="Queue 1 item 2"):
-        tserve.main(["--arch", "mamba2-2.7b", "--smoke", "--device", "cpu",
-                     "--mesh", "2", "--requests", "2"])
-    assert "[serve:continuous]" not in capfd.readouterr().out
+    """mamba2 cannot shard on the manual path: the job takes the GSPMD
+    path, names why, and serves on both ranks; it does not fall back to
+    one rank."""
+    tserve.main(["--arch", "mamba2-2.7b", "--smoke", "--device", "cpu",
+                 "--mesh", "2", "--requests", "2"])
+    lines = [ln for ln in capfd.readouterr().out.splitlines()
+             if ln.startswith("[serve:continuous] ")]
+    assert len(lines) == 1
+    report = json.loads(lines[0].split(" ", 1)[1])
+    assert report["mesh"] == [2] and report["tp_path"] == "gspmd"
+    assert "family 'ssm' not in" in report["tp_reason"]
+    assert report["tokens"] > 0
