@@ -16,7 +16,9 @@ against one-device generation, tune live beside a 2-rank qwen3 engine, train qwe
 master weights, bf16 compute; no kernel launches on the training path, as
 the reference trains with none), hold training on the card to the CPU's,
 resume a crashed supervised run from its checkpoint to the uninterrupted
-run's exact state, and print one JSON line per phase.
+run's exact state, run the multi-pod dry run's CLI on six production
+cells (fake tensors, no device) and hold the dry run's predictions to
+what the card ran, and print one JSON line per phase.
 
     python3 chip_smoke.py
 
@@ -85,6 +87,8 @@ from repro_torch.kernels.rmsnorm import ref as rk_ref  # noqa: E402
 from repro_torch.kernels.ssd import kernel as sk  # noqa: E402
 from repro_torch.kernels.ssd import ops as sk_ops  # noqa: E402
 from repro_torch.kernels.ssd import ref as sk_ref  # noqa: E402
+from repro_torch.configs import ShapeSpec  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import obsreport as obsreport_cli  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
@@ -3088,6 +3092,9 @@ def phase_train(info: dict) -> dict:
     profiled = _profile_train_step(
         params, opt, batch_for_model(cfg, dcfg, TRAIN_STEPS, device="cuda"),
         cfg, ocfg)
+    batch = batch_for_model(cfg, dcfg, TRAIN_STEPS + 1, device="cuda")
+    _, counted = _counted(lambda: train_steps.train_step(
+        params, opt, batch, cfg=cfg, opt_cfg=ocfg), (params, opt, batch))
     del params, opt
     torch.cuda.empty_cache()
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0] \
@@ -3104,7 +3111,26 @@ def phase_train(info: dict) -> dict:
            "first_step_grads": seen, "launches": launches,
            "profiled_step": profiled, "nvidia_smi": info["nvidia_smi"]}
     emit("train", **out)
-    return out
+    return {**out, "counted_step": counted}
+
+
+def _counted(fn, args, mesh=None):
+    """``fn()`` counted by the dry run's ``StepCounter``, ``args`` its
+    arguments (``dryrun_vs_card`` holds the dry run's prediction to it)
+    -> (its result, {the counts, the bytes the allocator held as it
+    began, its peak over the call (reset just before it), the kernels'
+    launches in it})."""
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    box = {}
+    counts = dryrun.count(lambda: box.update(out=fn()), args, mesh)
+    torch.cuda.synchronize()
+    return box["out"], {
+        "counts": counts, "allocated_before": before,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": row_launches()}
 
 
 def _train_on(device: str, cfg, params_cpu, n_steps: int) -> dict:
@@ -3305,15 +3331,18 @@ AXES = ("data", "model")
 
 
 def _step_traffic(pshard, mesh) -> dict:
-    """Bytes a rank moves in one sharded step: the whole params its
-    all-gathers build (float32 leaves cut by some axis) and the whole
-    float32 gradient its all-reduces sum over the data ranks."""
+    """Bytes a rank moves in one sharded step of a masked batch in one
+    microbatch, in split mode: the whole params its all-gathers build
+    (float32 leaves cut by one axis), and what its all-reduces sum over
+    the data ranks: the whole float32 gradient, the batch's token count
+    and the three metrics (float32 each)."""
     leaves = adamw.leaves(pshard)
     full = [math.prod(sh.shape) * 4 for sh in leaves]
-    return {"gathered_gb": sum(b for b, sh in zip(full, leaves)
-                               if not sh.replicated) / 1e9,
-            "reduced_gb": (sum(full) / 1e9
-                           if train_steps.data_ways(mesh) > 1 else 0.0)}
+    gathered = sum(b for b, sh in zip(full, leaves) if not sh.replicated)
+    reduced = (sum(full) + 4 * (1 + 3)
+               if train_steps.data_ways(mesh) > 1 else 0)
+    return {"gathered_gb": gathered / 1e9, "reduced_gb": reduced / 1e9,
+            "gathered_bytes": gathered, "reduced_bytes": reduced}
 
 
 def _span_s(events, names) -> dict:
@@ -3339,27 +3368,39 @@ def _train_sharded_full(mesh) -> dict:
     pshard = train_steps.param_shardings(cfg, mesh)
     local_gb = sum(t.numel() * t.element_size()
                    for t in adamw.leaves({"p": params, "o": opt})) / 1e9
+    init_peak = torch.cuda.max_memory_allocated()
     reset_launches()
     losses, times, modes = [], [], []
+
+    def step_fn():
+        return train_steps.sharded_train_step(
+            params, opt, batch, cfg=cfg, opt_cfg=ocfg, mesh=mesh,
+            shardings=pshard)[2]
     with obs.tracing() as tracer:
         for step in range(SHARDED_STEPS):
             batch = batch_for_model(cfg, dcfg, step, device=mesh.device)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            params, opt, m = train_steps.sharded_train_step(
-                params, opt, batch, cfg=cfg, opt_cfg=ocfg, mesh=mesh,
-                shardings=pshard)
+            if step == 0:           # untimed: counted for dryrun_vs_card
+                m, counted = _counted(step_fn, (params, opt, batch), mesh)
+                counted["param_bytes"] = sum(
+                    t.numel() * t.element_size()
+                    for t in adamw.leaves(params))
+                launches0 = counted["launches"]
+            else:
+                m = step_fn()
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             losses.append(m["loss"].item())
             modes.append(m["mode"])
-    launches = row_launches()
-    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v + launches0[k] for k, v in row_launches().items()}
+    peak = max(init_peak, torch.cuda.max_memory_allocated())
     del params, opt
     torch.cuda.empty_cache()
     return {"losses": losses, "step_s": times, "modes": modes,
             "launches": launches, "peak_mem_gb": peak / 1e9,
             "local_state_gb": local_gb, **_step_traffic(pshard, mesh),
+            "counted_step": counted,
             "spans_s": _span_s(tracer.events(), (
                 "train.gather", "train.grads", "train.reduce",
                 "train.adamw"))}
@@ -3604,6 +3645,7 @@ def phase_train_sharded(workdir: Path, info: dict, train: dict) -> dict:
          rank_grad_max_rel_err=[p["grad_max_rel_err"] for p in pipe],
          limit=1e-4, note=note)
 
+    counted = [r["train_sharded"]["counted_step"] for r in ranks]
     el = [r["train_elastic"] for r in ranks]
     lead = el[0]
     rel = abs(lead["final_loss"] - lead["base_loss"]) / abs(lead["base_loss"])
@@ -3616,6 +3658,246 @@ def phase_train_sharded(workdir: Path, info: dict, train: dict) -> dict:
                              if k != "outside_mesh"},
          final_loss_rel_diff=rel, limit=5e-3,
          rank1_outside_mesh=el[1]["outside_mesh"], note=note)
+    return {**out, "counted_steps": counted,
+            "traffic": {k: ts[0][k] for k in ("gathered_bytes",
+                                              "reduced_bytes")}}
+
+
+# ================================================================ dry run
+#: the dryrun phase's cells (arch, shape, mesh): qwen3-1.7b's three kinds,
+#: dbrx-132b's training, an SSM decode and the reference's slow cell on
+#: the two-pod mesh
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", "single"),
+                ("qwen3-1.7b", "prefill_32k", "single"),
+                ("qwen3-1.7b", "decode_32k", "single"),
+                ("dbrx-132b", "train_4k", "single"),
+                ("mamba2-2.7b", "decode_32k", "multi"),
+                ("h2o-danube-1.8b", "long_500k", "multi"))
+DRYRUN_TIMEOUT_S = 300.0
+#: the card's memory (H100 SXM 80GB), what a cell's GB per device is held to
+CARD_BYTES = 80e9
+#: dryrun_vs_card: a predicted peak must be within this share of the
+#: allocator's
+PEAK_REL = 0.10
+#: the CLI in a subprocess, then the kernels' launches in it
+DRYRUN_CLI = """
+import json, sys
+sys.path.insert(0, "src")
+from repro_torch.launch import dryrun
+from repro_torch.kernels.flash_attention import kernel as fa
+from repro_torch.kernels.gemm_fused import kernel as gf
+from repro_torch.kernels.paged_attention import kernel as pg
+from repro_torch.kernels.rmsnorm import kernel as rk
+from repro_torch.kernels.ssd import kernel as sk
+dryrun.main(sys.argv[1:])
+print(json.dumps({"launches": sum(m.launches for m in (fa, gf, pg, rk, sk))}))
+"""
+#: dryrun_vs_card's configurations: train's (B8 S128) and a serving batch of
+#: 8 prompts of 128 tokens, caches of 512
+CARD_TRAIN = ShapeSpec("train_b8_s128", "train", TRAIN_DATA["seq_len"],
+                       TRAIN_DATA["global_batch"])
+CARD_PREFILL = ShapeSpec("prefill_b8_s128", "prefill", 128, 8)
+CARD_DECODE = ShapeSpec("decode_b8_l512", "decode", 512, 8)
+CARD_MAX_LEN = 512
+
+
+def start_dryrun(workdir: Path) -> list:
+    """The dryrun phase's cells, each through the CLI in a subprocess of
+    its own, started at once (they need no card)."""
+    out = workdir / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    root = Path(__file__).resolve().parent
+    procs = []
+    for i, (arch, shape, mesh) in enumerate(DRYRUN_CELLS):
+        path = out / f"cell{i}.json"
+        log = open(out / f"cell{i}.log", "w")
+        procs.append((arch, shape, mesh, path, log, subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_CLI, "--arch", arch, "--shape",
+             shape, "--mesh", mesh, "--out", str(path)], cwd=root,
+            stdout=log, stderr=subprocess.STDOUT)))
+    return procs
+
+
+def predictions() -> dict:
+    """The dry run's predictions of what the card runs in
+    ``dryrun_vs_card``, each in a fake world of its own (this process
+    joins no real one): (a) ``train``'s step on (1, 1), (b)
+    ``train_sharded``'s on (2, 1), (c) the serving batch's prefill and
+    decode on (1, 1)."""
+    cfg = configs.get("qwen3-1.7b")
+    return {"train": dryrun.count_cell(cfg, CARD_TRAIN, (1, 1)),
+            "train_sharded": dryrun.count_cell(cfg, CARD_TRAIN,
+                                               (SHARDED_RANKS, 1)),
+            "prefill": dryrun.count_cell(cfg, CARD_PREFILL, (1, 1),
+                                         max_len=CARD_MAX_LEN),
+            "decode": dryrun.count_cell(cfg, CARD_DECODE, (1, 1))}
+
+
+def card_serve_steps() -> dict:
+    """qwen3-1.7b at full width (bf16, seed 0) on this card, one device:
+    ``prefill_step`` over 8 prompts of 128 tokens with caches of 512, then
+    one ``serve_step``, each counted (``_counted``)."""
+    cfg = configs.get("qwen3-1.7b")
+    params = M.init_lm(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab, (CARD_PREFILL.global_batch, CARD_PREFILL.seq_len),
+        generator=gen, device="cuda", dtype=torch.int32)}
+    (logits, caches), pre = _counted(lambda: train_steps.prefill_step(
+        params, batch, cfg=cfg, max_len=CARD_MAX_LEN), (params, batch))
+    tok = logits.argmax(-1).to(torch.int32)
+    (logits2, _), dec = _counted(lambda: train_steps.serve_step(
+        params, caches, tok, cfg=cfg), (params, caches, tok))
+    out = {"prefill": pre, "decode": dec,
+           "finite": bool(torch.isfinite(logits.float()).all()
+                          and torch.isfinite(logits2.float()).all()),
+           "tokens": [tok.tolist(), logits2.argmax(-1).tolist()]}
+    del params, caches, logits, logits2
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dryrun(procs) -> dict:
+    """``dryrun``: the CLI on ``DRYRUN_CELLS`` (fake worlds of 256 and 512
+    ranks, fake tensors, no device).  Each cell must be ``ok`` on 256 or
+    512 chips, count FLOPs, launch no kernel, and its depth probes'
+    linear extrapolation must be its full-depth count within 1e-6.
+    Beside each: GB per device against the card's 80 GB, the collective
+    GB a device by axis, the dominant roofline term at the H100's rates
+    and the seconds of the full-depth trace."""
+    cells, bad = [], []
+    for arch, shape, mesh, path, log, proc in procs:
+        try:
+            rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+        log.close()
+        text = (path.parent / (path.stem + ".log")).read_text()
+        rec = (json.loads(path.read_text()).get(
+            dryrun.cell_key(arch, shape, mesh), {}) if path.exists() else {})
+        lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+        launches = json.loads(lines[-1])["launches"] if lines else None
+        cell = {"cell": dryrun.cell_key(arch, shape, mesh), "rc": rc,
+                "status": rec.get("status"), "chips": rec.get("chips"),
+                "fake_device": rec.get("fake_device"),
+                "flops_per_device": rec.get("flops_per_device"),
+                "probe_flops_rel_diff": rec.get("probe", {}).get(
+                    "flops_rel_diff"),
+                "gb_per_device": rec.get("memory_per_device_bytes", 0) / 1e9,
+                "fits_80gb": rec.get("memory_per_device_bytes", 0)
+                < CARD_BYTES,
+                "param_gb_per_device": rec.get("param_bytes_per_device",
+                                               0) / 1e9,
+                "collective_gb_by_axis": {
+                    a: v["total"] / 1e9 for a, v in
+                    rec.get("collective_bytes_by_axis", {}).items()},
+                "dominant": rec.get("roofline", {}).get("dominant"),
+                "roofline_s": {k: v for k, v in
+                               rec.get("roofline", {}).items()
+                               if k != "dominant"},
+                "trace_s": rec.get("trace_s"), "launches": launches}
+        cells.append(cell)
+        if rc != 0 or cell["status"] != "ok" or cell["chips"] not in (
+                256, 512) or not cell["flops_per_device"] or launches != 0 \
+                or not cell["probe_flops_rel_diff"] <= 1e-6:
+            bad.append((cell, text[-2000:]))
+    if bad:
+        raise AssertionError(f"dryrun: {bad}")
+    out = {"cells": cells, "card_gb": CARD_BYTES / 1e9,
+           "note": "counts of the port's program on fake tensors at H100 "
+                   "SXM 80GB rates (700 W), not timings"}
+    emit("dryrun", **out)
+    return out
+
+
+def _peak_miss(predicted: float, real: int) -> float:
+    return abs(predicted - real) / real
+
+
+def phase_dryrun_vs_card(got: dict, train: dict, sharded: dict,
+                         card: dict) -> dict:
+    """``dryrun_vs_card``: the dry run's predictions (``predictions``)
+    against what this card ran, counted by the same ``StepCounter``:
+
+    * (a) ``train``'s counted step (qwen3-1.7b full width, B8 S128, one
+      device) against the cell on (1, 1);
+    * (b) ``train_sharded``'s counted first step on each of its 2 ranks
+      against the cell on (2, 1): besides, collective bytes by op and by
+      axis and param bytes a rank equal, and equal to ``_step_traffic``'s
+      figures (all-gather, and the all-reduce at its weight 2);
+    * (c) ``prefill_step`` then ``serve_step`` on one device
+      (``card_serve_steps``) against the cells on (1, 1), finite logits.
+
+    In each, FLOPs equal and the predicted peak within 10% of the
+    allocator's over the step (the counter's own peak on the real run
+    beside it); no kernel launches in any of them."""
+    rows, bad = {}, []
+
+    def row(name, pred, real):
+        counts = real["counts"]
+        r = {"predicted_flops": pred["flops"], "flops": counts["flops"],
+             "predicted_peak_gb": pred["peak"] / 1e9,
+             "max_memory_allocated_gb": real["max_memory_allocated"] / 1e9,
+             "counter_peak_gb": counts["peak_bytes"] / 1e9,
+             # what the allocator held outside the step's arguments when
+             # it began (other phases' tensors, cuBLAS workspaces): the
+             # counter cannot see it
+             "held_outside_step_gb": (real["allocated_before"]
+                                      - counts["held_bytes"]) / 1e9,
+             "peak_miss": _peak_miss(pred["peak"],
+                                     real["max_memory_allocated"]),
+             "predicted_bytes": pred["bytes"], "bytes": counts["bytes"]}
+        if pred["flops"] != counts["flops"]:
+            bad.append((name, "flops", pred["flops"], counts["flops"]))
+        if r["peak_miss"] > PEAK_REL:
+            bad.append((name, "peak", r))
+        rows[name] = r
+        return r
+
+    row("train", got["train"], train["counted_step"])
+    ts = got["train_sharded"]
+    traffic = sharded["traffic"]
+    ranks = []
+    for rank, real in enumerate(sharded["counted_steps"]):
+        r = row(f"train_sharded_rank{rank}", ts, real)
+        counts = real["counts"]
+        coll = {f"coll/{op}": v for op, v in
+                counts["collective_bytes"].items()}
+        axes = {f"axis/{a}/{op}": counts["collective_bytes_by_axis"].get(
+            a, {}).get(op, 0.0) for a in AXES for op in dryrun.COLLECTIVE_OPS}
+        want = {k: v for k, v in ts.items() if k.startswith(("coll/",
+                                                             "axis/"))}
+        r.update(collectives_equal={**coll, **axes} == want,
+                 param_bytes=real["param_bytes"],
+                 predicted_param_bytes=ts["param_bytes"],
+                 all_gather=counts["collective_bytes"]["all-gather"],
+                 all_reduce=counts["collective_bytes"]["all-reduce"],
+                 step_traffic=traffic)
+        if not r["collectives_equal"] or \
+                real["param_bytes"] != ts["param_bytes"] or \
+                r["all_gather"] != traffic["gathered_bytes"] or \
+                r["all_reduce"] != 2 * traffic["reduced_bytes"]:
+            bad.append((f"train_sharded_rank{rank}", counts, ts))
+        ranks.append(r)
+    row("prefill", got["prefill"], card["prefill"])
+    row("decode", got["decode"], card["decode"])
+    launched = [real["launches"] for real in (
+        card["prefill"], card["decode"], train["counted_step"],
+        *sharded["counted_steps"]) if any(real["launches"].values())]
+    if launched or not card["finite"]:
+        bad.append(("launches or non-finite logits", launched,
+                    card["finite"]))
+    if bad:
+        raise AssertionError(f"dryrun_vs_card: {bad}")
+    out = {"rows": rows, "peak_limit": PEAK_REL, "tokens": card["tokens"],
+           "launches": 0,
+           "note": "the dry run's counts against this card's run, the same "
+                   "counter; train_sharded is 2 ranks sharing 1 card over "
+                   "gloo"}
+    emit("dryrun_vs_card", **out)
     return out
 
 
@@ -3757,7 +4039,18 @@ def main() -> int:
     train = phase_train(info)
     phase_differential_train()
     phase_train_resume(workdir)
-    phase_train_sharded(workdir, info, train)
+    sharded = phase_train_sharded(workdir, info, train)
+    procs = start_dryrun(workdir)
+    try:                        # the card's steps and the predictions run
+        card = card_serve_steps()       # beside the CLI's cells
+        preds = predictions()
+        phase_dryrun(procs)
+        phase_dryrun_vs_card(preds, train, sharded, card)
+    finally:                    # a failed phase leaves no CLI running
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     print(json.dumps(kernels_line(gemm, flash, gather, ssd, rms, sip, serve,
                                   serve_ssm, serve_hybrid, serve_swa,
                                   serve_moe, serve_vlm, serve_encdec, train,

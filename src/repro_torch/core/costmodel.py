@@ -16,8 +16,11 @@ predictive, and provides BOTH feedback paths; the port keeps both:
 
 :data:`V5E` (the JAX package's TPU v5e constants: 197 TFLOP/s bf16, 819 GB/s
 HBM) stays the default, so a search under ``CostModelEnergy`` follows the
-same trajectory in both packages.  :data:`H100` carries the H100 SXM's
-published peaks (989 TFLOP/s dense bf16, 3.35 TB/s HBM3).
+same trajectory in both packages.  :data:`H100` carries the H100 SXM
+80GB's data-sheet rates at 700 W (989 TFLOP/s dense bf16, 3.35 TB/s HBM3;
+NVLink 4 at 450 GB/s a direction a GPU inside a node of 8, 400 Gb/s NDR
+InfiniBand, 50 GB/s a GPU, across nodes), which the port's dry run
+(``launch/dryrun.py``) prices its counts at.
 """
 
 from __future__ import annotations
@@ -39,12 +42,18 @@ SUBLANE, LANE = 8, 128          # VREG tile geometry
 
 @dataclasses.dataclass(frozen=True)
 class Machine:
-    """Latency parameters (seconds) for the two-pipe schedule simulator."""
+    """Latency parameters (seconds) for the two-pipe schedule simulator,
+    and the rates between chips: ``link_bw`` (bytes/s a direction a chip)
+    inside a node of ``node_chips``, ``net_bw`` across nodes; with
+    ``node_chips`` 0 every chip is on one network at ``link_bw``."""
 
     mem_issue: float = 30e-9            # fixed DMA issue overhead
     mem_bw: float = HBM_BW              # bytes/s for MEM instrs
     flops: float = PEAK_FLOPS_BF16      # FLOP/s for COMPUTE instrs
     compute_issue: float = 5e-9         # fixed per-op overhead (VLIW bundle)
+    link_bw: float = ICI_BW_PER_LINK    # bytes/s between chips of a node
+    net_bw: float = ICI_BW_PER_LINK     # bytes/s between nodes
+    node_chips: int = 0                 # chips a node (0: one network)
 
     def mem_time(self, nbytes: int) -> float:
         return self.mem_issue + nbytes / self.mem_bw
@@ -55,11 +64,13 @@ class Machine:
 
 V5E = Machine()
 
-#: NVIDIA H100 SXM (data sheet, dense, at 700 W).  The issue latencies are
-#: placeholders, not calibrated on the card: a global load's issue cost and a
-#: warp instruction's issue cost still have to be fitted to measured times.
+#: NVIDIA H100 SXM 80GB (data sheet, dense, at 700 W): NVLink 4 inside a
+#: node of 8, 400 Gb/s NDR InfiniBand (one NIC a GPU) across nodes.  The
+#: issue latencies are placeholders, not calibrated on the card: a global
+#: load's issue cost and a warp instruction's issue cost still have to be
+#: fitted to measured times.
 H100 = Machine(mem_issue=30e-9, mem_bw=3.35e12, flops=989e12,
-               compute_issue=5e-9)
+               compute_issue=5e-9, link_bw=450e9, net_bw=50e9, node_chips=8)
 
 
 def simulate(program: Program, order: Sequence[int] | None = None,
@@ -107,13 +118,25 @@ def simulate(program: Program, order: Sequence[int] | None = None,
 
 
 def roofline_time(flops: int, hbm_bytes: int, collective_bytes: int = 0,
-                  chips: int = 1, links: int = 1) -> dict[str, float]:
-    """The three roofline terms (seconds) used throughout EXPERIMENTS.md."""
+                  chips: int = 1, links: int = 1,
+                  machine: Machine = V5E) -> dict[str, float]:
+    """The three roofline terms (seconds) used throughout EXPERIMENTS.md,
+    at ``machine``'s rates (collectives at its ``link_bw``)."""
     return {
-        "compute_s": flops / (chips * PEAK_FLOPS_BF16),
-        "memory_s": hbm_bytes / (chips * HBM_BW),
-        "collective_s": collective_bytes / (chips * links * ICI_BW_PER_LINK),
+        "compute_s": flops / (chips * machine.flops),
+        "memory_s": hbm_bytes / (chips * machine.mem_bw),
+        "collective_s": collective_bytes / (chips * links * machine.link_bw),
     }
+
+
+def group_bw(machine: Machine, ranks) -> float:
+    """The rate (bytes/s a chip) of a collective over ``ranks``: the
+    slowest link the group crosses, chips numbered row-major onto nodes of
+    ``machine.node_chips``."""
+    if not machine.node_chips:
+        return machine.link_bw
+    nodes = {r // machine.node_chips for r in ranks}
+    return machine.link_bw if len(nodes) == 1 else machine.net_bw
 
 
 def dominant_term(terms: dict[str, float]) -> str:

@@ -8,9 +8,10 @@ backward.  :func:`sharded_train_step` is the same step on a rank of a
 ``("pod", "data", "model")`` mesh (see its docstring).  The shape records
 (``batch_sds``, ``cache_sds``, ``decode_tokens_sds``) are tensors on the
 ``meta`` device, and the sharding helpers resolve them against the
-logical-axis rules (``dist/partition.py``).  The reference's
-``prefill_step`` and ``serve_step`` serve only its dry run, which is not
-ported (ROADMAP.md Queue 1 item 3).
+logical-axis rules (``dist/partition.py``).  :func:`prefill_step` and
+:func:`serve_step` are the serving steps of the dry run
+(``launch/dryrun.py``): ``M.prefill`` and ``M.decode_step`` on one device,
+or on a rank of a mesh under the GSPMD serving layout.
 """
 
 from __future__ import annotations
@@ -263,6 +264,110 @@ def _reduce_grads(whole: list, shardings, mesh, mode: str):
             torch.sqrt(sum(sumsq)))
 
 
+# ============================================================ serve steps
+def prefill_step(params, batch, *, cfg: ModelConfig, max_len: int,
+                 mesh=None, layout: partition.ServeLayout | None = None):
+    """The prompt's forward, building decode caches sized ``max_len`` ->
+    (last-token logits, caches): ``M.prefill`` on one device.
+
+    On a rank of ``mesh`` it is GSPMD's contract, as
+    :func:`sharded_train_step`'s: ``batch`` is the global batch, and the
+    rank runs the rows that :func:`serve_rows` gives it; ``params`` are its
+    blocks in ``layout`` (default :func:`serve_layout` at those rows),
+    gathered a layer at a time inside ``partition.materialising``.  The
+    logits are its rows', the caches its blocks of them."""
+    if mesh is None:
+        return M.prefill(params, batch, cfg, max_len=max_len)
+    rows, seq = next(iter(batch.values())).shape[:2]
+    sh = serve_rows(cfg, mesh, rows, seq)
+    local = {k: _rows_of(v, sh) for k, v in batch.items()}
+    lcfg = _rows_config(cfg, sh)
+    if layout is None:
+        layout = serve_layout(cfg, mesh, sh.local_shape[0], max_len)
+    with partition.materialising(layout):
+        logits, caches = M.prefill(params, local, lcfg, max_len=max_len)
+    return logits, partition.local_tree(caches, layout.caches)
+
+
+def serve_step(params, caches, tokens, *, cfg: ModelConfig, mesh=None,
+               layout: partition.ServeLayout | None = None):
+    """One decode step of ``tokens`` (B,) -> (logits, caches), the caches
+    advanced in place: ``M.decode_step`` on one device.  On a rank of
+    ``mesh`` (see :func:`prefill_step`) ``tokens`` is the global batch's,
+    the rank decodes its rows (a decode is dropless, so an MoE model's
+    rows split too) and ``params`` and ``caches`` are its blocks in
+    ``layout`` (default :func:`serve_layout` at those rows and the
+    caches' length)."""
+    if mesh is None:
+        return M.decode_step(params, caches, tokens, cfg)
+    sh = serve_rows(cfg, mesh, tokens.shape[0], 1, dropless=True)
+    if layout is None:
+        layout = serve_layout(cfg, mesh, sh.local_shape[0],
+                              _cache_len(cfg, caches))
+    with partition.materialising(layout):
+        return M.decode_step(params, caches, _rows_of(tokens, sh),
+                             _rows_config(cfg, sh))
+
+
+def serve_rows(cfg: ModelConfig, mesh, rows: int, seq_len: int, *,
+               dropless: bool = False) -> partition.NamedSharding:
+    """How a serving batch of ``rows`` rows of ``seq_len`` tokens lies on
+    ``mesh``: cut by the batch rule as :func:`batch_shardings` cuts it
+    (with its divisibility fallback: long_500k's one row is whole on every
+    rank), or whole on every rank where an MoE dispatch with capacity
+    spans the batch (``moe_groups`` 0, or groups the cut does not divide:
+    :func:`loss_mode`'s rule), as GSPMD's one program computes it."""
+    sh = partition.named_sharding(("batch",), mesh, shape=(rows,),
+                                  rules=partition.scope_rules())
+    ways = rows // sh.local_shape[0]
+    g = cfg.moe_groups
+    if ways > 1 and cfg.family == "moe" and not dropless \
+            and (not g or g % ways or rows * seq_len % g):
+        return partition.named_sharding((None,), mesh, shape=(rows,))
+    return sh
+
+
+def _rows_of(x: torch.Tensor, rows: partition.NamedSharding) -> torch.Tensor:
+    """This rank's rows of ``x`` (a view) as ``rows`` cuts its dim 0."""
+    return partition.NamedSharding(
+        rows.mesh, partition.PartitionSpec(*rows.spec, *[None] * (x.dim() - 1)),
+        tuple(x.shape)).view(x)
+
+
+def _rows_config(cfg: ModelConfig, rows: partition.NamedSharding):
+    """``cfg`` for a rank's rows: an MoE model's ``moe_groups`` cut by the
+    ways the rows are cut, as :func:`_grads` cuts them."""
+    ways = rows.shape[0] // rows.local_shape[0]
+    if cfg.family != "moe" or ways == 1:
+        return cfg
+    return dataclasses.replace(cfg, moe_groups=cfg.moe_groups // ways)
+
+
+def serve_layout(cfg: ModelConfig, mesh, rows: int,
+                 max_len: int) -> partition.ServeLayout:
+    """The GSPMD serving layout of a rank that runs ``rows`` rows with
+    caches of ``max_len``: the params and the caches under
+    ``partition.SERVE_RULES``, whose ``"batch"`` is uncut, so a layer's
+    gather moves only what the head-like axes cut and never another
+    rank's rows."""
+    return partition.ServeLayout(
+        partition.tree_shardings(M.param_logical_axes(cfg), mesh,
+                                 sds_tree=param_sds(cfg),
+                                 rules=partition.SERVE_RULES),
+        partition.tree_shardings(M.cache_logical_axes(cfg), mesh,
+                                 sds_tree=cache_sds(cfg, rows, max_len),
+                                 rules=partition.SERVE_RULES))
+
+
+def _cache_len(cfg: ModelConfig, caches) -> int:
+    """The positions the K/V caches hold (never cut: ``kv_seq`` stays
+    whole); 1 for an ssm model's, which hold none."""
+    kv = {"hybrid": "attn", "enc_dec": "self"}.get(cfg.family)
+    if cfg.family == "ssm":
+        return 1
+    return (caches[kv] if kv else caches)["k"].shape[2]
+
+
 # =========================================================== shape records
 def _sds(shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
@@ -321,6 +426,16 @@ def cache_sds(cfg: ModelConfig, batch: int, max_len: int):
         return {"self": kv(cfg.dec_layers, kvl),
                 "cross": {"k": _sds(x, dt), "v": _sds(x, dt)}}
     raise ValueError(cfg.family)
+
+
+def serve_param_sds(cfg: ModelConfig):
+    """Shape records of the params as serving keeps them (``M.init_lm``'s
+    default): the compute dtype, ``M.F32_LEAVES`` float32."""
+    dt = M.compute_dtype(cfg)
+    return M.map_params(
+        lambda path, shape: _sds(shape, torch.float32
+                                 if path[-1] in M.F32_LEAVES else dt),
+        M.param_shapes(cfg))
 
 
 def decode_tokens_sds(batch: int) -> torch.Tensor:
