@@ -3012,6 +3012,8 @@ def phase_mesh_serving(one_device: dict) -> dict:
 #: the train phase: the reference launcher's defaults (B8, S128)
 TRAIN_DATA = dict(global_batch=8, seq_len=128)
 TRAIN_STEPS = 8
+#: train's steps with remat_policy "none" after the default's ("full")
+TRAIN_NONE_STEPS = 4
 #: the rows that a training step must not launch: the model's kernels,
 #: whose plain versions carry the gradient (``use_pallas`` off)
 MODEL_ROWS = tuple(FLASH_ROWS.values()) + (sk.FUNCTION,)
@@ -3058,12 +3060,16 @@ def _profile_train_step(params, opt, batch, cfg, ocfg) -> dict:
 
 def phase_train(info: dict) -> dict:
     """The main path of training: qwen3-1.7b at full width, all 28 layers,
-    bf16 compute over float32 master weights and moments, 8 AdamW steps on
-    data steps 0-7 (no checkpoint).  Fails unless every loss is finite and
-    the last is below the first, the first step's gradient of every leaf
-    (of every layer) is finite and non-zero, and no flash or SSD kernel
-    launched.  Step times are synced; tokens/s is B*S over the p50.  A
-    ninth step (data step 8) runs under the profiler (``profiled_step``)."""
+    bf16 compute over float32 master weights and moments, the config's
+    remat (``"full"``: every layer runs again in the backward), 8 AdamW
+    steps on data steps 0-7 (no checkpoint).  Fails unless every loss is
+    finite and the last is below the first, the first step's gradient of
+    every leaf (of every layer) is finite and non-zero, and no flash or SSD
+    kernel launched.  Step times are synced; tokens/s is B*S over the p50.
+    A ninth step (data step 8) runs under the profiler (``profiled_step``),
+    a tenth is counted (``dryrun_vs_card``), then ``TRAIN_NONE_STEPS``
+    more with ``remat_policy="none"`` (``remat_none``): their p50 and peak
+    beside the default's, the allocator's peak reset before each run."""
     cfg = configs.get("qwen3-1.7b")
     dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
     ocfg = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1,
@@ -3095,19 +3101,45 @@ def phase_train(info: dict) -> dict:
     batch = batch_for_model(cfg, dcfg, TRAIN_STEPS + 1, device="cuda")
     _, counted = _counted(lambda: train_steps.train_step(
         params, opt, batch, cfg=cfg, opt_cfg=ocfg), (params, opt, batch))
+    none_cfg = dataclasses.replace(cfg, remat_policy="none")
+    none_losses, none_times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(TRAIN_NONE_STEPS):
+        batch = batch_for_model(cfg, dcfg, TRAIN_STEPS + 2 + step,
+                                device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = train_steps.train_step(params, opt, batch,
+                                                cfg=none_cfg, opt_cfg=ocfg)
+        torch.cuda.synchronize()
+        none_times.append(time.perf_counter() - t0)
+        none_losses.append(m["loss"].item())
+    none_peak = torch.cuda.max_memory_allocated()
+    launches_none = row_launches()
     del params, opt
     torch.cuda.empty_cache()
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] \
-            or any(launches[r] for r in MODEL_ROWS):
-        raise AssertionError(f"train: losses {losses}, launches {launches}")
+    if not all(np.isfinite(losses + none_losses)) \
+            or not losses[-1] < losses[0] \
+            or any(launches_none[r] for r in MODEL_ROWS):
+        raise AssertionError(f"train: losses {losses}, {none_losses}, "
+                             f"launches {launches_none}")
     p50 = float(np.median(times))
+    none_p50 = float(np.median(none_times))
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
            "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+           "remat": cfg.remat, "remat_policy": cfg.remat_policy,
            "batch": dcfg.global_batch, "seq_len": dcfg.seq_len,
            "steps": TRAIN_STEPS, "losses": losses, "step_s": times,
            "step_p50_ms": p50 * 1e3,
            "tokens_per_s": dcfg.global_batch * dcfg.seq_len / p50,
            "max_memory_allocated_gb": peak / 1e9,
+           "remat_none": {"steps": TRAIN_NONE_STEPS, "losses": none_losses,
+                          "step_s": none_times,
+                          "step_p50_ms": none_p50 * 1e3,
+                          "max_memory_allocated_gb": none_peak / 1e9},
+           "p50_full_over_none": p50 / none_p50,
+           "peak_gb_none_less_full": (none_peak - peak) / 1e9,
            "first_step_grads": seen, "launches": launches,
            "profiled_step": profiled, "nvidia_smi": info["nvidia_smi"]}
     emit("train", **out)
@@ -3320,8 +3352,10 @@ def phase_train_resume(workdir: Path) -> dict:
 # ======================================================= sharded training
 #: the sharded phases' job: 2 ranks sharing this card over gloo
 SHARDED_RANKS = 2
-#: train_sharded's steps: one untimed, then the timed ones
-SHARDED_STEPS = 3
+#: train_sharded's steps on each mesh: one untimed (counted), then the
+#: timed ones; one timed step on (2, 1), whose ~17-20 s are gloo's host
+#: copies of the params and gradient
+SHARDED_STEPS = {(SHARDED_RANKS, 1): 2, (1, SHARDED_RANKS): 3}
 #: the elastic phase: steps, checkpoint cadence, the heartbeat clock's tick
 #: (the lost worker times out 4 steps after it stops: step 7 of 8)
 ELASTIC_STEPS, ELASTIC_EVERY, ELASTIC_TICK = 8, 4, 0.3
@@ -3331,18 +3365,28 @@ AXES = ("data", "model")
 
 
 def _step_traffic(pshard, mesh) -> dict:
-    """Bytes a rank moves in one sharded step of a masked batch in one
-    microbatch, in split mode: the whole params its all-gathers build
-    (float32 leaves cut by one axis), and what its all-reduces sum over
-    the data ranks: the whole float32 gradient, the batch's token count
-    and the three metrics (float32 each)."""
-    leaves = adamw.leaves(pshard)
-    full = [math.prod(sh.shape) * 4 for sh in leaves]
-    gathered = sum(b for b, sh in zip(full, leaves) if not sh.replicated)
-    reduced = (sum(full) + 4 * (1 + 3)
-               if train_steps.data_ways(mesh) > 1 else 0)
-    return {"gathered_gb": gathered / 1e9, "reduced_gb": reduced / 1e9,
-            "gathered_bytes": gathered, "reduced_bytes": reduced}
+    """Bytes a rank moves over ``"data"`` in one sharded step of a masked
+    batch in one microbatch, in split mode, result bytes as the counter
+    counts them: the float32 blocks its all-gathers build (each leaf that
+    ``"data"`` cuts, gathered over ``"data"`` only: the rank's block along
+    ``"model"``), the gradient shards its reduce-scatters leave it (the
+    same leaves), and what its all-reduces sum: the gradient of every
+    other leaf, the batch's token count, the three metrics and the
+    data-cut shards' sum of squares (float32 each).  None of it where
+    ``"data"`` has one rank."""
+    gathered = scattered = reduced = 0
+    if train_steps.data_ways(mesh) > 1:
+        for sh in adamw.leaves(pshard):
+            local = math.prod(sh.local_shape) * 4
+            if sh.cuts("data"):
+                gathered += local * mesh.shape["data"]
+                scattered += local
+            else:
+                reduced += local
+        reduced += 4 * (1 + 3 + 1)
+    return {"gathered_gb": gathered / 1e9, "scattered_gb": scattered / 1e9,
+            "reduced_gb": reduced / 1e9, "gathered_bytes": gathered,
+            "scattered_bytes": scattered, "reduced_bytes": reduced}
 
 
 def _span_s(events, names) -> dict:
@@ -3355,9 +3399,10 @@ def _span_s(events, names) -> dict:
 
 
 def _train_sharded_full(mesh) -> dict:
-    """``train_sharded`` on one rank: qwen3-1.7b at full width on a (2, 1)
-    mesh, ``train``'s data and optimizer, ``SHARDED_STEPS`` sharded steps
-    (the first untimed), traced."""
+    """``train_sharded`` on one rank: qwen3-1.7b at full width on ``mesh``
+    ((2, 1) or (1, 2)), ``train``'s data and optimizer, the mesh's
+    ``SHARDED_STEPS`` sharded steps (the first untimed and counted),
+    traced."""
     cfg = configs.get("qwen3-1.7b")
     dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
     ocfg = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1,
@@ -3377,7 +3422,7 @@ def _train_sharded_full(mesh) -> dict:
             params, opt, batch, cfg=cfg, opt_cfg=ocfg, mesh=mesh,
             shardings=pshard)[2]
     with obs.tracing() as tracer:
-        for step in range(SHARDED_STEPS):
+        for step in range(SHARDED_STEPS[tuple(mesh.shape.values())]):
             batch = batch_for_model(cfg, dcfg, step, device=mesh.device)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3397,9 +3442,11 @@ def _train_sharded_full(mesh) -> dict:
     peak = max(init_peak, torch.cuda.max_memory_allocated())
     del params, opt
     torch.cuda.empty_cache()
+    split = train_steps.model_split(cfg, mesh, pshard)
     return {"losses": losses, "step_s": times, "modes": modes,
             "launches": launches, "peak_mem_gb": peak / 1e9,
             "local_state_gb": local_gb, **_step_traffic(pshard, mesh),
+            "seams_cut": sorted(split.cut) if split else [],
             "counted_step": counted,
             "spans_s": _span_s(tracer.events(), (
                 "train.gather", "train.grads", "train.reduce",
@@ -3548,6 +3595,10 @@ def _sharded_rank(rank: int, workdir: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     mesh = mesh_for((SHARDED_RANKS, 1), AXES)
     out = {"train_sharded": _train_sharded_full(mesh)}
+    torch.cuda.empty_cache()
+    out["train_sharded_model"] = _train_sharded_full(
+        mesh_for((1, SHARDED_RANKS), AXES))
+    torch.cuda.empty_cache()
     out["differential_train_sharded"] = _differential_sharded(
         ((SHARDED_RANKS, 1), (1, SHARDED_RANKS)), mesh.device)
     torch.cuda.empty_cache()
@@ -3562,15 +3613,20 @@ def phase_train_sharded(workdir: Path, info: dict, train: dict) -> dict:
     over gloo (NCCL refuses two ranks on one GPU), each phase its line:
 
     * ``train_sharded``: qwen3-1.7b at full width, all 28 layers, bf16 over
-      float32 masters, ``train``'s B8 S128 data, on a (2, 1) ("data",
-      "model") mesh: each rank holds half of every embed dim of the params
-      and moments, gathers the params whole for a step, runs its 4 rows and
-      all-reduces the float32 gradient.  One untimed step, then the timed
-      ones: step p50, tokens/s, peak memory a rank, the bytes a step
-      gathers and reduces, the loss mode, the spans.  Losses must be finite
-      and equal on both ranks, and the first (the same weights and batch
-      as ``train``'s first step) within 1e-2 of ``train``'s; the others
-      are reported beside ``train``'s.
+      float32 masters, remat "full", ``train``'s B8 S128 data, on a (2, 1)
+      ("data", "model") mesh: each rank holds half of every embed dim of
+      the params and moments, gathers the params whole for a step, runs
+      its 4 rows and reduce-scatters the float32 gradient (all-reduces the
+      leaves "data" does not cut).  Then the same on a (1, 2) mesh
+      (``model``): each rank holds and runs its half of the heads, kv
+      heads, MLP hidden dim and vocab (``steps.model_split``), all 8 rows,
+      its seams all-reduces over "model".  Each: one untimed step
+      (counted), then the timed ones: step p50, tokens/s, peak memory a
+      rank, the bytes a step gathers, scatters and reduces over "data" and
+      (the counter's) over "model", the loss mode, the spans.  Losses must
+      be finite and equal on both ranks, and each mesh's first (the same
+      weights and batch as ``train``'s first step) within 1e-2 of
+      ``train``'s; the others are reported beside ``train``'s.
     * ``differential_train_sharded``: qwen3's smoke config in float32, one
       sharded step on (2, 1) and on (1, 2) against the one-device step on
       this card: max relative error under 2e-4 (the reference's bound).
@@ -3601,31 +3657,46 @@ def phase_train_sharded(workdir: Path, info: dict, train: dict) -> dict:
                 raise AssertionError(f"{phase}: a kernel launched: "
                                      f"{res['launches']}")
 
-    ts = [r["train_sharded"] for r in ranks]
-    losses = ts[0]["losses"]
-    one = train["losses"][:SHARDED_STEPS]
-    first_rel = abs(losses[0] - one[0]) / abs(one[0])
-    if not all(np.isfinite(losses)) or any(t["losses"] != losses
-                                           for t in ts) or first_rel > 1e-2:
-        raise AssertionError(f"train_sharded: losses "
-                             f"{[t['losses'] for t in ts]}, train's {one}")
-    cfg = configs.get("qwen3-1.7b")
-    timed = ts[0]["step_s"][1:]
-    p50 = float(np.median(timed))
+    one = train["losses"][:max(SHARDED_STEPS.values())]
     tokens = TRAIN_DATA["global_batch"] * TRAIN_DATA["seq_len"]
+    cfg = configs.get("qwen3-1.7b")
+
+    def run_line(key, mesh):
+        ts = [r[key] for r in ranks]
+        losses = ts[0]["losses"]
+        first_rel = abs(losses[0] - one[0]) / abs(one[0])
+        if not all(np.isfinite(losses)) or first_rel > 1e-2 \
+                or any(t["losses"] != losses for t in ts):
+            raise AssertionError(f"train_sharded {mesh}: losses "
+                                 f"{[t['losses'] for t in ts]}, train's "
+                                 f"{one}")
+        p50 = float(np.median(ts[0]["step_s"][1:]))
+        model = ts[0]["counted_step"]["counts"][
+            "collective_bytes_by_axis"].get("model", {})
+        return {"mesh": mesh, "steps": len(losses), "losses": losses,
+                "first_loss_rel_diff": first_rel,
+                "step_s": [t["step_s"] for t in ts],
+                "step_p50_ms": p50 * 1e3, "tokens_per_s": tokens / p50,
+                "rank_peak_mem_gb": [t["peak_mem_gb"] for t in ts],
+                "local_state_gb": ts[0]["local_state_gb"],
+                "gathered_gb_per_step": ts[0]["gathered_gb"],
+                "scattered_gb_per_step": ts[0]["scattered_gb"],
+                "reduced_gb_per_step": ts[0]["reduced_gb"],
+                "model_axis_gb_per_step": {
+                    op: v / 1e9 for op, v in model.items() if v},
+                "seams_cut": ts[0]["seams_cut"],
+                "loss_modes": sorted({m for t in ts for m in t["modes"]}),
+                "spans_s_rank0": ts[0]["spans_s"],
+                "launches": ts[0]["launches"]}
+
+    data_line = run_line("train_sharded", [SHARDED_RANKS, 1])
+    model_line = run_line("train_sharded_model", [1, SHARDED_RANKS])
+    if model_line["seams_cut"] != ["attn", "mlp", "vocab"] \
+            or model_line["model_axis_gb_per_step"].get("all-gather"):
+        raise AssertionError(f"train_sharded (1, 2): {model_line}")
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
-           "param_dtype": cfg.param_dtype, "mesh": [SHARDED_RANKS, 1],
-           "axes": list(AXES), **TRAIN_DATA, "steps": SHARDED_STEPS,
-           "losses": losses, "losses_one_device": one,
-           "first_loss_rel_diff": first_rel,
-           "step_s": [t["step_s"] for t in ts],
-           "step_p50_ms": p50 * 1e3, "tokens_per_s": tokens / p50,
-           "rank_peak_mem_gb": [t["peak_mem_gb"] for t in ts],
-           "local_state_gb": ts[0]["local_state_gb"],
-           "gathered_gb_per_step": ts[0]["gathered_gb"],
-           "reduced_gb_per_step": ts[0]["reduced_gb"],
-           "loss_modes": sorted({m for t in ts for m in t["modes"]}),
-           "spans_s_rank0": ts[0]["spans_s"], "launches": ts[0]["launches"],
+           "param_dtype": cfg.param_dtype, "remat_policy": cfg.remat_policy,
+           "axes": list(AXES), **TRAIN_DATA, **data_line, "losses_one_device": one, "model": model_line,
            "job_s": job_s, "parent_reserved_gb": parent_gb,
            "nvidia_smi": info["nvidia_smi"], "note": note}
     emit("train_sharded", **out)
@@ -3645,7 +3716,8 @@ def phase_train_sharded(workdir: Path, info: dict, train: dict) -> dict:
          rank_grad_max_rel_err=[p["grad_max_rel_err"] for p in pipe],
          limit=1e-4, note=note)
 
-    counted = [r["train_sharded"]["counted_step"] for r in ranks]
+    counted = {key: [r[key]["counted_step"] for r in ranks]
+               for key in ("train_sharded", "train_sharded_model")}
     el = [r["train_elastic"] for r in ranks]
     lead = el[0]
     rel = abs(lead["final_loss"] - lead["base_loss"]) / abs(lead["base_loss"])
@@ -3659,8 +3731,9 @@ def phase_train_sharded(workdir: Path, info: dict, train: dict) -> dict:
          final_loss_rel_diff=rel, limit=5e-3,
          rank1_outside_mesh=el[1]["outside_mesh"], note=note)
     return {**out, "counted_steps": counted,
-            "traffic": {k: ts[0][k] for k in ("gathered_bytes",
-                                              "reduced_bytes")}}
+            "traffic": {key: {k: ranks[0][key][k] for k in (
+                "gathered_bytes", "scattered_bytes", "reduced_bytes")}
+                for key in counted}}
 
 
 # ================================================================ dry run
@@ -3723,12 +3796,14 @@ def predictions() -> dict:
     """The dry run's predictions of what the card runs in
     ``dryrun_vs_card``, each in a fake world of its own (this process
     joins no real one): (a) ``train``'s step on (1, 1), (b)
-    ``train_sharded``'s on (2, 1), (c) the serving batch's prefill and
-    decode on (1, 1)."""
+    ``train_sharded``'s on (2, 1) and on (1, 2), (c) the serving batch's
+    prefill and decode on (1, 1)."""
     cfg = configs.get("qwen3-1.7b")
     return {"train": dryrun.count_cell(cfg, CARD_TRAIN, (1, 1)),
             "train_sharded": dryrun.count_cell(cfg, CARD_TRAIN,
                                                (SHARDED_RANKS, 1)),
+            "train_sharded_model": dryrun.count_cell(cfg, CARD_TRAIN,
+                                                     (1, SHARDED_RANKS)),
             "prefill": dryrun.count_cell(cfg, CARD_PREFILL, (1, 1),
                                          max_len=CARD_MAX_LEN),
             "decode": dryrun.count_cell(cfg, CARD_DECODE, (1, 1))}
@@ -3762,7 +3837,8 @@ def phase_dryrun(procs) -> dict:
     """``dryrun``: the CLI on ``DRYRUN_CELLS`` (fake worlds of 256 and 512
     ranks, fake tensors, no device).  Each cell must be ``ok`` on 256 or
     512 chips, count FLOPs, launch no kernel, and its depth probes'
-    linear extrapolation must be its full-depth count within 1e-6.
+    linear extrapolation must be its full-depth count within 1e-6;
+    qwen3-1.7b's train_4k on one pod must fit the card's 80 GB.
     Beside each: GB per device against the card's 80 GB, the collective
     GB a device by axis, the dominant roofline term at the H100's rates
     and the seconds of the full-depth trace."""
@@ -3800,6 +3876,11 @@ def phase_dryrun(procs) -> dict:
                                if k != "dominant"},
                 "trace_s": rec.get("trace_s"), "launches": launches}
         cells.append(cell)
+        # qwen3-1.7b's one-pod train_4k must fit the card (remat and the
+        # compute split along "model")
+        must_fit = (arch, shape, mesh) == DRYRUN_CELLS[0]
+        if must_fit and not cell["fits_80gb"]:
+            bad.append((cell, "train_4k does not fit 80 GB"))
         if rc != 0 or cell["status"] != "ok" or cell["chips"] not in (
                 256, 512) or not cell["flops_per_device"] or launches != 0 \
                 or not cell["probe_flops_rel_diff"] <= 1e-6:
@@ -3825,9 +3906,11 @@ def phase_dryrun_vs_card(got: dict, train: dict, sharded: dict,
     * (a) ``train``'s counted step (qwen3-1.7b full width, B8 S128, one
       device) against the cell on (1, 1);
     * (b) ``train_sharded``'s counted first step on each of its 2 ranks
-      against the cell on (2, 1): besides, collective bytes by op and by
-      axis and param bytes a rank equal, and equal to ``_step_traffic``'s
-      figures (all-gather, and the all-reduce at its weight 2);
+      against the cell on (2, 1), and on (1, 2) (compute split along
+      "model"): besides, collective bytes by op and by axis and param
+      bytes a rank equal, and those over "data" equal to
+      ``_step_traffic``'s figures (all-gather, reduce-scatter, and the
+      all-reduce at its weight 2);
     * (c) ``prefill_step`` then ``serve_step`` on one device
       (``card_serve_steps``) against the cells on (1, 1), finite logits.
 
@@ -3858,35 +3941,40 @@ def phase_dryrun_vs_card(got: dict, train: dict, sharded: dict,
         return r
 
     row("train", got["train"], train["counted_step"])
-    ts = got["train_sharded"]
-    traffic = sharded["traffic"]
-    ranks = []
-    for rank, real in enumerate(sharded["counted_steps"]):
-        r = row(f"train_sharded_rank{rank}", ts, real)
-        counts = real["counts"]
-        coll = {f"coll/{op}": v for op, v in
-                counts["collective_bytes"].items()}
-        axes = {f"axis/{a}/{op}": counts["collective_bytes_by_axis"].get(
-            a, {}).get(op, 0.0) for a in AXES for op in dryrun.COLLECTIVE_OPS}
-        want = {k: v for k, v in ts.items() if k.startswith(("coll/",
-                                                             "axis/"))}
-        r.update(collectives_equal={**coll, **axes} == want,
-                 param_bytes=real["param_bytes"],
-                 predicted_param_bytes=ts["param_bytes"],
-                 all_gather=counts["collective_bytes"]["all-gather"],
-                 all_reduce=counts["collective_bytes"]["all-reduce"],
-                 step_traffic=traffic)
-        if not r["collectives_equal"] or \
-                real["param_bytes"] != ts["param_bytes"] or \
-                r["all_gather"] != traffic["gathered_bytes"] or \
-                r["all_reduce"] != 2 * traffic["reduced_bytes"]:
-            bad.append((f"train_sharded_rank{rank}", counts, ts))
-        ranks.append(r)
+    for key, name in (("train_sharded", "train_sharded"),
+                      ("train_sharded_model", "train_sharded_1x2")):
+        ts = got[key]
+        traffic = sharded["traffic"][key]
+        for rank, real in enumerate(sharded["counted_steps"][key]):
+            r = row(f"{name}_rank{rank}", ts, real)
+            counts = real["counts"]
+            coll = {f"coll/{op}": v for op, v in
+                    counts["collective_bytes"].items()}
+            axes = {f"axis/{a}/{op}": counts["collective_bytes_by_axis"].get(
+                a, {}).get(op, 0.0) for a in AXES
+                for op in dryrun.COLLECTIVE_OPS}
+            want = {k: v for k, v in ts.items()
+                    if k.startswith(("coll/", "axis/"))}
+            data = counts["collective_bytes_by_axis"].get("data", {})
+            r.update(collectives_equal={**coll, **axes} == want,
+                     param_bytes=real["param_bytes"],
+                     predicted_param_bytes=ts["param_bytes"],
+                     collective_bytes_by_axis=counts[
+                         "collective_bytes_by_axis"],
+                     step_traffic=traffic)
+            if not r["collectives_equal"] or \
+                    real["param_bytes"] != ts["param_bytes"] or \
+                    data.get("all-gather", 0) != traffic["gathered_bytes"] \
+                    or data.get("reduce-scatter", 0) \
+                    != traffic["scattered_bytes"] or \
+                    data.get("all-reduce", 0) != 2 * traffic["reduced_bytes"]:
+                bad.append((f"{name}_rank{rank}", counts, ts, traffic))
     row("prefill", got["prefill"], card["prefill"])
     row("decode", got["decode"], card["decode"])
     launched = [real["launches"] for real in (
         card["prefill"], card["decode"], train["counted_step"],
-        *sharded["counted_steps"]) if any(real["launches"].values())]
+        *(c for cs in sharded["counted_steps"].values() for c in cs))
+        if any(real["launches"].values())]
     if launched or not card["finite"]:
         bad.append(("launches or non-finite logits", launched,
                     card["finite"]))

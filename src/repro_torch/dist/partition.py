@@ -229,22 +229,66 @@ class NamedSharding:
         return NamedSharding(self.mesh, PartitionSpec(*self.spec[k:]),
                              self.shape[k:])
 
-    def gather(self, shard: torch.Tensor) -> torch.Tensor:
+    def cuts(self, axis: str) -> bool:
+        """Whether mesh axis ``axis`` (of more than one rank) cuts the
+        tensor."""
+        return self.mesh.shape.get(axis, 1) > 1 and any(
+            axis in _names(e) for e in self.spec)
+
+    def _dims(self, axes: Sequence[str] | None):
+        """(dim, mesh axis) of each cutting axis in ``axes`` (None: every
+        axis), innermost first within a dim.  Raises where a dim is cut by
+        an axis outside ``axes`` inside one of ``axes``: the blocks along
+        the outer axis alone would not be contiguous."""
+        out = []
+        for dim, entry in enumerate(self.spec):
+            names = [a for a in _names(entry) if self.mesh.shape[a] > 1]
+            mine = [a for a in names if axes is None or a in axes]
+            if mine != names[len(names) - len(mine):]:
+                raise ValueError(f"{self.spec} cuts dim {dim} by {names}: "
+                                 f"{mine} alone are not its inner axes")
+            out.extend((dim, a) for a in reversed(mine))
+        return out
+
+    def gather(self, shard: torch.Tensor,
+               axes: Sequence[str] | None = None) -> torch.Tensor:
         """The full tensor from every rank's block (``shard`` is this
         rank's): an all-gather over each cutting axis's group, innermost
-        first.  Every rank of each group must call it; ``shard`` itself
-        when nothing cuts it."""
+        first.  ``axes`` gathers over those mesh axes only (the block
+        along the others, whole along these).  Every rank of each group
+        must call it; ``shard`` itself when nothing cuts it."""
         out = shard
-        for dim, entry in enumerate(self.spec):
-            for a in reversed(_names(entry)):
-                n = self.mesh.shape[a]
-                if n == 1:
-                    continue
-                parts = [torch.empty_like(out) for _ in range(n)]
-                dist.all_gather(parts, out.contiguous(),
-                                group=self.mesh.group(a))
-                out = torch.cat(parts, dim=dim)
+        for dim, a in self._dims(axes):
+            parts = [torch.empty_like(out) for _ in range(self.mesh.shape[a])]
+            dist.all_gather(parts, out.contiguous(), group=self.mesh.group(a))
+            out = torch.cat(parts, dim=dim)
         return out
+
+    def reduce_scatter(self, t: torch.Tensor,
+                       axes: Sequence[str]) -> torch.Tensor:
+        """This rank's block, along the mesh axes ``axes`` that cut the
+        tensor, of ``t`` summed over those axes' ranks: ``t`` is whole
+        along them, and a reduce-scatter runs over each one's group,
+        outermost first.  Every rank of each group must call it."""
+        out = t
+        for dim, a in reversed(self._dims(axes)):
+            n = self.mesh.shape[a]
+            mine = torch.empty_like(out.narrow(dim, 0, out.shape[dim] // n),
+                                    memory_format=torch.contiguous_format)
+            dist.reduce_scatter(mine, [c.contiguous()
+                                       for c in out.chunk(n, dim=dim)],
+                                group=self.mesh.group(a))
+            out = mine
+        return out
+
+    def cut(self, t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """This rank's block of ``t``, whole along the mesh axes ``axes``,
+        along those of them that cut the tensor (a tensor of its own)."""
+        out = t
+        for dim, a in reversed(self._dims(axes)):
+            size = out.shape[dim] // self.mesh.shape[a]
+            out = out.narrow(dim, self.mesh.coord(a) * size, size)
+        return t if out is t else out.clone()
 
 
 def named_sharding(axes: Sequence[str | None], mesh,

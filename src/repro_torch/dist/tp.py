@@ -22,6 +22,19 @@ token.
   shard's head, kv-head and hidden counts.
 * :func:`tp_eligible` — the gate: manual TP sums *partial* products, so
   every seam dimension must divide the mesh exactly.
+
+Training sharded along ``"model"`` (``launch/steps.sharded_train_step``)
+enters :func:`training` instead.  There the seams are Megatron's two
+autograd operators over the ``"model"`` group: :func:`tp_enter` (the
+identity forward, an all-reduce of the gradient backward) where a
+replicated activation enters a cut product, and :func:`tp_allreduce`
+(an all-reduce forward, the identity backward) where the partial sums
+leave it.  Each acts only on the seams the scope names as cut (the
+rank's params are cut there; elsewhere compute is replicated and the
+seams are the identity).  :func:`model_part` tells model code which part
+of a cut dimension the rank holds (the expert-parallel MoE, the router,
+the vocab-parallel embedding and loss), and :func:`model_max` is the
+loss's max over the vocab shards.
 """
 
 from __future__ import annotations
@@ -67,11 +80,22 @@ TP_RULES: dict[str, Any] = {
 TP_FAMILIES = ("dense", "moe", "vlm")
 
 
+#: the seams a training scope may cut (``training``): attention heads,
+#: the dense or expert MLP's hidden dim, the experts (expert-parallel FFN),
+#: the MoE router's expert columns, and the vocab (embedding rows and
+#: lm_head columns)
+TRAIN_SEAMS = ("attn", "mlp", "experts", "router", "vocab")
+
+
 @dataclasses.dataclass(frozen=True)
 class _Scope:
     group: Any
-    compressed: bool
-    block: int
+    compressed: bool = False
+    block: int = 64
+    train: bool = False
+    rank: int = 0
+    n: int = 1
+    cut: frozenset = frozenset()
 
 
 _TP: contextvars.ContextVar[_Scope | None] = \
@@ -95,14 +119,105 @@ def tp_context(group, *, compressed: bool = False,
         _TP.reset(token)
 
 
-def tp_allreduce(x: torch.Tensor) -> torch.Tensor:
+@contextlib.contextmanager
+def training(group, rank: int, n: int, cut) -> Iterator[None]:
+    """Activate the training seams over ``group``, the ``"model"`` group
+    in which this rank is ``rank`` of ``n``: each seam named in ``cut`` (of
+    :data:`TRAIN_SEAMS`) is an autograd operator, every other the
+    identity.  A seam that finds no group raises."""
+    if group is None:
+        raise ValueError("training seams need the 'model' process group")
+    bad = set(cut) - set(TRAIN_SEAMS)
+    if bad:
+        raise ValueError(f"unknown seams {sorted(bad)}")
+    token = _TP.set(_Scope(group, train=True, rank=rank, n=n,
+                           cut=frozenset(cut)))
+    try:
+        yield
+    finally:
+        _TP.reset(token)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The identity forward; the gradient all-reduced over the group
+    backward (each rank's is its cut product's partial)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The partial sums all-reduced over the group forward; the identity
+    backward (every rank's gradient of the sum is the whole one)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _train_seam(seam: str) -> _Scope | None:
+    """The training scope when it cuts ``seam``, else None."""
+    scope = _TP.get()
+    if scope is None or not scope.train or seam not in scope.cut:
+        return None
+    return scope
+
+
+def tp_enter(x: torch.Tensor, seam: str) -> torch.Tensor:
+    """Where replicated ``x`` enters the cut products of ``seam``: under a
+    training scope that cuts it, the identity whose backward all-reduces
+    the gradient over ``"model"``; else ``x`` itself."""
+    scope = _train_seam(seam)
+    return x if scope is None else _CopyToModel.apply(x, scope.group)
+
+
+def model_part(seam: str) -> tuple[int, int] | None:
+    """(this rank's index, the ranks) along ``"model"`` under a training
+    scope that cuts ``seam``, else None."""
+    scope = _train_seam(seam)
+    return None if scope is None else (scope.rank, scope.n)
+
+
+def model_max(x: torch.Tensor, seam: str) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ``"model"`` ranks of a
+    training scope that cuts ``seam`` (no gradient), else ``x``."""
+    scope = _train_seam(seam)
+    if scope is None:
+        return x
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=scope.group)
+    return out
+
+
+def tp_allreduce(x: torch.Tensor, seam: str = "attn") -> torch.Tensor:
     """Sum ``x``'s partial products over the TP group (the identity when no
     TP scope is active).  The one primitive model code calls, placed right
-    after every contraction over a sharded dimension."""
+    after every contraction over a sharded dimension.  Under a training
+    scope it is the autograd seam of ``seam`` (the identity where the
+    scope does not cut it); a serving scope cuts every seam."""
     global seams
     scope = _TP.get()
     if scope is None:
         return x
+    if scope.train:
+        if seam not in scope.cut:
+            return x
+        seams += 1
+        return _ReduceFromModel.apply(x, scope.group)
     seams += 1
     if scope.compressed:
         return compressed_all_reduce(x, scope.group, block=scope.block)

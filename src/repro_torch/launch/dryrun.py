@@ -51,6 +51,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -218,11 +219,25 @@ class StepCounter(TorchDispatchMode):
 def count(step, args, mesh=None) -> dict[str, Any]:
     """Run ``step()`` under a :class:`StepCounter` whose live storages start
     as ``args``'s -> its :meth:`~StepCounter.result` and ``held_bytes``,
-    the arguments' own."""
-    counter = StepCounter(mesh).hold(args)
-    held = counter.live_bytes
-    with counter:
-        step()
+    the arguments' own.  The cycle collector runs just before the step and
+    is off during it, so a storage caught in a reference cycle is freed at
+    the same moment on every run (at the step's end), and the peak is the
+    same number from run to run, fake or real.  ``torch._dynamo`` is
+    imported first: torch imports it at the first call of a collective,
+    and that import leaves a reference cycle holding the caller's frame
+    (its tensors) behind."""
+    import torch._dynamo  # noqa: F401
+    gc.collect()
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        counter = StepCounter(mesh).hold(args)
+        held = counter.live_bytes
+        with counter:
+            step()
+    finally:
+        if was:
+            gc.enable()
     return {**counter.result(), "held_bytes": held}
 
 

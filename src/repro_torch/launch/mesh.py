@@ -133,9 +133,14 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return mesh_for(shape, axes)
 
 
-def make_host_mesh() -> Mesh:
-    """Every rank of the job on ``data``: (world, 1) as ("data", "model")."""
-    return mesh_for((dist.get_world_size(), 1), ("data", "model"))
+def make_host_mesh(model: int = 1) -> Mesh:
+    """Every rank of the job on a ("data", "model") mesh: (world / model,
+    model), by default (world, 1)."""
+    world = dist.get_world_size()
+    if model < 1 or world % model:
+        raise ValueError(f"a model axis of {model} does not divide the "
+                         f"job's {world} ranks")
+    return mesh_for((world // model, model), ("data", "model"))
 
 
 def chips(mesh: Mesh) -> int:

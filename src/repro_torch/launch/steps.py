@@ -25,6 +25,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import ShapeSpec
 from repro_torch.dist import partition
+from repro_torch.dist import tp as tp_lib
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import trace as obs_trace
@@ -34,7 +35,7 @@ from repro_torch.optim import adamw
 def loss_and_grads(params, batch, *, cfg: ModelConfig,
                    num_microbatches: int = 1,
                    denoms: Sequence[torch.Tensor] | None = None,
-                   share: float = 1.0):
+                   share: float = 1.0, view=None):
     """(metrics, float32 grads) of ``M.loss_fn`` at ``params``.  Gradients
     flow to detached aliases of the leaves (no copy, and the caller's
     tensors are not marked), so params need not require grad.  A leaf the
@@ -45,7 +46,9 @@ def loss_and_grads(params, batch, *, cfg: ModelConfig,
     runs with ``cfg.use_pallas`` off: the kernels' plain, differentiable
     versions.  ``denoms`` (one a microbatch) and ``share`` make each
     microbatch's loss a slice's part of a larger batch's
-    (``M.loss_fn``)."""
+    (``M.loss_fn``).  ``view``, when given, maps the tree of leaves to
+    the tree the model reads (views of them: a sharded step's kv head);
+    the gradients stay the leaves'."""
     cfg = dataclasses.replace(cfg, use_pallas=False)
     flat = adamw.leaves(params)
     alias = {id(t): t.detach().requires_grad_() for t in flat}
@@ -54,7 +57,8 @@ def loss_and_grads(params, batch, *, cfg: ModelConfig,
 
     def one(b, denom):
         with torch.enable_grad():
-            total, metrics = M.loss_fn(live, b, cfg, denom=denom, share=share)
+            tree = live if view is None else view(live)
+            total, metrics = M.loss_fn(tree, b, cfg, denom=denom, share=share)
             grads = torch.autograd.grad(total, inputs, allow_unused=True)
         grads = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
                  if g is None else g.to(torch.float32)
@@ -169,6 +173,104 @@ def _all_reduce_data(x: torch.Tensor, mesh) -> torch.Tensor:
     return x
 
 
+@dataclasses.dataclass(frozen=True)
+class ModelSplit:
+    """How a rank of a mesh with a ``"model"`` axis runs its step's compute
+    split along it (:func:`model_split`): ``cfg``, the rank's local config
+    (its heads, kv heads, hidden dim); ``cut``, the seams whose params the
+    rank holds cut (``dist.tp.TRAIN_SEAMS``); ``whole``, the paths of
+    ``"model"``-cut leaves gathered whole all the same (their compute is
+    replicated); ``summed``, the paths of leaves replicated along
+    ``"model"`` but read inside a cut region, whose gradients are partial
+    and summed over ``"model"``; ``kv``, the kv head this rank's query
+    heads map to where the kv heads are fewer than the ranks (the rank
+    reads that head of the replicated ``wk``/``wv``), else None."""
+
+    cfg: ModelConfig
+    cut: frozenset
+    whole: frozenset
+    summed: frozenset
+    kv: int | None
+
+    def view(self, tree):
+        """The tree the rank's model reads: ``tree`` with ``wk``/``wv``
+        narrowed to :attr:`kv`."""
+        if self.kv is None:
+            return tree
+        attn = tree["blocks"]["attn"]
+        attn = {**attn, **{k: attn[k].narrow(-2, self.kv, 1)
+                           for k in ("wk", "wv")}}
+        return {**tree, "blocks": {**tree["blocks"], "attn": attn}}
+
+
+#: the leaves each seam cuts, by their path's last two names
+_SEAM_LEAVES = {"attn": {("attn", k) for k in ("wq", "wk", "wv", "wo")},
+                "mlp": {("ffn", k) for k in ("w_gate", "w_up", "w_down")},
+                "experts": {("ffn", k) for k in ("w_gate", "w_up",
+                                                 "w_down")},
+                "router": {("ffn", "router")},
+                "vocab": {("embed",), ("lm_head",)}}
+
+
+def model_split(cfg: ModelConfig, mesh, shardings) -> ModelSplit | None:
+    """How :func:`sharded_train_step` splits the compute of ``cfg`` along
+    ``mesh``'s ``"model"`` axis, the params laid out by ``shardings``, as
+    GSPMD does under the reference's rules; None where it replicates it
+    (no ``"model"`` extent, or a family the seams do not cover: ssm,
+    hybrid, enc_dec, padded heads; their leaves are gathered whole).
+
+    * attention: the rank's heads where ``wq`` is cut and the kv heads are
+      cut too or fewer than the ranks and dividing them; else its leaves
+      are gathered whole and its compute replicated (heads that do not
+      divide the ranks);
+    * the dense MLP, or an MoE's experts' hidden dim: the rank's share of
+      it where cut;
+    * an MoE whose experts are cut (they divide the ranks): its router's
+      and FFN's experts (expert-parallel), routing replicated;
+    * the embedding and lm_head: the rank's vocab block where cut."""
+    n = mesh.shape.get("model", 1)
+    if n == 1 or cfg.family not in tp_lib.TP_FAMILIES or cfg.padded_heads:
+        return None
+    attn, ffn = shardings["blocks"]["attn"], shardings["blocks"]["ffn"]
+    cut, summed, local, kv = set(), set(), {}, None
+    kv_cut = attn["wk"].cuts("model")
+    if attn["wq"].cuts("model") and (kv_cut or n % cfg.n_kv_heads == 0):
+        cut.add("attn")
+        local.update(n_heads=cfg.n_heads // n,
+                     n_kv_heads=cfg.n_kv_heads // n if kv_cut else 1)
+        if not kv_cut:
+            kv = mesh.coord("model") // (n // cfg.n_kv_heads)
+            summed |= {("blocks", "attn", "wk"), ("blocks", "attn", "wv")}
+        if cfg.qk_norm:
+            summed |= {("blocks", "attn", "q_norm"),
+                       ("blocks", "attn", "k_norm")}
+    if cfg.family == "moe" and ffn["router"].cuts("model"):
+        cut |= {"router", "experts"}
+    elif ffn["w_up"].cuts("model"):
+        cut.add("mlp")
+        local["d_ff"] = cfg.d_ff // n
+    if shardings["embed"].cuts("model") and \
+            shardings["lm_head"].cuts("model"):
+        cut.add("vocab")
+    covered = set().union(*(_SEAM_LEAVES[c] for c in cut))
+    whole = {path for path, sh in _items(shardings)
+             if sh.cuts("model") and path[-2:] not in covered
+             and path[-1:] not in covered}
+    return ModelSplit(dataclasses.replace(cfg, head_dim=cfg.hd, **local),
+                      frozenset(cut), frozenset(whole), frozenset(summed),
+                      kv)
+
+
+def _gathered_axes(mesh, split: ModelSplit | None,
+                   path: tuple[str, ...]) -> tuple[str, ...]:
+    """The mesh axes a leaf is gathered over for the step: every axis, or
+    under a split every axis but ``"model"`` (unless the leaf is in its
+    ``whole``)."""
+    if split is None or path in split.whole:
+        return tuple(mesh.shape)
+    return tuple(a for a in mesh.shape if a != "model")
+
+
 def sharded_train_step(params, opt_state, batch, *, cfg: ModelConfig,
                        opt_cfg: adamw.OptConfig, mesh, shardings,
                        num_microbatches: int = 1):
@@ -178,8 +280,13 @@ def sharded_train_step(params, opt_state, batch, *, cfg: ModelConfig,
     of :class:`~repro_torch.dist.partition.NamedSharding`; the moments lie
     as the params), updated in place.
 
-    * The params are gathered whole, in their stored dtype, for the step;
-      compute along ``"model"`` is replicated.
+    * Along ``"model"`` the compute is split as :func:`model_split` says:
+      each leaf is gathered over the other axes only (the FSDP ``embed``
+      cut over ``"data"``), so a rank holds its block of every leaf that
+      ``"model"`` cuts and runs its local config inside
+      ``dist.tp.training``, whose seams sum the partial products.  The
+      families it does not cover gather every leaf whole and replicate
+      their compute along ``"model"``.
     * In ``"split"`` mode (:func:`loss_mode`) the rank runs its slice of
       every microbatch's rows; each slice's loss divides its token sum by
       the whole microbatch's token count (one all-reduce of the counts),
@@ -187,9 +294,12 @@ def sharded_train_step(params, opt_state, batch, *, cfg: ModelConfig,
       scaled by its share, so the sum over the data ranks is the whole
       batch's.  In ``"global"`` mode every data rank runs the whole batch.
     * The gradients are summed (split) or averaged (global) over the data
-      ranks, leaf by leaf; the global norm is taken on the whole gradient,
-      in the single-device step's order, then each leaf is cut to the
-      rank's shard and AdamW runs on the shards.
+      ranks, leaf by leaf, a leaf that ``"data"`` cuts by a reduce-scatter
+      (the rank keeps its shard), every other by an all-reduce; a
+      replicated leaf read inside a cut region is first summed over
+      ``"model"``, and a leaf gathered whole is cut to the rank's block.
+      The global norm sums each shard's squares over the axes that cut
+      it, a replicated leaf once; AdamW runs on the shards.
 
     -> (params, opt_state, metrics): the metrics of :func:`train_step`, the
     whole batch's, and ``mode``.  Its parts are ``train.gather``,
@@ -199,24 +309,40 @@ def sharded_train_step(params, opt_state, batch, *, cfg: ModelConfig,
     n = max(num_microbatches, 1)
     rows, seq = batch["labels"].shape
     mode = loss_mode(cfg, mesh, rows, seq, n)
+    split = model_split(cfg, mesh, shardings)
     with obs_trace.span("train.gather"):
-        full = partition.gather_tree(params, shardings)
+        full = M.map_params(lambda path, t: _at(shardings, path).gather(
+            t, _gathered_axes(mesh, split, path)), params)
     with obs_trace.span("train.grads", mode=mode):
-        metrics, grads = _grads(full, batch, cfg, mesh, mode, n)
+        if split is None:
+            metrics, grads = _grads(full, batch, cfg, mesh, mode, n)
+        else:
+            with tp_lib.training(mesh.group("model"), mesh.coord("model"),
+                                 mesh.shape["model"], split.cut):
+                metrics, grads = _grads(full, batch, split.cfg, mesh, mode,
+                                        n, view=split.view)
     del full
     whole = list(_items(grads))     # the only references: freed leaf by leaf
     del grads
     with obs_trace.span("train.reduce"):
-        grads, norm = _reduce_grads(whole, shardings, mesh, mode)
+        grads, norm = _reduce_grads(whole, shardings, mesh, mode, split)
     with obs_trace.span("train.adamw"):
         params, opt_state, opt_metrics = adamw.adamw_update(
             grads, opt_state, params, opt_cfg, norm=norm)
     return params, opt_state, {**metrics, **opt_metrics, "mode": mode}
 
 
-def _grads(full, batch, cfg: ModelConfig, mesh, mode: str, n: int):
-    """(metrics, whole float32 gradients) of this rank's part of the step:
-    its rows of every microbatch (split) or the whole batch (global)."""
+def _at(tree, path: tuple[str, ...]):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _grads(full, batch, cfg: ModelConfig, mesh, mode: str, n: int,
+           view=None):
+    """(metrics, float32 gradients of the gathered leaves) of this rank's
+    part of the step: its rows of every microbatch (split) or the whole
+    batch (global)."""
     d = data_ways(mesh)
     rows = batch["labels"].shape[0]
     if mode == "split" and d > 1:
@@ -234,34 +360,58 @@ def _grads(full, batch, cfg: ModelConfig, mesh, mode: str, n: int):
                 if cfg.family == "moe" else cfg)
         metrics, grads = loss_and_grads(
             full, local, cfg=lcfg, num_microbatches=n,
-            denoms=list(torch.clamp(counts, min=1.0)), share=1.0 / d)
+            denoms=list(torch.clamp(counts, min=1.0)), share=1.0 / d,
+            view=view)
         keys = sorted(metrics)
         summed = _all_reduce_data(torch.stack([metrics[k] for k in keys]),
                                   mesh)
         return dict(zip(keys, summed.unbind())), grads
-    return loss_and_grads(full, batch, cfg=cfg, num_microbatches=n)
+    return loss_and_grads(full, batch, cfg=cfg, num_microbatches=n,
+                          view=view)
 
 
-def _reduce_grads(whole: list, shardings, mesh, mode: str):
+def _reduce_grads(whole: list, shardings, mesh, mode: str,
+                  split: ModelSplit | None):
     """(this rank's shards of the gradients, the whole gradient's global
-    norm) from ``whole``, the (path, whole leaf) list in ``adamw.leaves``
-    order: each leaf summed (split) or averaged (global) over the data
-    ranks, its squares summed in the order of ``adamw.global_norm``, then
-    cut to the rank's shard and dropped from the list."""
+    norm) from ``whole``, the (path, gradient of the gathered leaf) list in
+    ``adamw.leaves`` order, each dropped from the list once reduced: a
+    leaf of ``split.summed`` summed over ``"model"``, a leaf gathered
+    whole along ``"model"`` cut to the rank's block, then each summed
+    (split) or averaged (global) over the data ranks, by a reduce-scatter
+    along the dims they cut, else an all-reduce.  The squares of each
+    shard are summed, then each sum over the axes that cut its leaves."""
     d = data_ways(mesh)
+    data = [a for a in DATA_AXES if mesh.shape.get(a, 1) > 1]
     by_path = dict(_items(shardings))
-    sumsq, local_grads = [], {}
+    sumsq: dict[tuple[str, ...], list] = {}
+    local_grads = {}
     for j, (path, g) in enumerate(whole):
-        whole[j] = None                 # the full leaf goes once it is cut
-        if d > 1:
-            _all_reduce_data(g, mesh)
-            if mode == "global":
-                g.div_(d)
-        sumsq.append(torch.sum(torch.square(g)))
-        local_grads[path] = by_path[path].local(g)
+        whole[j] = None                 # the gathered leaf goes once cut
+        sh = by_path[path]
+        gathered = _gathered_axes(mesh, split, path)
+        if split is not None and path in split.summed:
+            dist.all_reduce(g, group=mesh.group("model"))
+        g = sh.cut(g, [a for a in gathered if a not in DATA_AXES])
+        scatter = [a for a in data if a in gathered and sh.cuts(a)]
+        for a in data:
+            if a not in scatter:
+                dist.all_reduce(g, group=mesh.group(a))
+        if scatter:
+            g = sh.reduce_scatter(g, scatter)
+        if mode == "global" and d > 1:
+            g.div_(d)
+        key = tuple(a for a in mesh.shape if sh.cuts(a))
+        sumsq.setdefault(key, []).append(torch.sum(torch.square(g)))
+        local_grads[path] = g
         del g
+    total = None
+    for key in sorted(sumsq):
+        part = sum(sumsq[key])
+        for a in key:
+            dist.all_reduce(part, group=mesh.group(a))
+        total = part if total is None else total + part
     return (M.map_params(lambda path, _: local_grads.pop(path), shardings),
-            torch.sqrt(sum(sumsq)))
+            torch.sqrt(total))
 
 
 # ============================================================ serve steps

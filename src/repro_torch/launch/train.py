@@ -12,14 +12,18 @@ verified checkpoint and re-enters with bounded backoff.
 
 ``--mesh host`` trains sharded over ``--ranks`` processes on this host
 (default: one a CUDA device), started by ``repro_torch.dist.spawn`` (NCCL
-when every rank has a card of its own, else gloo), on a ``(ranks, 1)``
-``("data", "model")`` mesh; an elastic reshape rebuilds the mesh from the
+when every rank has a card of its own, else gloo), on a ``(ranks / N,
+N)`` ``("data", "model")`` mesh, N ``--model-ranks`` (default 1: the
+params' embed dim cut over data, compute replicated); along ``"model"``
+each rank runs its heads, MLP hidden dim and vocab block
+(``steps.model_split``); an elastic reshape rebuilds the mesh from the
 FT manager's ladder on every rank, and rank 0 prints.  ``--mesh single``
 and ``multi`` are the reference's pod meshes, (16, 16) and (2, 16, 16):
 they need 256 and 512 ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
-        --smoke --device cpu --mesh host --ranks 2 --steps 4
+        --smoke --device cpu --mesh host --ranks 2 --steps 4 \
+        [--model-ranks 2]
 
 ``--chaos`` drives the deterministic fault-injection harness, e.g.::
 
@@ -75,6 +79,9 @@ def main(argv: list[str] | None = None) -> int:
                     help="processes of a --mesh job (default: "
                          "torch.cuda.device_count())")
     # --- fault tolerance -------------------------------------------------
+    ap.add_argument("--model-ranks", type=int, default=1, metavar="N",
+                    help="--mesh host: the 'model' axis of the (ranks/N, "
+                         "N) mesh")
     ap.add_argument("--chaos", default=None, metavar="SPEC",
                     help="fault-injection plan: comma-separated "
                          "kind@step[:wW][:xF][:dD][:perm][:sticky][:mode] "
@@ -109,7 +116,7 @@ def _train_rank(rank: int, args) -> int:
     """One rank of a ``--mesh`` job: its mesh over the job, then
     :func:`run`."""
     if args.mesh == "host":
-        mesh = mesh_lib.make_host_mesh()
+        mesh = mesh_lib.make_host_mesh(args.model_ranks)
     else:
         mesh = mesh_lib.make_production_mesh(multi_pod=args.mesh == "multi")
     return run(args, mesh)

@@ -21,7 +21,11 @@ An encoder-decoder's decoder adds :func:`cross_attention` over the K/V that
 
 Under tensor-parallel serving (``repro_torch.dist.tp``) ``cfg`` is a
 rank's local config: its share of the heads and kv heads, whose params and
-caches it holds, and every count here is that share.
+caches it holds, and every count here is that share.  Training sharded
+along ``"model"`` runs the same way, the input entering the rank's heads
+through ``tp_enter`` (its gradient summed over the ranks); where the kv
+heads are fewer than the ranks, the rank's ``wk``/``wv`` are the one kv
+head its query heads map to.
 
 Layouts are ``repro``'s: activations (B, S, H, D), weights ``wq`` (d, H, D)
 and ``wo`` (H, D, d), where H is :func:`phys_heads`.  A padded config's
@@ -38,7 +42,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.dist.tp import tp_allreduce
+from repro_torch.dist.tp import tp_allreduce, tp_enter
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.paged_attention import kernel as pg_kernel
@@ -94,7 +98,7 @@ def _out(p, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     b, s, h, hd = o.shape
     wo = p["wo"][:cfg.n_heads].to(o.dtype)
     return tp_allreduce(o.reshape(b, s, h * hd)
-                        @ wo.reshape(h * hd, wo.shape[-1]))
+                        @ wo.reshape(h * hd, wo.shape[-1]), "attn")
 
 
 def _qkv(p, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor):
@@ -174,7 +178,7 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
         pos = ar[None, :] + pos_offset[:, None]          # (B, S) per slot
     else:
         pos = ar + pos_offset
-    q, k, v = _qkv(p, x, cfg, pos)
+    q, k, v = _qkv(p, tp_enter(x, "attn"), cfg, pos)
 
     new_cache = None
     if cache is not None and "pt" in cache:     # paged decode / chunk prefill

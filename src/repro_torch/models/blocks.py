@@ -2,13 +2,19 @@
 cross-attention, and an MLP or MoE, with residuals; an encoder block is
 one run bidirectionally), the Mamba-2 block (pre-norm SSM mixer with a
 residual) and the Zamba-2 hybrid group (mamba blocks, then the one shared
-decoder block)."""
+decoder block); :func:`remat`, the per-layer rematerialisation the
+training forward wraps each layer in."""
 
 from __future__ import annotations
 
-from typing import Any
+import contextvars
+import functools
+from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    set_checkpoint_early_stop)
 
 from repro_torch.dist import partition
 from repro_torch.models import attention as attn_mod
@@ -17,6 +23,49 @@ from repro_torch.models import modules as nn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
+
+
+#: the products that ``remat_policy="dots"`` saves (the reference's
+#: ``checkpoint_dots``); every other op of a layer is recomputed
+DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                     torch.ops.aten.addmm.default,
+                     torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn``, one layer (or a hybrid group) of the training forward, as
+    the reference's ``_maybe_remat`` wraps its scan body: with grad
+    enabled and ``cfg.remat`` set, under ``torch.utils.checkpoint`` (non
+    reentrant), which keeps only the layer's inputs and runs it again in
+    the backward (policy ``"full"``), or keeps the outputs of its matrix
+    products too and runs the rest again (``"dots"``).  ``"none"``, remat
+    off, and a call without grad (serving) run ``fn`` as it is.  The run
+    again is the whole layer (no early stop: its FLOPs are one more
+    forward), and it sees the context variables of the first (the
+    tensor-parallel seams' scope): autograd may run it on another
+    thread."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}")
+    extra = ({"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_dots)}
+        if cfg.remat_policy == "dots" else {})
+
+    def run(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        scope = contextvars.copy_context()
+        with set_checkpoint_early_stop(False):
+            return checkpoint(lambda *a, **k: scope.copy().run(fn, *a, **k),
+                              *args, use_reentrant=False,
+                              preserve_rng_state=False, **extra, **kwargs)
+    return run
 
 
 def zero_aux() -> dict[str, float]:
@@ -86,23 +135,25 @@ def layer_views(stacked: dict[str, Any]) -> list[dict[str, Any]]:
 
 
 def mamba_stack(stacked, x: torch.Tensor, cfg: ModelConfig, *, states=None,
-                return_state: bool = False,
+                return_state: bool = False, remat_each: bool = False,
                 path: tuple[str, ...] = ("blocks",),
                 state_path: tuple[str, ...] = ()):
     """The mamba blocks ``stacked`` on axis 0, in turn -> (x, states).
     Decode passes their ``states`` (conv/SSD, stacked on axis 0) and they
     are advanced in place; prefill (``return_state``) gets the new states
-    stacked; otherwise ``states`` stays None.  ``path`` and
+    stacked; otherwise ``states`` stays None.  ``remat_each`` runs each
+    block under :func:`remat` (the training forward).  ``path`` and
     ``state_path`` (default: the root of the caches, an ssm model's) name
     the params and states in their trees, for ``dist.partition``'s
     layer-by-layer hooks."""
     layers = layer_views(stacked)
     views = [None] * len(layers) if states is None else layer_views(states)
+    block = remat(mamba_block, cfg) if remat_each else mamba_block
     new = []
     for lp, st in zip(layers, views):
         full = None if st is None else partition.whole_cache(st, *state_path)
-        x, ns = mamba_block(partition.whole(lp, *path), x, cfg, state=full,
-                            return_state=return_state)
+        x, ns = block(partition.whole(lp, *path), x, cfg, state=full,
+                      return_state=return_state)
         if st is not None:
             partition.write_back(st, ns, *state_path)
         elif ns is not None:

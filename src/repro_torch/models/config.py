@@ -1,9 +1,14 @@
 """Model configuration — one dataclass covers all 10 assigned families.
 
 Kept field for field with ``repro.models.config`` so a JAX config converts
-with ``dataclasses.asdict``.  The TPU layout levers (``remat*``,
-``scan_layers``, ``seq_shard``, ``force_microbatches``) are accepted and
-have no effect in the port.  ``use_pallas`` picks the model's kernels
+with ``dataclasses.asdict``.  ``remat`` and ``remat_policy`` pick the
+training forward's per-layer rematerialisation, as the reference's
+``_maybe_remat`` does (``models/blocks.remat``: ``"full"`` runs each layer
+again in the backward, ``"dots"`` keeps its matrix products, ``"none"``
+keeps everything); ``force_microbatches`` sets the dry run's microbatch
+count.  ``scan_layers`` and ``seq_shard`` are accepted and have no effect
+in the port (its layer loop is a Python loop; sequence parallelism is not
+ported).  ``use_pallas`` picks the model's kernels
 (flash at prefill, the paged gather, the SSD), as in the reference: the
 serving engines set it, and on CUDA tensors the kernels run (on CPU
 tensors their plain versions); training leaves it off and runs the plain,

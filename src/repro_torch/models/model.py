@@ -58,6 +58,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.dist import partition
+from repro_torch.dist import tp
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
 from repro_torch.models import modules as nn
@@ -302,9 +303,27 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
 
 
 def _embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Token embeddings (an encoder-decoder's decoder's: ``dec_embed``)."""
+    """Token embeddings (an encoder-decoder's decoder's: ``dec_embed``).
+    Under a training scope that cuts the vocab, the table is this rank's
+    rows: each id is looked up by the rank that holds it and the lookups
+    are summed over the ranks (the vocab-parallel embedding)."""
     name = "dec_embed" if cfg.family == "enc_dec" else "embed"
-    return partition.take(p[name], tokens.long(), name).to(compute_dtype(cfg))
+    part = tp.model_part("vocab")
+    if part is None:
+        return partition.take(p[name], tokens.long(),
+                              name).to(compute_dtype(cfg))
+    table = p[name]
+    ids, inside = _vocab_ids(tokens, table.shape[0], part)
+    x = table[ids].to(compute_dtype(cfg))
+    return tp.tp_allreduce(torch.where(inside[..., None], x, 0), "vocab")
+
+
+def _vocab_ids(ids: torch.Tensor, rows: int, part: tuple[int, int]):
+    """(``ids`` as rows of rank ``part[0]``'s block of ``rows`` vocab
+    entries, clamped into it; whether each id lies in the block)."""
+    local = ids.long() - part[0] * rows
+    inside = (local >= 0) & (local < rows)
+    return local.clamp(0, rows - 1), inside
 
 
 def embed_inputs(p: Params, inputs: dict[str, torch.Tensor],
@@ -318,7 +337,10 @@ def embed_inputs(p: Params, inputs: dict[str, torch.Tensor],
 
 
 def _logits(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return nn.dense(partition.whole(p["lm_head"], "lm_head"), x, x.dtype)
+    """The vocab projection (a rank's columns under a training scope that
+    cuts the vocab)."""
+    return nn.dense(partition.whole(p["lm_head"], "lm_head"),
+                    tp.tp_enter(x, "vocab"), x.dtype)
 
 
 def _norm(p: Params, name: str, x: torch.Tensor) -> torch.Tensor:
@@ -346,41 +368,56 @@ def _encode(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig):
     its blocks run bidirectionally -> (normed output, the blocks' aux)."""
     enc = inputs["enc_embeds"].to(compute_dtype(cfg))
     auxes = []
+    layer = blocks.remat(blocks.decoder_block, cfg)
     for lp in blocks.layer_views(p["enc_blocks"]):
-        enc, aux, _ = blocks.decoder_block(
-            partition.whole(lp, "enc_blocks"), enc, cfg, causal=False)
+        enc, aux, _ = layer(partition.whole(lp, "enc_blocks"), enc, cfg,
+                            causal=False)
         auxes.append(aux)
     return _norm(p, "enc_ln", enc), auxes
 
 
+def _cross_layer(lp, x: torch.Tensor, enc: torch.Tensor, cfg: ModelConfig):
+    """An encoder-decoder's decoder layer: its cross K/V from ``enc``, then
+    the block (the reference's scan body, one remat unit)."""
+    x, aux, _ = blocks.decoder_block(
+        lp, x, cfg, causal=True,
+        cross_kv=attn_mod.encode_kv(lp["xattn"], enc, cfg))
+    return x, aux
+
+
 def forward(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig):
-    """Eval forward over ``inputs['tokens']`` (B, S) (or an embeddings-mode
-    model's ``inputs['embeds']``; an enc_dec model's decoder tokens beside
-    its ``inputs['enc_embeds']``) -> (logits, aux): aux the MoE layers'
-    losses summed over layers, zeros for every other family."""
+    """Training/eval forward over ``inputs['tokens']`` (B, S) (or an
+    embeddings-mode model's ``inputs['embeds']``; an enc_dec model's
+    decoder tokens beside its ``inputs['enc_embeds']``) -> (logits, aux):
+    aux the MoE layers' losses summed over layers, zeros for every other
+    family.  Under grad each layer runs under ``blocks.remat`` (one unit a
+    layer, a hybrid's a group, as the reference's scan bodies).  Under a
+    training scope that cuts the vocab (``dist.tp.training``) the logits
+    are this rank's vocab columns."""
     if cfg.family == "enc_dec":
         enc, auxes = _encode(p, inputs, cfg)
         x = _embed(p, inputs["tokens"], cfg)
+        layer = blocks.remat(_cross_layer, cfg)
         for lp in blocks.layer_views(p["dec_blocks"]):
-            x, aux, _ = blocks.decoder_block(
-                lp, x, cfg, causal=True,
-                cross_kv=attn_mod.encode_kv(lp["xattn"], enc, cfg))
+            x, aux = layer(lp, x, enc, cfg)
             auxes.append(aux)
         x = nn.rmsnorm_apply(p["dec_ln"], x)
         return _logits(p, x), _sum_aux(auxes, x.device)
     x = embed_inputs(p, inputs, cfg)
     auxes = []
     if cfg.family == "ssm":
-        x, _ = blocks.mamba_stack(p["blocks"], x, cfg)
+        x, _ = blocks.mamba_stack(p["blocks"], x, cfg, remat_each=True)
     elif cfg.family == "hybrid":
         groups = blocks.layer_views(p["groups"])
+        layer = blocks.remat(blocks.hybrid_group, cfg)
         for gp, flag in zip(groups, hybrid_flags(cfg)):
-            x, _, _ = blocks.hybrid_group(gp, p["shared_attn"], x, cfg, flag)
+            x, _, _ = layer(gp, p["shared_attn"], x, cfg, flag)
         if "trailing" in p:
-            x, _ = blocks.mamba_stack(p["trailing"], x, cfg)
+            x, _ = blocks.mamba_stack(p["trailing"], x, cfg, remat_each=True)
     else:
+        layer = blocks.remat(blocks.decoder_block, cfg)
         for lp in blocks.layer_views(p["blocks"]):
-            x, aux, _ = blocks.decoder_block(lp, x, cfg, causal=True)
+            x, aux, _ = layer(lp, x, cfg, causal=True)
             auxes.append(aux)
     x = nn.rmsnorm_apply(p["ln_f"], x)
     return _logits(p, x), _sum_aux(auxes, x.device)
@@ -402,20 +439,8 @@ def loss_fn(p: Params, batch: dict[str, torch.Tensor], cfg: ModelConfig, *,
     ``share``, so each term and metric summed over the slices is the whole
     batch's."""
     logits, aux = forward(p, batch, cfg)
-    labels = batch["labels"].long()
     mask = batch.get("mask")
-    lf = logits.float()
-    if cfg.logits_microbatch > 1:
-        s = labels.shape[1]
-        if s % cfg.logits_microbatch:
-            raise ValueError(f"logits_microbatch {cfg.logits_microbatch} "
-                             f"does not divide the sequence length {s}")
-        token_loss = torch.cat(
-            [_xent(lf_c, l_c) for lf_c, l_c in zip(
-                lf.chunk(cfg.logits_microbatch, dim=1),
-                labels.chunk(cfg.logits_microbatch, dim=1))], dim=1)
-    else:
-        token_loss = _xent(lf, labels)
+    token_loss = token_losses(logits.float(), batch["labels"].long(), cfg)
     if denom is not None:
         loss = (token_loss if mask is None else token_loss * mask).sum() \
             / denom
@@ -430,10 +455,42 @@ def loss_fn(p: Params, batch: dict[str, torch.Tensor], cfg: ModelConfig, *,
     return total, metrics
 
 
+def token_losses(logits_f32: torch.Tensor, labels: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Each token's cross-entropy (B, S) from float32 logits, over
+    ``cfg.logits_microbatch`` chunks of the sequence when it is above 1
+    (vocab-parallel under a training scope that cuts the vocab: see
+    :func:`_xent`)."""
+    if cfg.logits_microbatch <= 1:
+        return _xent(logits_f32, labels)
+    s = labels.shape[1]
+    if s % cfg.logits_microbatch:
+        raise ValueError(f"logits_microbatch {cfg.logits_microbatch} "
+                         f"does not divide the sequence length {s}")
+    return torch.cat(
+        [_xent(lf_c, l_c) for lf_c, l_c in zip(
+            logits_f32.chunk(cfg.logits_microbatch, dim=1),
+            labels.chunk(cfg.logits_microbatch, dim=1))], dim=1)
+
+
 def _xent(logits_f32: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    lse = torch.logsumexp(logits_f32, dim=-1)
-    gold = torch.gather(logits_f32, -1, labels[..., None])[..., 0]
-    return lse - gold
+    """Each token's cross-entropy.  Under a training scope that cuts the
+    vocab, ``logits_f32`` are this rank's columns and the loss is the
+    vocab-parallel one: the max over every rank's columns (no gradient),
+    the sum of exponentials and the gold logit (the rank that holds it
+    gives it) each summed over the ranks."""
+    part = tp.model_part("vocab")
+    if part is None:
+        lse = torch.logsumexp(logits_f32, dim=-1)
+        gold = torch.gather(logits_f32, -1, labels[..., None])[..., 0]
+        return lse - gold
+    top = tp.model_max(logits_f32.detach().amax(dim=-1), "vocab")
+    sumexp = tp.tp_allreduce(
+        torch.exp(logits_f32 - top[..., None]).sum(dim=-1), "vocab")
+    ids, inside = _vocab_ids(labels, logits_f32.shape[-1], part)
+    gold = torch.gather(logits_f32, -1, ids[..., None])[..., 0]
+    gold = tp.tp_allreduce(torch.where(inside, gold, 0.0), "vocab")
+    return top + torch.log(sumexp) - gold
 
 
 # ============================================================ prefill / decode

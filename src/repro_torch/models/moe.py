@@ -25,7 +25,13 @@ Under tensor-parallel serving the experts, the router and the dispatch are
 replicated on every rank and each expert's FFN hidden dim is sharded, so
 the down projection's outputs are partial sums, all-reduced in
 :func:`_dispatch_ffn` (``tp_allreduce``, the identity off a mesh), as the
-reference does.
+reference does.  Training sharded along ``"model"`` cuts the same hidden
+dim where the experts do not divide the ranks; where they do, the params
+at rest cut the experts (``dist/partition.DEFAULT_RULES``) and the step
+runs expert-parallel: the router's product gives each rank its experts'
+logit columns and the FFN its experts' rows of the dispatch buffer, each
+placed into a zero whole and summed over the ranks (``tp_allreduce``), so
+routing and the dispatch stay replicated.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.tp import tp_allreduce
+from repro_torch.dist.tp import model_part, tp_allreduce, tp_enter
 from repro_torch.models.config import ModelConfig
 
 #: the aux losses every decoder block returns (zeros for a dense MLP)
@@ -55,7 +61,12 @@ def _route(p, xt: torch.Tensor, cfg: ModelConfig):
     activations to the router's float32).  Top-k takes the k largest
     probabilities, ties to the lower expert id, as ``jax.lax.top_k``."""
     e, k = cfg.n_experts, cfg.top_k
-    logits = xt.float() @ p["router"].float()
+    part = model_part("router")
+    if part is None:
+        logits = xt.float() @ p["router"].float()
+    else:               # expert-parallel: this rank's columns, summed whole
+        logits = _place(tp_enter(xt, "router").float() @ p["router"].float(),
+                        part, e, -1, "router")
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True,
                                        stable=True)
@@ -68,6 +79,32 @@ def _route(p, xt: torch.Tensor, cfg: ModelConfig):
            "router_z": cfg.router_z_weight
            * (torch.logsumexp(logits, dim=-1) ** 2).mean()}
     return gate_vals, expert_idx, aux
+
+
+def _place(y: torch.Tensor, part: tuple[int, int], whole: int, dim: int,
+           seam: str) -> torch.Tensor:
+    """Rank ``part[0]`` of ``part[1]``'s block ``y`` of a dimension of size
+    ``whole`` put at its place in zeros, summed over the ranks: the whole
+    tensor on every rank (its gradient's block goes back to ``y``)."""
+    r, n = part
+    size = whole // n
+    dim = dim % y.dim()
+    pad = [0, 0] * (y.dim() - 1 - dim) + [r * size, whole - (r + 1) * size]
+    return tp_allreduce(F.pad(y, pad), seam)
+
+
+def _experts(p, buf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Every expert's FFN over its rows of ``buf`` (e, cap, d), summed over
+    the ranks of a sharded layer (the manual-TP seam)."""
+    part = model_part("experts")
+    if part is None:
+        # under TP each rank holds a share of every expert's hidden dim,
+        # so the down projection is a partial sum
+        return tp_allreduce(_expert_ffn(p, tp_enter(buf, "mlp"), cfg), "mlp")
+    k = cfg.n_experts // part[1]
+    mine = tp_enter(buf, "experts").narrow(0, part[0] * k, k)
+    return _place(_expert_ffn(p, mine, cfg), part, cfg.n_experts, 0,
+                  "experts")
 
 
 def _expert_ffn(p, buf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -105,9 +142,7 @@ def _dispatch_ffn(p, xt: torch.Tensor, gate_vals: torch.Tensor,
     # every dropped copy lands in the spare last row, which is cut off
     buf = xt.new_zeros((e * cap + 1, d))
     buf[dest] = xt[sorted_token]
-    # manual-TP seam: under serving TP each rank holds a share of every
-    # expert's hidden dim, so the down projection is a partial sum
-    out = tp_allreduce(_expert_ffn(p, buf[:-1].reshape(e, cap, d), cfg))
+    out = _experts(p, buf[:-1].reshape(e, cap, d), cfg)
 
     gathered = out.reshape(e * cap, d)[dest.clamp_max(e * cap - 1)]
     gathered = torch.where(keep[:, None], gathered, 0.0)
