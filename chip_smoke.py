@@ -18,7 +18,10 @@ the reference trains with none), hold training on the card to the CPU's,
 resume a crashed supervised run from its checkpoint to the uninterrupted
 run's exact state, run the multi-pod dry run's CLI on six production
 cells (fake tensors, no device) and hold the dry run's predictions to
-what the card ran, and print one JSON line per phase.
+what the card ran, and print one JSON line per phase.  Every one-device
+continuous engine decodes through its captured step graph
+(``serve/graphs.py``); ``serve_graphs`` pairs it with eager dispatch on
+qwen3-1.7b and mamba2-2.7b.
 
     python3 chip_smoke.py
 
@@ -99,6 +102,7 @@ from repro_torch.models import blocks as model_blocks  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.serve import graphs  # noqa: E402
 from repro_torch.serve.engine import (ContinuousEngine, Engine,  # noqa: E402
                                       ServeConfig)
 from repro_torch.train import loop as train_loop  # noqa: E402
@@ -1349,7 +1353,9 @@ class MoeCopies:
     drops past capacity: ``moe._dispatch_ffn`` wrapped.  The drop count
     stays on the device until read; the wrapper adds a few small kernels
     to each capacity-bound dispatch and none to the others (decode and
-    chunked prefill are dropless)."""
+    chunked prefill are dropless).  A captured decode step runs the
+    wrapper when it is captured, not when it replays: a capture counts
+    nothing, and :meth:`replayed` counts the replays' dispatches."""
 
     def __init__(self):
         self.routed = self.bound_routed = self.dispatches = 0
@@ -1359,6 +1365,8 @@ class MoeCopies:
         inner = self._inner = moe_mod._dispatch_ffn
 
         def counted(p, xt, gate_vals, expert_idx, cfg, cap):
+            if torch.cuda.is_current_stream_capturing():
+                return inner(p, xt, gate_vals, expert_idx, cfg, cap)
             flat = expert_idx.reshape(-1)
             self.routed += flat.numel()
             self.dispatches += 1
@@ -1376,6 +1384,12 @@ class MoeCopies:
     def __exit__(self, *exc):
         moe_mod._dispatch_ffn = self._inner
 
+    def replayed(self, dispatches: int, tokens: int, top_k: int) -> None:
+        """Count ``dispatches`` dropless dispatches of ``tokens`` tokens
+        that ran in replays of a captured step."""
+        self.dispatches += dispatches
+        self.routed += dispatches * tokens * top_k
+
     @property
     def dropped(self) -> int:
         return int(self._dropped)
@@ -1385,6 +1399,28 @@ class MoeCopies:
                 "copies_routed_capacity_bound": self.bound_routed,
                 "copies_dropped": self.dropped,
                 "moe_dispatches": self.dispatches}
+
+
+def graph_stats(eng: ContinuousEngine) -> dict | None:
+    """The engine's captured decode step after its run: captures, replays,
+    the graph pool's bytes, the launches its replays credited, by kernel,
+    and the step's device ms (CUDA events around 10 back-to-back replays
+    of the bare graph, which advance the finished engine's caches and
+    count nothing); None under eager dispatch."""
+    g = eng.graph
+    if g is None:
+        return None
+    credited = collections.Counter()
+    for (kern, _), n in g.credits.items():
+        credited[sys.modules[type(kern).__module__].FUNCTION] += n * g.replays
+    return {"captures": g.captures, "replays": g.replays,
+            "pool_bytes": g.pool_bytes(), "credited_launches": credited,
+            "replay_device_ms": cuda_ms(g.graph.replay, iters=10, warmup=2)}
+
+
+def _digest(handles) -> str:
+    return hashlib.sha1(json.dumps([r.tokens for r in handles])
+                        .encode()).hexdigest()
 
 
 def _serve_paged(phase: str, params, cfg, prompts, budgets,
@@ -1428,6 +1464,9 @@ def _serve_paged(phase: str, params, cfg, prompts, budgets,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = row_launches()
+    if eng.graph is not None and cfg.family == "moe":
+        copies.replayed(eng.graph.replays * cfg.n_layers, eng.capacity,
+                        cfg.top_k)
 
     events = tracer.events()
     n_prefill = sum(e["name"] == "serve.prefill" for e in events)
@@ -1473,8 +1512,7 @@ def _serve_paged(phase: str, params, cfg, prompts, budgets,
            "prefill_compiles": s["prefill_compiles"], "launches": launches,
            "kernel_builds_in_timed_window": builds,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "tokens_sha1": hashlib.sha1(json.dumps(
-               [r.tokens for r in handles]).encode()).hexdigest()}
+           "step_graph": graph_stats(eng), "tokens_sha1": _digest(handles)}
     if cfg.family == "moe":
         out.update(copies.report())
     if mesh is not None:
@@ -1500,6 +1538,9 @@ def phase_serve(params, cfg) -> dict:
 
 #: the tensor-parallel phases' mesh widths: serve_tp's, differential_tp's
 TP_SERVE, TP_DIFF = 2, (2, 4)
+#: serve_tp's depth: qwen3-1.7b's full width at 14 of its 28 layers, so
+#: the script keeps its time as its phases grow
+TP_SERVE_LAYERS = 14
 #: seconds a rank of a tensor-parallel phase may wait in one collective,
 #: and the whole job may take
 TP_TIMEOUT_S, TP_DEADLINE_S = 120.0, 400.0
@@ -1515,12 +1556,14 @@ def _tp_rank_setup(width: int):
 
 
 def _serve_tp_rank(rank: int) -> list[dict]:
-    """One rank of ``serve_tp``: qwen3-1.7b at full width (the same random
-    weights on every rank, seed 0) on ``SERVE_PAGED`` over a 2-rank mesh
-    (``_serve_paged`` with the mesh), with exact seams, then with
-    int8-compressed ones (on the shapes the first run warmed)."""
+    """One rank of ``serve_tp``: qwen3-1.7b at full width, cut to
+    ``TP_SERVE_LAYERS`` layers (the same random weights on every rank,
+    seed 0) on ``SERVE_PAGED`` over a 2-rank mesh (``_serve_paged`` with
+    the mesh), with exact seams, then with int8-compressed ones (on the
+    shapes the first run warmed)."""
     mesh = _tp_rank_setup(TP_SERVE)
-    cfg = configs.get("qwen3-1.7b")
+    cfg = dataclasses.replace(configs.get("qwen3-1.7b"),
+                              n_layers=TP_SERVE_LAYERS)
     params = M.init_lm(cfg, seed=0, device=mesh.device)
     full_gb = sum(t.numel() * t.element_size()
                   for t in flatten(params).values()) / 1e9
@@ -1539,9 +1582,9 @@ def _serve_tp_rank(rank: int) -> list[dict]:
 
 
 def phase_serve_tp() -> dict:
-    """qwen3-1.7b at full width served tensor-parallel over a 1-D mesh of 2
-    ranks, both on this one card and talking over gloo (NCCL refuses two
-    ranks on one GPU): each rank holds 8 of the 16 heads, 4 of the 8 kv
+    """qwen3-1.7b at full width (``TP_SERVE_LAYERS`` layers) served
+    tensor-parallel over a 1-D mesh of 2 ranks, both on this one card and
+    talking over gloo (NCCL refuses two ranks on one GPU): each rank holds 8 of the 16 heads, 4 of the 8 kv
     heads and half of d_ff, runs the bf16 causal flash kernel at (B, 8, 4,
     S, 128) and the gather over its 4-kv-head store, and all-reduces two
     seams a layer; then the same with int8-compressed seams
@@ -1572,6 +1615,7 @@ def phase_serve_tp() -> dict:
                "rank_peak_mem_gb": [o["peak_mem_gb"] for o in outs],
                "rank_devices": [o["device"] for o in outs],
                "launches": lead["launches"],
+               "reduced": {"n_layers": f"{TP_SERVE_LAYERS} of 28"},
                "note": "2 ranks share 1 card over gloo: not multi-GPU TP"}
         emit(phase, **out)
         lines.append(out)
@@ -1736,10 +1780,18 @@ def trace_totals(prof) -> tuple[list, list]:
 
 def phase_profile(params, cfg, scfg: ServeConfig,
                   phase: str = "profile") -> dict:
+    """:func:`profile_window`'s line."""
+    out = profile_window(params, cfg, scfg)
+    emit(phase, **out)
+    return out
+
+
+def profile_window(params, cfg, scfg: ServeConfig) -> dict:
     """Device time by kernel over a short serving window (8 requests of 100
     tokens, 16 new each; a VLM's prompts as embeddings, an
     encoder-decoder's requests each with its own context), from
-    torch.profiler."""
+    torch.profiler, whose CUPTI trace holds the kernels a replayed step
+    graph runs as it holds eager launches."""
     from torch.profiler import ProfilerActivity, profile
     t_phase = time.perf_counter()
     rng = np.random.default_rng(1)
@@ -1786,9 +1838,83 @@ def phase_profile(params, cfg, scfg: ServeConfig,
            "top_kernels": [{"name": k, "calls": c, "ms": us / 1e3}
                            for us, c, k in rows[:12]],
            "top_host_ops": [{"op": k, "calls": c, "self_cpu_ms": us / 1e3}
-                            for us, c, k in host_ops[:12]]}
-    emit(phase, **out)
+                            for us, c, k in host_ops[:12]],
+           "step_graphs": scfg.step_graphs}
     return out
+
+
+#: the turns ``serve_graphs`` runs each model's traffic in, in one process
+GRAPH_TURNS = ("eager", "graph", "graph", "eager")
+
+
+def _graph_turns(name: str, run, params, cfg, scfg: ServeConfig,
+                 profile: dict) -> dict:
+    """``run(step_graphs)``, one timed pass of a serve phase's traffic, in
+    :data:`GRAPH_TURNS`: each way's decode step p50, TTFT p50, wall and
+    tokens/s by turn, the graph turns' captures, replays, pool bytes,
+    credited launches and step device ms (:func:`graph_stats`), each
+    way's decode idle share (1 - that device ms over the way's decode step
+    p50); then the device's idle share each way over the
+    profile window: ``profile`` (the graph way, the phase just run) and
+    the same window under eager dispatch.  Raises unless every turn gave
+    the same tokens."""
+    runs = collections.defaultdict(list)
+    for way in GRAPH_TURNS:
+        runs[way].append(run(way == "graph"))
+    digests = {r["tokens_sha1"] for rs in runs.values() for r in rs}
+    if len(digests) != 1:
+        raise AssertionError(f"serve_graphs: {name}: graph and eager turns "
+                             f"gave different tokens ({sorted(digests)})")
+    out = {way: {k: [r[k] for r in rs] for k in (
+        "decode_step_p50_ms", "ttft_p50_ms", "wall_s", "tokens_per_s",
+        "decode_steps")} for way, rs in runs.items()}
+    out["graph"]["step_graph"] = [r["step_graph"] for r in runs["graph"]]
+    # the step's device work is the same kernels either way: what a decode
+    # step waits on besides it is the host's
+    device_ms = np.median([g["replay_device_ms"]
+                           for g in out["graph"]["step_graph"]])
+    for way in ("eager", "graph"):
+        out[way]["decode_idle_share"] = [
+            1 - device_ms / ms for ms in out[way]["decode_step_p50_ms"]]
+    eager = profile_window(params, cfg, dataclasses.replace(
+        scfg, step_graphs=False))
+    out["profile"] = {
+        way: {k: p[k] for k in ("wall_s", "device_busy_s",
+                                "device_idle_share", "kernel_launches",
+                                "decode_steps")}
+        for way, p in (("eager", eager), ("graph", profile))}
+    out["tokens_equal"] = True
+    return out
+
+
+def serve_graphs_dense(params, cfg, profile: dict) -> dict:
+    """qwen3-1.7b's half of ``serve_graphs``: the ``serve`` phase's paged
+    engine and traffic, eager and captured (:func:`_graph_turns`); every
+    graph turn must credit the gather launches."""
+    prompts, budgets = _serve_requests(cfg.vocab)
+    out = _graph_turns(cfg.name, lambda on: _serve_paged(
+        "serve_graphs", params, cfg, prompts, budgets,
+        scfg=dataclasses.replace(SERVE_PAGED, step_graphs=on), warm=False),
+        params, cfg, SERVE_PAGED, profile)
+    if any(g["credited_launches"].get(pg.FUNCTION, 0) < 1
+           for g in out["graph"]["step_graph"]):
+        raise AssertionError(f"serve_graphs: no gather launch credited "
+                             f"({out['graph']['step_graph']})")
+    return out
+
+
+SERVE_SSM = ServeConfig(max_len=512, capacity=8)
+
+
+def serve_graphs_ssm(params, cfg, profile: dict) -> dict:
+    """mamba2-2.7b's half of ``serve_graphs``: the ``serve_ssm`` phase's
+    contiguous engine and traffic, eager and captured."""
+    prompts, budgets = _ssm_requests(cfg.vocab)
+    return _graph_turns(cfg.name, lambda on: _serve_contiguous(
+        "serve_graphs", params, cfg,
+        dataclasses.replace(SERVE_SSM, step_graphs=on), prompts, budgets,
+        {sk.FUNCTION: cfg.n_layers}, {}, warm=False),
+        params, cfg, SERVE_SSM, profile)
 
 
 def _serve_pass(params, cfg, scfg: ServeConfig, store: ScheduleCache,
@@ -2132,7 +2258,8 @@ def _ssm_requests(vocab: int):
 
 def _serve_contiguous(phase: str, params, cfg, scfg: ServeConfig, prompts,
                       budgets, per_prefill: dict[str, int],
-                      names: dict[str, str], extras=None) -> dict:
+                      names: dict[str, str], extras=None,
+                      warm: bool = True) -> dict:
     """The traffic once on the contiguous continuous engine, timed, after a
     warm-up that is not counted (the same prompts with 2 new tokens each:
     it builds the schedule of every prefill shape and warms cuBLAS and the
@@ -2142,13 +2269,15 @@ def _serve_contiguous(phase: str, params, cfg, scfg: ServeConfig, prompts,
     timed run built nothing; ``names`` maps an output field to the
     registry name whose served signatures it lists.  ``extras`` gives each
     request its extra inputs (an encoder-decoder's context), the first
-    the engine's ``example_extra``."""
+    the engine's ``example_extra``; ``warm=False`` skips the warm-up, for
+    a run after another that warmed the same shapes."""
     extras = extras or [None] * len(prompts)
-    warm = ContinuousEngine(params, cfg, scfg, example_extra=extras[0])
-    for p, e in zip(prompts, extras):
-        warm.submit(p, 2, extra=e)
-    warm.run(max_steps=10_000)
-    del warm
+    if warm:
+        eng = ContinuousEngine(params, cfg, scfg, example_extra=extras[0])
+        for p, e in zip(prompts, extras):
+            eng.submit(p, 2, extra=e)
+        eng.run(max_steps=10_000)
+        del eng
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -2200,7 +2329,8 @@ def _serve_contiguous(phase: str, params, cfg, scfg: ServeConfig, prompts,
             "prefill_compiles": s["prefill_compiles"], **served,
             "launches": launches,
             "kernel_builds_in_timed_window": builds,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "step_graph": graph_stats(eng), "tokens_sha1": _digest(handles)}
 
 
 def phase_serve_ssm(params, cfg) -> dict:
@@ -2208,7 +2338,7 @@ def phase_serve_ssm(params, cfg) -> dict:
     continuous engine with per-slot conv and SSD states."""
     prompts, budgets = _ssm_requests(cfg.vocab)
     out = _serve_contiguous(
-        "serve_ssm", params, cfg, ServeConfig(max_len=512, capacity=8),
+        "serve_ssm", params, cfg, SERVE_SSM,
         prompts, budgets, {sk.FUNCTION: cfg.n_layers},
         {"ssd_signatures": sk_ops.NAME})
     chunks = sorted({sig["q"] for sig in out["ssd_signatures"]})
@@ -4063,7 +4193,8 @@ def main() -> int:
     cfg = configs.get("qwen3-1.7b")
     params = M.init_lm(cfg, seed=0, device="cuda")
     serve = phase_serve(params, cfg)
-    phase_profile(params, cfg, SERVE_PAGED)
+    graph_turns = {cfg.name: serve_graphs_dense(
+        params, cfg, phase_profile(params, cfg, SERVE_PAGED))}
     phase_autotune(params, cfg, workdir)
     del params
     torch.cuda.empty_cache()
@@ -4074,8 +4205,10 @@ def main() -> int:
     params = M.init_lm(cfg, seed=0, device="cuda")
     serve_ssm = phase_serve_ssm(params, cfg)
     gspmd_ref = gspmd_one_device(params, cfg)
-    phase_profile(params, cfg, ServeConfig(max_len=512, capacity=8),
-                  phase="profile_ssm")
+    graph_turns[cfg.name] = serve_graphs_ssm(
+        params, cfg, phase_profile(params, cfg, SERVE_SSM,
+                                   phase="profile_ssm"))
+    emit("serve_graphs", card=info["nvidia_smi"], **graph_turns)
     del params
     torch.cuda.empty_cache()
     phase_differential_ssm(sip["cache"], workdir)

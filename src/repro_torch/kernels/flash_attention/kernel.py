@@ -32,7 +32,7 @@ import torch
 from repro_torch.core.energy import UnassemblableSchedule
 from repro_torch.core.ir import Instr, Kind, Program
 from repro_torch.core.testing import dtype_name
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import _build, count_launch, refuse_grad
 from repro_torch.kernels._emit import (AsyncPlanner, buffer_decls, cfloat,
                                        emit_kernel, plan_shared)
 from repro_torch.kernels.flash_attention import ref
@@ -318,7 +318,6 @@ class FlashKernel:
 
     def _launch(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 kv_len: int) -> torch.Tensor:
-        global launches
         _check(q, k, v, self.dtype, self.d)
         b, hq, sq, d = q.shape
         _, hkv, skv, _ = k.shape
@@ -343,9 +342,7 @@ class FlashKernel:
                              ctypes.c_int(hq), ctypes.c_int(hkv),
                              ctypes.c_int(sq), ctypes.c_int(skv),
                              ctypes.c_int(kv_len)])
-            launches += 1
-            variant_launches[self.causal, self.dtype] += 1
-            self.launches += 1
+            count_launch(self, (self.causal, self.dtype))
         return out
 
     # ------------------------------------------------------------- CPU face

@@ -26,7 +26,7 @@ import torch
 from repro_torch.core.energy import UnassemblableSchedule
 from repro_torch.core.ir import Instr, Kind, Program
 from repro_torch.core.testing import dtype_name
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels._emit import (AsyncPlanner, buffer_decls, cfloat,
                                        divisor_at_most, emit_kernel,
                                        plan_shared)
@@ -154,6 +154,9 @@ class GemmKernel:
             raise ValueError("illegal schedule order")
         self._text: tuple[str, int] | None = None
         self._kernels: dict[int, _build.Kernel] = {}
+        #: this schedule's own launches (the module's ``launches`` counts
+        #: every schedule's, from every thread)
+        self.launches = 0
 
     # ------------------------------------------------------------ CUDA face
     @property
@@ -195,7 +198,6 @@ class GemmKernel:
         return self._text
 
     def _launch(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        global launches
         for name, t in (("x", x), ("w", w)):
             if t.device.type != "cuda" or t.device != x.device:
                 raise ValueError(f"gemm_fused: {name} on {t.device}, x on "
@@ -229,7 +231,7 @@ class GemmKernel:
                          ctypes.c_void_p(w.data_ptr()),
                          ctypes.c_void_p(out.data_ptr()),
                          ctypes.c_int(m), ctypes.c_int(n)])
-        launches += 1
+        count_launch(self)
         return out
 
     # ------------------------------------------------------------- CPU face

@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.core.ir import Instr, Kind, Program
 from repro_torch.core.testing import dtype_name
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import _build, count_launch, refuse_grad
 from repro_torch.kernels._emit import emit_kernel
 from repro_torch.kernels.paged_attention import ref
 
@@ -130,7 +130,6 @@ class GatherKernel:
 
     def _launch(self, store: torch.Tensor,
                 page_table: torch.Tensor) -> torch.Tensor:
-        global launches
         if store.device.type != "cuda" or page_table.device != store.device:
             raise ValueError(f"paged_gather: store on {store.device}, page "
                              f"table on {page_table.device}; both must be "
@@ -165,8 +164,7 @@ class GatherKernel:
                          ctypes.c_void_p(page_table.data_ptr()),
                          ctypes.c_void_p(out.data_ptr()),
                          ctypes.c_int(store.shape[0])])
-        launches += 1
-        self.launches += 1
+        count_launch(self)
         return out
 
     # ------------------------------------------------------------- CPU face

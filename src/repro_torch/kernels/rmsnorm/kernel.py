@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.core.ir import Instr, Kind, Program
 from repro_torch.core.testing import dtype_name
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels._emit import cfloat, emit_kernel
 
 SOURCE = "src/repro_torch/csrc/rmsnorm.cu"
@@ -128,6 +128,9 @@ class RmsNormKernel:
             raise ValueError("illegal schedule order")
         self._text: str | None = None
         self._kernels: dict[int, _build.Kernel] = {}
+        #: this schedule's own launches (the module's ``launches`` counts
+        #: every schedule's, from every thread)
+        self.launches = 0
 
     threads = 32 * WARPS
 
@@ -164,7 +167,6 @@ class RmsNormKernel:
         return self._text, 0
 
     def _launch(self, x: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
-        global launches
         for name, t in (("x", x), ("gamma", gamma)):
             if t.device.type != "cuda" or t.device != x.device:
                 raise ValueError(f"rmsnorm_fused: {name} on {t.device}, x on "
@@ -197,7 +199,7 @@ class RmsNormKernel:
                              ctypes.c_void_p(gamma.data_ptr()),
                              ctypes.c_void_p(out.data_ptr()),
                              ctypes.c_int(x.shape[0])])
-            launches += 1
+            count_launch(self)
         return out
 
     # ------------------------------------------------------------- CPU face

@@ -36,7 +36,7 @@ import torch
 from repro_torch.core.energy import UnassemblableSchedule
 from repro_torch.core.ir import Instr, Kind, Program
 from repro_torch.core.testing import dtype_name
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels._emit import (AsyncPlanner, buffer_decls,
                                        divisor_at_most, emit_kernel,
                                        plan_shared)
@@ -267,7 +267,6 @@ class SsdKernel:
                              f"(q {self.q}, n {self.n}, p {self.p})")
 
     def _launch(self, xb, la, B, C) -> torch.Tensor:
-        global launches
         self._check(xb, la, B, C)
         lay = self.layout
         for name, t, align in (("xb", xb, lay["XW"]), ("B", B, lay["CW"]),
@@ -293,8 +292,7 @@ class SsdKernel:
                              ctypes.c_void_p(C.data_ptr()),
                              ctypes.c_void_p(out.data_ptr()),
                              ctypes.c_int(h)])
-            launches += 1
-            self.launches += 1
+            count_launch(self)
         return out
 
     # ------------------------------------------------------------- CPU face

@@ -130,7 +130,9 @@ def _dispatch_ffn(p, xt: torch.Tensor, gate_vals: torch.Tensor,
     e, k = cfg.n_experts, cfg.top_k
     dev = xt.device
     flat_expert = expert_idx.reshape(-1)                        # (T*k,)
-    flat_token = torch.arange(t, device=dev).repeat_interleave(k)
+    # each token's k copies in turn (repeat_interleave with an int count
+    # would copy the count to the device from the host: no graph holds it)
+    flat_token = torch.arange(t * k, device=dev) // k
     sorted_expert, sort_idx = torch.sort(flat_expert, stable=True)
     sorted_token = flat_token[sort_idx]
     seg_start = torch.searchsorted(sorted_expert,

@@ -92,6 +92,17 @@ compute and places its own: here they are all-gathers of the blocks, a
 layer at a time, and a rank's peak holds its blocks and one layer whole.
 ``compressed_collectives`` needs the manual path's seams and is refused
 on this one, as the reference refuses it.
+
+Compiled dispatch: the reference jits each engine's decode step with its
+caches donated.  On one device (``mesh=None``) the continuous engine's
+lockstep decode, paged or contiguous, runs through a
+:class:`~repro_torch.serve.graphs.StepGraph` (``ServeConfig.step_graphs``,
+on by default): on a CUDA device the step is captured once as a CUDA graph
+over the caches, which it advances in place, and replayed on every later
+step, only its small inputs copied in; a schedule swap drops the graph and
+the next decode re-captures it.  Prefill, chunked prefill, insertion,
+``Engine.generate`` and every mesh path (whose seams are gloo collectives,
+host operations that no graph holds) dispatch eagerly.
 """
 
 from __future__ import annotations
@@ -113,6 +124,7 @@ from repro_torch.models.config import ModelConfig, check_supported
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.recorder import WorkloadRecorder
+from repro_torch.serve.graphs import StepGraph
 from repro_torch.serve.pages import PagePool, PagesExhausted, PrefixCache
 from repro_torch.serve.slots import SlotPool
 
@@ -146,6 +158,13 @@ class ServeConfig:
                                     # seam all-reduces (bounded error, NOT
                                     # token-exact)
     compress_block: int = 64        # quantization block for compressed seams
+    # ---- compiled dispatch (ContinuousEngine with mesh=None) -------------
+    step_graphs: bool = True        # decode through a serve.graphs.StepGraph:
+                                    # on a CUDA device a captured CUDA graph,
+                                    # replayed; on the CPU the same static-
+                                    # buffer step, eager.  False: eager
+                                    # dispatch (the reference's
+                                    # jax.disable_jit)
 
 
 def _device_of(params) -> torch.device:
@@ -447,6 +466,7 @@ class ContinuousEngine:
                 rules=partition.SERVE_RULES)
             self.layout = partition.ServeLayout(pshard, cshard)
             self.caches = partition.blocks_zeros(whole, cshard, self.device)
+        self.graph: StepGraph | None = None
         self._make_dispatchers()
         # schedule hot-swap: the store the engine is built under and its
         # version; _maybe_refresh_schedules() swaps when the version moves
@@ -487,11 +507,22 @@ class ContinuousEngine:
         """(Re)build what the engine dispatches through; called at
         construction and on every schedule swap.  The JAX engine re-creates
         its jitted step functions here, since a jit trace would keep the
-        schedules it resolved.  Eager dispatch keeps nothing to drop: each
-        registry kernel re-resolves its schedule on its first call after
-        the store's version moves (``SipKernel.__call__``), so the next
-        dispatch already serves the new schedule.  Captured step graphs
-        would be re-captured here."""
+        schedules it resolved.  So does a captured decode step: with
+        ``step_graphs`` on one device the engine decodes through a
+        :class:`~repro_torch.serve.graphs.StepGraph`, made here at
+        construction and dropped here on a swap, so the next decode
+        re-captures the step with the new schedules.  Eager dispatch
+        (prefill, chunks, a mesh's steps, or ``step_graphs`` off) keeps
+        nothing to drop: each registry kernel re-resolves its schedule on
+        its first call after the store's version moves
+        (``SipKernel.__call__``)."""
+        if self.graph is not None:
+            self.graph.drop()
+        elif self.scfg.step_graphs and self.mesh is None:
+            self.graph = StepGraph(
+                self.params, self.caches, self.cfg, self.capacity,
+                device=self.device,
+                n_slot_pages=self._n_slot_pages if self.paged else None)
 
     def _maybe_refresh_schedules(self) -> None:
         """Pick up a commit to the store the engine was built under (an
@@ -642,13 +673,25 @@ class ContinuousEngine:
         occ = self.pool.occupancy
         t0 = time.perf_counter()
         with obs_trace.span("serve.decode", occupancy=occ):
-            logits, self.caches = M.decode_step(
-                self.params, self.caches, self._dev(self.tokens), self.cfg)
-            tok = _pick(logits, self.scfg.temperature, self._gen).cpu().numpy()
+            tok = _pick(self._decode(), self.scfg.temperature,
+                        self._gen).cpu().numpy()
         self._record_decode(time.perf_counter() - t0, occ)
         for slot, req in list(self.pool.held()):
             self.tokens[slot] = int(tok[slot])
             self._emit(slot, req, int(tok[slot]), finished)
+
+    def _decode(self, active: np.ndarray | None = None) -> torch.Tensor:
+        """The lockstep decode step over every slot -> logits (capacity,
+        vocab): the captured step's replay, or an eager dispatch.  A paged
+        engine passes its page tables and ``active`` rows."""
+        pt = self._pt if self.paged else None
+        if self.graph is not None:
+            return self.graph.replay(self.tokens, pt, active)
+        logits, self.caches = M.decode_step(
+            self.params, self.caches, self._dev(self.tokens), self.cfg,
+            pt=None if pt is None else self._dev(pt),
+            active=None if active is None else self._dev(active))
+        return logits
 
     def _record_decode(self, dt: float, occupancy: int) -> None:
         self._c["decode_s"].inc(dt)
@@ -890,10 +933,8 @@ class ContinuousEngine:
         active[decoding] = True
         t0 = time.perf_counter()
         with obs_trace.span("serve.decode", occupancy=occ):
-            logits, self.caches = M.decode_step(
-                self.params, self.caches, self._dev(self.tokens), self.cfg,
-                pt=self._dev(self._pt), active=self._dev(active))
-            tok = _pick(logits, self.scfg.temperature, self._gen).cpu().numpy()
+            tok = _pick(self._decode(active), self.scfg.temperature,
+                        self._gen).cpu().numpy()
         self._record_decode(time.perf_counter() - t0, occ)
         for slot, req in list(self.pool.held()):
             if slot in self._prefilling:

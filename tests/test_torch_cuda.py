@@ -12,8 +12,12 @@ sliding-window runs, a contiguous encoder-decoder run and a padded-heads
 prefill and paged run on the card token-identical to the same runs on the
 CPU, bidirectional flash at the encoder's shape (MHA, head_dim 64, 4,096
 frames) and causal flash at its decoder's prompt, the MoE layer on the card against the CPU and bitwise repeatable,
-and an autotune promotion on the card that the running engine swaps to
-and launches.  Marked ``cuda``: they skip without a card.  On the GPU
+an autotune promotion on the card that the running engine swaps to
+and launches, and the continuous engine's captured decode step (tokens
+equal eager dispatch's on qwen3 paged and contiguous and mamba2, captured
+with no sync, the gather's credited launches equal to the eager count, a
+promoted gather schedule launched on replay, a failed capture raising).
+Marked ``cuda``: they skip without a card.  On the GPU
 machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -769,3 +773,127 @@ def test_train_step_on_card_matches_cpu(cuda, arch):
     np.testing.assert_allclose(lg, lc, rtol=1e-4)
     for a, b in zip(gg, gc):
         assert (a - b).abs().max() <= 1e-3 * b.abs().max()
+
+
+# ------------------------------------------------- captured decode steps
+def _smoke_on(cuda, arch):
+    from repro_torch import configs
+    cfg = configs.get_smoke(arch)
+    return cfg, M.init_lm(cfg, seed=0, device=cuda)
+
+
+GRAPH_CASES = {"qwen3_paged": ("qwen3-1.7b", dict(paged=True, page_size=8,
+                                                  prefill_chunk=16)),
+               "qwen3_contiguous": ("qwen3-1.7b", {}),
+               "mamba2": ("mamba2-2.7b", {})}
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_captured_decode_equals_eager_dispatch_on_card(cuda, case):
+    """The continuous engine with its decode step captured (captured under
+    the sync debug mode "error": no op of the step syncs) gives the eager
+    engine's tokens, and credits the gather exactly the launches the
+    eager engine counts: twice a layer a decode or chunk step."""
+    from repro_torch.serve import graphs
+    arch, extra = GRAPH_CASES[case]
+    cfg, params = _smoke_on(cuda, arch)
+    rng = np.random.default_rng(4)
+    reqs = [(rng.integers(1, cfg.vocab, n).astype(np.int32), b)
+            for n, b in ((5, 9), (37, 6), (20, 12), (9, 5), (28, 7))]
+    runs = {}
+    for step_graphs in (False, True):
+        before = pg.launches
+        eng = ContinuousEngine(params, cfg, ServeConfig(
+            max_len=64, capacity=3, step_graphs=step_graphs, **extra))
+        uids = [eng.submit(t, n).uid for t, n in reqs]
+        with graphs.checking_syncs():
+            got = eng.run(max_steps=500)
+        s = eng.stats
+        runs[step_graphs] = ([got[u] for u in uids], pg.launches - before,
+                             s["decode_steps"] + s["chunk_steps"])
+        assert (eng.graph is not None) == step_graphs
+    assert eng.graph.captures == 1 and eng.graph.pool_bytes() > 0
+    (eager, eager_gathers, steps), (graph, gathers, graph_steps) = \
+        runs[False], runs[True]
+    for a, b in zip(eager, graph):
+        np.testing.assert_array_equal(a, b)
+    assert gathers == eager_gathers and steps == graph_steps
+    assert gathers == (2 * cfg.n_layers * steps if extra else 0)
+
+
+def test_promoted_gather_schedule_launches_on_replay(cuda):
+    """A schedule committed mid-run for the decode step's gather signature
+    swaps the engine, whose next decode re-captures the step: each replay
+    after it adds two launches a layer to the promoted kernel's own
+    count."""
+    from repro_torch.core import (Schedule, ScheduleCache, SipKernel,
+                                  registry, schedule_cache)
+    from repro_torch.core.cache import PendingPut
+    cfg, params = _smoke_on(cuda, "qwen3-1.7b")
+    rng = np.random.default_rng(5)
+    store = ScheduleCache()
+    with schedule_cache(store):
+        eng = ContinuousEngine(params, cfg, ServeConfig(
+            max_len=64, capacity=3, paged=True, page_size=8))
+        for n in (7, 12, 20):
+            eng.submit(rng.integers(1, cfg.vocab, n).astype(np.int32), 20)
+        for _ in range(3):
+            eng.step()
+        assert eng.graph.captures == 1
+        spec = registry.spec("paged_gather")
+        static = spec.signature_fn(eng.caches["k"][0],
+                                   torch.as_tensor(eng._pt))
+        space = spec.space_for(**static)
+        sched = Schedule(knobs={k.name: k.choices[-1] for k in space.knobs})
+        assert dict(sched.knobs) != space.default_knobs()
+        store.commit([PendingPut(kernel_name="paged_gather",
+                                 signature=SipKernel.sig_str(static),
+                                 schedule=sched, energy=1e-9,
+                                 tests_passed=True)])
+        eng.step()                  # the swap: warm-up step, re-capture
+        kern = registry.get("paged_gather", store).built(static, sched)
+        assert eng.stats["schedule_swaps"] == 1 and eng.graph.captures == 2
+        assert kern is not None
+        for _ in range(3):
+            n0 = kern.launches
+            eng.step()
+            assert kern.launches == n0 + 2 * cfg.n_layers
+
+
+def test_a_failed_capture_raises(cuda, monkeypatch):
+    """A step that reads a value back to the host cannot be captured: the
+    engine raises, and does not fall back to eager dispatch."""
+    from repro_torch.serve import graphs
+    cfg, params = _smoke_on(cuda, "qwen3-1.7b")
+    step = graphs.M.decode_step
+
+    def syncing(*args, **kwargs):
+        logits, caches = step(*args, **kwargs)
+        logits.sum().item()
+        return logits, caches
+    monkeypatch.setattr(graphs.M, "decode_step", syncing)
+    eng = ContinuousEngine(params, cfg, ServeConfig(max_len=64, capacity=2))
+    eng.submit(np.arange(1, 9, dtype=np.int32), 4)
+    with pytest.raises(RuntimeError):
+        eng.run(max_steps=50)
+    assert eng.graph.graph is None and eng.graph.captures == 0
+
+
+def test_recapturing_holds_no_more_device_memory(cuda):
+    """Every capture warms up and captures on its device's one capture
+    stream, so dropping and re-capturing the step holds no more memory
+    (a new stream a capture held one more cuBLAS workspace, 32 MiB, for
+    the life of the process)."""
+    cfg, params = _smoke_on(cuda, "qwen3-1.7b")
+    eng = ContinuousEngine(params, cfg, ServeConfig(max_len=64, capacity=2))
+    eng.submit(np.arange(1, 9, dtype=np.int32), 12)
+    for _ in range(2):
+        eng.step()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for _ in range(3):
+        eng.graph.drop()
+        eng.step()
+    torch.cuda.synchronize()
+    assert eng.graph.captures == 4
+    assert torch.cuda.memory_allocated() - before < 2 ** 20
