@@ -9,8 +9,8 @@ contexts) at full width through the contiguous one, serve qwen3-1.7b
 tensor-parallel over 2 ranks (processes sharing the one card over gloo;
 exact and int8-compressed seams) and hold 2- and 4-rank serving to
 one-device generation, hold qwen3 with padded
-heads to the unpadded model, serve mamba2-2.7b at full width over 2 ranks
-through the GSPMD layout (each rank its blocks, a layer gathered at a
+heads to the unpadded model, serve mamba2-2.7b at full width (16 of its
+64 layers) over 2 ranks through the GSPMD layout (each rank its blocks, a layer gathered at a
 time) and zamba2, seamless and padded or forced qwen3 at small depth
 against one-device generation, tune live beside a 2-rank qwen3 engine, train qwen3-1.7b at full width (AdamW, float32
 master weights, bf16 compute; no kernel launches on the training path, as
@@ -19,9 +19,11 @@ resume a crashed supervised run from its checkpoint to the uninterrupted
 run's exact state, run the multi-pod dry run's CLI on six production
 cells (fake tensors, no device) and hold the dry run's predictions to
 what the card ran, and print one JSON line per phase.  Every one-device
-continuous engine decodes through its captured step graph
-(``serve/graphs.py``); ``serve_graphs`` pairs it with eager dispatch on
-qwen3-1.7b and mamba2-2.7b.
+continuous engine decodes through its captured step graph and prefills
+through captured prefill and chunk graphs once it has seen a shape
+``CAPTURE_AT`` times (``serve/graphs.py``); ``serve_graphs`` pairs them with eager dispatch on
+qwen3-1.7b and mamba2-2.7b.  ``train`` steps through a captured
+``TrainGraph`` (``train/graphs.py``) and pairs it with eager steps.
 
     python3 chip_smoke.py
 
@@ -106,6 +108,7 @@ from repro_torch.serve import graphs  # noqa: E402
 from repro_torch.serve.engine import (ContinuousEngine, Engine,  # noqa: E402
                                       ServeConfig)
 from repro_torch.train import loop as train_loop  # noqa: E402
+from repro_torch.train.graphs import TrainGraph  # noqa: E402
 
 #: the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -1348,74 +1351,103 @@ SERVE_PAGED = ServeConfig(max_len=512, capacity=8, paged=True, page_size=16,
 
 
 class MoeCopies:
-    """Counts, inside a ``with`` block, the expert copies every MoE dispatch
+    """Counts, over a ``with`` block, the expert copies every MoE dispatch
     routes and the copies a capacity-bound one (a whole-prompt prefill)
-    drops past capacity: ``moe._dispatch_ffn`` wrapped.  The drop count
-    stays on the device until read; the wrapper adds a few small kernels
-    to each capacity-bound dispatch and none to the others (decode and
-    chunked prefill are dropless).  A captured decode step runs the
-    wrapper when it is captured, not when it replays: a capture counts
-    nothing, and :meth:`replayed` counts the replays' dispatches."""
+    drops past capacity: ``moe._dispatch_ffn`` wrapped for the block and
+    restored after it.  The counts live on the device, in one accumulator
+    that the wrapper adds to with a few small kernels a dispatch, so a
+    captured step's replays count as its eager dispatches do (its capture
+    recorded the wrapper's kernels): a graph captured in one block counts
+    in the next, and outside every block runs its counting kernels into
+    an accumulator no one reads (``_uncounted_replay_ms`` measures what
+    they cost a decode step).  Each block reports the accumulator's change
+    over it."""
 
-    def __init__(self):
-        self.routed = self.bound_routed = self.dispatches = 0
-        self._dropped = 0
+    #: [routed, routed in capacity-bound dispatches, dispatches, dropped]
+    _acc: torch.Tensor | None = None
 
     def __enter__(self):
+        if MoeCopies._acc is None:
+            MoeCopies._acc = torch.zeros(4, dtype=torch.int64, device="cuda")
         inner = self._inner = moe_mod._dispatch_ffn
 
         def counted(p, xt, gate_vals, expert_idx, cfg, cap):
-            if torch.cuda.is_current_stream_capturing():
-                return inner(p, xt, gate_vals, expert_idx, cfg, cap)
-            flat = expert_idx.reshape(-1)
-            self.routed += flat.numel()
-            self.dispatches += 1
+            acc, n = MoeCopies._acc, expert_idx.numel()
+            acc[0].add_(n)
+            acc[2].add_(1)
             if cap < xt.shape[0]:
+                flat = expert_idx.reshape(-1)
                 counts = torch.zeros(cfg.n_experts, dtype=torch.int64,
                                      device=flat.device).index_add_(
                     0, flat, torch.ones_like(flat))
-                self.bound_routed += flat.numel()
-                self._dropped = self._dropped + (counts - cap).clamp_min(
-                    0).sum()
+                acc[1].add_(n)
+                acc[3].add_((counts - cap).clamp_min(0).sum())
             return inner(p, xt, gate_vals, expert_idx, cfg, cap)
         moe_mod._dispatch_ffn = counted
+        self._start = MoeCopies._acc.clone()
         return self
 
     def __exit__(self, *exc):
         moe_mod._dispatch_ffn = self._inner
-
-    def replayed(self, dispatches: int, tokens: int, top_k: int) -> None:
-        """Count ``dispatches`` dropless dispatches of ``tokens`` tokens
-        that ran in replays of a captured step."""
-        self.dispatches += dispatches
-        self.routed += dispatches * tokens * top_k
+        torch.cuda.synchronize()
+        self._counts = (MoeCopies._acc - self._start).tolist()
 
     @property
     def dropped(self) -> int:
-        return int(self._dropped)
+        return int(self._counts[3])
 
     def report(self) -> dict:
-        return {"copies_routed": self.routed,
-                "copies_routed_capacity_bound": self.bound_routed,
-                "copies_dropped": self.dropped,
-                "moe_dispatches": self.dispatches}
+        routed, bound, dispatches, dropped = self._counts
+        return {"copies_routed": routed,
+                "copies_routed_capacity_bound": bound,
+                "copies_dropped": dropped, "moe_dispatches": dispatches}
+
+
+def _by_function(counts) -> collections.Counter:
+    """(kernel object, variant) -> launches, summed by kernel function."""
+    out = collections.Counter()
+    for (kern, _), n in counts.items():
+        out[sys.modules[type(kern).__module__].FUNCTION] += n
+    return out
 
 
 def graph_stats(eng: ContinuousEngine) -> dict | None:
-    """The engine's captured decode step after its run: captures, replays,
-    the graph pool's bytes, the launches its replays credited, by kernel,
-    and the step's device ms (CUDA events around 10 back-to-back replays
+    """The engine's captured steps after its run: the decode step's
+    captures, replays, pool bytes, the launches its replays credited, by
+    kernel, and its device ms (CUDA events around 10 back-to-back replays
     of the bare graph, which advance the finished engine's caches and
-    count nothing); None under eager dispatch."""
+    count nothing); the prefill and chunk steps' captures, replays, shared
+    pool bytes and credited launches; the traffic's whole-prompt prefill
+    groups, the distinct (G, S, extras) shapes among them and the share of
+    groups whose shape was seen before (``repeat_share``: the most a graph
+    per shape could replay, were every shape captured on its first
+    sighting); None under eager dispatch."""
     g = eng.graph
     if g is None:
         return None
-    credited = collections.Counter()
-    for (kern, _), n in g.credits.items():
-        credited[sys.modules[type(kern).__module__].FUNCTION] += n * g.replays
+    pre = eng.prefill_graphs
+    credited = _by_function({k: n * g.replays for k, n in g.credits.items()})
+    whole = [n for key, n in pre.sightings.items() if key[0] == "prefill"]
     return {"captures": g.captures, "replays": g.replays,
             "pool_bytes": g.pool_bytes(), "credited_launches": credited,
-            "replay_device_ms": cuda_ms(g.graph.replay, iters=10, warmup=2)}
+            "replay_device_ms": cuda_ms(g.graph.replay, iters=10, warmup=2),
+            "prefill_captures": pre.captures,
+            "prefill_replays": pre.replays,
+            "prefill_pool_bytes": pre.pool_bytes(),
+            "prefill_credited_launches": _by_function(pre.credited),
+            "prefill_groups": sum(whole), "prefill_shapes": len(whole),
+            "repeat_share": (1 - len(whole) / sum(whole) if whole else 0.0),
+            "capture_at": graphs.CAPTURE_AT}
+
+
+def _uncounted_replay_ms(eng: ContinuousEngine) -> float:
+    """The finished engine's decode graph dropped and captured again
+    outside every ``MoeCopies`` block, so without its counting kernels,
+    and its device ms as ``graph_stats`` times it: beside that figure,
+    what the counting costs a decode step."""
+    eng.graph.drop()
+    eng.graph.run()
+    return cuda_ms(eng.graph.graph.replay, iters=10, warmup=2)
 
 
 def _digest(handles) -> str:
@@ -1452,7 +1484,8 @@ def _serve_paged(phase: str, params, cfg, prompts, budgets,
 
     eng = ContinuousEngine(params, cfg, scfg, mesh=mesh)
     tracer = obs.Tracer()
-    copies = MoeCopies()
+    moe = cfg.family == "moe"
+    copies = MoeCopies() if moe else contextlib.nullcontext()
     compiles_before = _build.STATS.compiles
     reset_launches()
     tp_mod.seams = 0
@@ -1464,9 +1497,6 @@ def _serve_paged(phase: str, params, cfg, prompts, budgets,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = row_launches()
-    if eng.graph is not None and cfg.family == "moe":
-        copies.replayed(eng.graph.replays * cfg.n_layers, eng.capacity,
-                        cfg.top_k)
 
     events = tracer.events()
     n_prefill = sum(e["name"] == "serve.prefill" for e in events)
@@ -1513,8 +1543,11 @@ def _serve_paged(phase: str, params, cfg, prompts, budgets,
            "kernel_builds_in_timed_window": builds,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "step_graph": graph_stats(eng), "tokens_sha1": _digest(handles)}
-    if cfg.family == "moe":
+    if moe:
         out.update(copies.report())
+        if out["step_graph"] is not None:
+            out["step_graph"]["replay_device_ms_uncounted"] = \
+                _uncounted_replay_ms(eng)
     if mesh is not None:
         dispatches = n_prefill + s["chunk_steps"] + s["decode_steps"]
         if tp_mod.seams != 2 * cfg.n_layers * dispatches:
@@ -1538,9 +1571,9 @@ def phase_serve(params, cfg) -> dict:
 
 #: the tensor-parallel phases' mesh widths: serve_tp's, differential_tp's
 TP_SERVE, TP_DIFF = 2, (2, 4)
-#: serve_tp's depth: qwen3-1.7b's full width at 14 of its 28 layers, so
+#: serve_tp's depth: qwen3-1.7b's full width at 7 of its 28 layers, so
 #: the script keeps its time as its phases grow
-TP_SERVE_LAYERS = 14
+TP_SERVE_LAYERS = 7
 #: seconds a rank of a tensor-parallel phase may wait in one collective,
 #: and the whole job may take
 TP_TIMEOUT_S, TP_DEADLINE_S = 120.0, 400.0
@@ -1850,9 +1883,10 @@ GRAPH_TURNS = ("eager", "graph", "graph", "eager")
 def _graph_turns(name: str, run, params, cfg, scfg: ServeConfig,
                  profile: dict) -> dict:
     """``run(step_graphs)``, one timed pass of a serve phase's traffic, in
-    :data:`GRAPH_TURNS`: each way's decode step p50, TTFT p50, wall and
-    tokens/s by turn, the graph turns' captures, replays, pool bytes,
-    credited launches and step device ms (:func:`graph_stats`), each
+    :data:`GRAPH_TURNS`: each way's decode step p50, TTFT p50 and p99,
+    prefill seconds, wall and tokens/s by turn, the graph turns' captures,
+    replays, pool bytes, credited launches and step device ms, the decode
+    step's and the prefill and chunk steps' (:func:`graph_stats`), each
     way's decode idle share (1 - that device ms over the way's decode step
     p50); then the device's idle share each way over the
     profile window: ``profile`` (the graph way, the phase just run) and
@@ -1866,8 +1900,9 @@ def _graph_turns(name: str, run, params, cfg, scfg: ServeConfig,
         raise AssertionError(f"serve_graphs: {name}: graph and eager turns "
                              f"gave different tokens ({sorted(digests)})")
     out = {way: {k: [r[k] for r in rs] for k in (
-        "decode_step_p50_ms", "ttft_p50_ms", "wall_s", "tokens_per_s",
-        "decode_steps")} for way, rs in runs.items()}
+        "decode_step_p50_ms", "ttft_p50_ms", "ttft_p99_ms", "wall_s",
+        "tokens_per_s", "decode_steps", "prefill_s")}
+        for way, rs in runs.items()}
     out["graph"]["step_graph"] = [r["step_graph"] for r in runs["graph"]]
     # the step's device work is the same kernels either way: what a decode
     # step waits on besides it is the host's
@@ -1887,19 +1922,133 @@ def _graph_turns(name: str, run, params, cfg, scfg: ServeConfig,
     return out
 
 
+#: ``serve_graphs``' repeated-length measurement (:func:`_waves`): the
+#: phase's first prompts' lengths, new tokens a request, and waves enough
+#: that each shape runs eagerly, is captured and is replayed
+WAVE_REQUESTS, WAVE_TOKENS = 8, 4
+WAVES = graphs.CAPTURE_AT + 1
+
+
+def _prefill_us(events) -> dict[tuple, list[float]]:
+    """(group size, prompt length) -> the µs of each whole-prompt prefill
+    span of that shape, in order (dispatch to sampled tokens on the
+    host)."""
+    out = collections.defaultdict(list)
+    for e in events:
+        if e["name"] == "serve.prefill":
+            out[(e["args"]["batch"], e["args"]["prompt_len"])].append(
+                e["dur"])
+    return out
+
+
+def _break_even(eager: dict, graph: dict) -> dict:
+    """What a capture costs and a replay saves, per whole-prompt shape,
+    from the waves' prefill spans: eager = the median of the eager
+    engine's spans of the shape; capture = the captured engine's span at
+    the ``CAPTURE_AT``-th sighting (the warm-up, which is the step, then
+    the capture) less eager; saving = eager less the median of its later
+    (replayed) spans; ``ratio`` = capture / saving, the replays a capture
+    needs to pay for itself, and its median over the shapes."""
+    k, rows = graphs.CAPTURE_AT, {}
+    for shape, spans in graph.items():
+        if len(spans) <= k or shape not in eager:
+            continue
+        e = float(np.median(eager[shape])) / 1e3
+        capture = spans[k - 1] / 1e3 - e
+        saving = e - float(np.median(spans[k:])) / 1e3
+        rows[f"{shape[0]}x{shape[1]}"] = {
+            "eager_ms": e, "capture_ms": capture, "saving_ms": saving,
+            "ratio": capture / saving if saving > 0 else None}
+    ratios = [r["ratio"] for r in rows.values() if r["ratio"] is not None]
+    return {"shapes": rows, "median_ratio": (float(np.median(ratios))
+                                             if ratios else None)}
+
+
+def _waves(params, cfg, scfg: ServeConfig, lens) -> dict:
+    """Prompts of lengths ``lens`` (fresh tokens each wave, so no prefix is
+    shared), ``WAVE_TOKENS`` new tokens each, in ``WAVES`` waves through one
+    engine, each wave after the last has drained, eager and captured: the
+    same shapes a wave, so a whole-prompt prefill is eager up to wave
+    ``CAPTURE_AT``, captured in it and replayed after.  A synthetic
+    traffic, for the replay path's cost and the capture rule's break-even
+    (:func:`_break_even`), not a claim about users' prompts.  By wave:
+    TTFT p50 and p99, the engine's prefill seconds, wall; the captured
+    engine's prefill captures, replays, pool bytes and credited launches.
+    Raises unless each wave's tokens are equal both ways and the last
+    captured wave replayed every whole-prompt prefill and chunk step it
+    ran."""
+    rng = np.random.default_rng(8)
+    waves = [[rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+             for _ in range(WAVES)]
+    out, digests = {}, collections.defaultdict(set)
+    spans = {}
+    for way in ("eager", "graph"):
+        eng = ContinuousEngine(params, cfg, dataclasses.replace(
+            scfg, step_graphs=way == "graph"))
+        rows, events = [], []
+        for w, prompts in enumerate(waves):
+            before = (eng.stats["prefill_s"],
+                      eng.prefill_graphs.replays if eng.prefill_graphs
+                      else 0)
+            tracer = obs.Tracer()
+            t0 = time.perf_counter()
+            with obs.tracing(tracer):
+                handles = [eng.submit(p, WAVE_TOKENS) for p in prompts]
+                eng.run(max_steps=10_000)
+            torch.cuda.synchronize()
+            ttft = [r.admitted_at - r.submitted_at for r in handles]
+            events += tracer.events()
+            n_prefill = sum(e["name"] in ("serve.prefill",
+                                          "serve.prefill_chunk")
+                            for e in tracer.events())
+            rows.append({"ttft_p50_ms": _pct_ms(ttft, 50),
+                         "ttft_p99_ms": _pct_ms(ttft, 99),
+                         "prefill_s": eng.stats["prefill_s"] - before[0],
+                         "wall_s": time.perf_counter() - t0})
+            if eng.prefill_graphs is not None:
+                rows[-1]["prefill_replays"] = (eng.prefill_graphs.replays
+                                               - before[1])
+                rows[-1]["prefill_dispatches"] = n_prefill
+            digests[w].add(_digest(handles))
+        out[way] = rows
+        spans[way] = _prefill_us(events)
+        if eng.prefill_graphs is not None:
+            pre = eng.prefill_graphs
+            out["graph_steps"] = {
+                "prefill_captures": pre.captures,
+                "prefill_replays": pre.replays,
+                "prefill_pool_bytes": pre.pool_bytes(),
+                "prefill_credited_launches": _by_function(pre.credited)}
+    last = out["graph"][-1]
+    if any(len(d) != 1 for d in digests.values()) \
+            or last["prefill_replays"] != last["prefill_dispatches"]:
+        raise AssertionError(f"serve_graphs: waves: tokens equal "
+                             f"{[len(d) == 1 for d in digests.values()]}, "
+                             f"last wave {last}")
+    out["break_even"] = _break_even(spans["eager"], spans["graph"])
+    out.update(requests=len(lens), new_tokens=WAVE_TOKENS, waves=WAVES,
+               capture_at=graphs.CAPTURE_AT)
+    return out
+
+
 def serve_graphs_dense(params, cfg, profile: dict) -> dict:
     """qwen3-1.7b's half of ``serve_graphs``: the ``serve`` phase's paged
     engine and traffic, eager and captured (:func:`_graph_turns`); every
-    graph turn must credit the gather launches."""
+    graph turn must credit the gather launches and replay a chunk step;
+    then :func:`_waves` of its first prompts' lengths."""
     prompts, budgets = _serve_requests(cfg.vocab)
     out = _graph_turns(cfg.name, lambda on: _serve_paged(
         "serve_graphs", params, cfg, prompts, budgets,
         scfg=dataclasses.replace(SERVE_PAGED, step_graphs=on), warm=False),
         params, cfg, SERVE_PAGED, profile)
     if any(g["credited_launches"].get(pg.FUNCTION, 0) < 1
+           or g["prefill_replays"] < 1
            for g in out["graph"]["step_graph"]):
-        raise AssertionError(f"serve_graphs: no gather launch credited "
+        raise AssertionError(f"serve_graphs: no gather launch credited or "
+                             f"no chunk step replayed "
                              f"({out['graph']['step_graph']})")
+    out["waves"] = _waves(params, cfg, SERVE_PAGED,
+                          [len(p) for p in prompts[:WAVE_REQUESTS]])
     return out
 
 
@@ -1908,13 +2057,22 @@ SERVE_SSM = ServeConfig(max_len=512, capacity=8)
 
 def serve_graphs_ssm(params, cfg, profile: dict) -> dict:
     """mamba2-2.7b's half of ``serve_graphs``: the ``serve_ssm`` phase's
-    contiguous engine and traffic, eager and captured."""
+    contiguous engine and traffic, eager and captured (its one-off prompt
+    lengths leave every whole-prompt prefill eager); then :func:`_waves`
+    of its first prompts' lengths, whose replays launch the SSD kernel."""
     prompts, budgets = _ssm_requests(cfg.vocab)
-    return _graph_turns(cfg.name, lambda on: _serve_contiguous(
+    out = _graph_turns(cfg.name, lambda on: _serve_contiguous(
         "serve_graphs", params, cfg,
         dataclasses.replace(SERVE_SSM, step_graphs=on), prompts, budgets,
         {sk.FUNCTION: cfg.n_layers}, {}, warm=False),
         params, cfg, SERVE_SSM, profile)
+    out["waves"] = _waves(params, cfg, SERVE_SSM,
+                          [len(p) for p in prompts[:WAVE_REQUESTS]])
+    if out["waves"]["graph_steps"]["prefill_credited_launches"].get(
+            sk.FUNCTION, 0) < 1:
+        raise AssertionError(f"serve_graphs: waves: no SSD launch credited "
+                             f"({out['waves']['graph_steps']})")
+    return out
 
 
 def _serve_pass(params, cfg, scfg: ServeConfig, store: ScheduleCache,
@@ -2769,11 +2927,17 @@ def phase_differential_tp() -> dict:
 
 
 # ===================================================== serving on a mesh, 2
-#: serve_gspmd: mamba2-2.7b at full width on the contiguous engine, the
+#: serve_gspmd: mamba2-2.7b at full width, cut to ``GSPMD_LAYERS`` of its
+#: 64 layers so the script keeps its time, on the contiguous engine, the
 #: first requests of ``_ssm_requests`` with their budgets cut (a dispatch
 #: gathers the whole model, a layer at a time, over gloo)
 GSPMD_SERVE = ServeConfig(max_len=512, capacity=4)
-GSPMD_REQUESTS, GSPMD_NEW = 3, 3
+GSPMD_REQUESTS, GSPMD_NEW, GSPMD_LAYERS = 3, 2, 16
+
+
+def _gspmd_cfg():
+    return dataclasses.replace(configs.get("mamba2-2.7b"),
+                               n_layers=GSPMD_LAYERS)
 #: the job that runs serve_gspmd, differential_gspmd and autotune_tp: its
 #: ranks, and the seconds it may take in all
 MESH_RANKS, MESH_DEADLINE_S = 2, 400.0
@@ -2821,22 +2985,27 @@ def _timed_run(eng: ContinuousEngine, prompts, budgets,
             "decode_steps": len(decode_us), "launches": row_launches()}
 
 
-def gspmd_one_device(params, cfg) -> dict:
+def gspmd_one_device() -> dict:
     """``serve_gspmd``'s requests through a one-device engine of its
-    ``ServeConfig`` on this card (mamba2-2.7b's ``serve_ssm`` weights):
-    the tokens its ranks must give, bitwise, and the times beside
+    ``ServeConfig`` on this card (its model, seed 0, as each rank makes
+    it): the tokens its ranks must give, bitwise, and the times beside
     theirs."""
+    cfg = _gspmd_cfg()
+    params = M.init_lm(cfg, seed=0, device="cuda")
     prompts, budgets = _gspmd_requests(cfg.vocab)
-    return _timed_run(ContinuousEngine(params, cfg, GSPMD_SERVE), prompts,
-                      budgets)
+    out = _timed_run(ContinuousEngine(params, cfg, GSPMD_SERVE), prompts,
+                     budgets)
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 def _serve_gspmd_rank(mesh) -> dict:
-    """``serve_gspmd`` on one rank: mamba2-2.7b at full width, bf16, seed
-    0, on the contiguous engine over the mesh (``tp_mode`` auto: the
-    GSPMD path), its blocks at rest, its peak, and the bytes a dispatch
-    gathers."""
-    cfg = configs.get("mamba2-2.7b")
+    """``serve_gspmd`` on one rank: mamba2-2.7b at full width
+    (``GSPMD_LAYERS`` layers), bf16, seed 0, on the contiguous engine over
+    the mesh (``tp_mode`` auto: the GSPMD path), its blocks at rest, its
+    peak, and the bytes a dispatch gathers."""
+    cfg = _gspmd_cfg()
     params = M.init_lm(cfg, seed=0, device=mesh.device)
     full_gb = _gb(params)
     eng = ContinuousEngine(params, cfg, GSPMD_SERVE, mesh=mesh)
@@ -3024,8 +3193,8 @@ def phase_mesh_serving(one_device: dict) -> dict:
     a sharded engine: one job of 2 ranks sharing this card over gloo
     (NCCL refuses two ranks on one GPU), each phase its line.
 
-    * ``serve_gspmd``: mamba2-2.7b at full width, bf16, contiguous,
-      ``tp_mode`` auto.  Each rank keeps its ``SERVE_RULES`` blocks and
+    * ``serve_gspmd``: mamba2-2.7b at full width (``GSPMD_LAYERS``
+      layers), bf16, contiguous, ``tp_mode`` auto.  Each rank keeps its ``SERVE_RULES`` blocks and
       gathers a layer at a time; it must take the GSPMD path, launch the
       SSD kernel once a layer and prefill dispatch, and give
       ``gspmd_one_device``'s tokens bitwise, as the other rank does.
@@ -3059,7 +3228,7 @@ def phase_mesh_serving(one_device: dict) -> dict:
     job_s = time.perf_counter() - t0
 
     sg = [r["serve_gspmd"] for r in ranks]
-    n_layers = configs.get("mamba2-2.7b").n_layers
+    n_layers = GSPMD_LAYERS
     for o in sg:
         if o["tp_path"] != "gspmd" or o["tokens"] != one_device["tokens"] \
                 or o["launches"][sk.FUNCTION] \
@@ -3081,6 +3250,8 @@ def phase_mesh_serving(one_device: dict) -> dict:
          **{f"rank_{k}": [o[k] for o in sg] for k in keep},
          one_device={k: one_device[k] for k in (
              "tokens_per_s", "decode_step_p50_ms", "wall_s")},
+         reduced={"n_layers": f"{GSPMD_LAYERS} of "
+                              f"{configs.get('mamba2-2.7b').n_layers}"},
          job_s=job_s, note=note)
 
     diff = [r["differential_gspmd"] for r in ranks]
@@ -3188,24 +3359,65 @@ def _profile_train_step(params, opt, batch, cfg, ocfg) -> dict:
                             for us, c, k in rows[:12]]}
 
 
+def _train_steps(params, opt, cfg, dcfg, ocfg, first: int, n: int,
+                 captured: bool) -> dict:
+    """``n`` train steps on data steps ``first``.. over ``params`` and
+    ``opt`` (updated in place): through one ``TrainGraph`` (the first
+    warms up and captures, the rest replay) or eagerly.  Step times are
+    synced; the allocator's cache is emptied and its peaks reset before
+    the first step (a capture's warm-up runs on its own stream, which
+    cannot reuse blocks cached for another: an earlier run's cache would
+    add to its reserved peak)."""
+    graph = (TrainGraph(params, opt, cfg=cfg, opt_cfg=ocfg,
+                        device=torch.device("cuda")) if captured else None)
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(first, first + n):
+        batch = batch_for_model(cfg, dcfg, step, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if graph is not None:
+            m = graph.step(batch)
+        else:
+            _, _, m = train_steps.train_step(params, opt, batch, cfg=cfg,
+                                             opt_cfg=ocfg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+    out = {"losses": losses, "step_s": times,
+           "step_p50_ms": float(np.median(times)) * 1e3,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "max_memory_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+    if graph is not None:
+        out.update(captures=graph.captures, replays=graph.replays,
+                   pool_bytes=graph.pool_bytes())
+    return out
+
+
 def phase_train(info: dict) -> dict:
     """The main path of training: qwen3-1.7b at full width, all 28 layers,
     bf16 compute over float32 master weights and moments, the config's
     remat (``"full"``: every layer runs again in the backward), 8 AdamW
-    steps on data steps 0-7 (no checkpoint).  Fails unless every loss is
-    finite and the last is below the first, the first step's gradient of
-    every leaf (of every layer) is finite and non-zero, and no flash or SSD
-    kernel launched.  Step times are synced; tokens/s is B*S over the p50.
-    A ninth step (data step 8) runs under the profiler (``profiled_step``),
-    a tenth is counted (``dryrun_vs_card``), then ``TRAIN_NONE_STEPS``
-    more with ``remat_policy="none"`` (``remat_none``): their p50 and peak
-    beside the default's, the allocator's peak reset before each run."""
+    steps on data steps 0-7 (no checkpoint) through a captured
+    ``TrainGraph`` (its first step warms up and captures, 7 replay), then
+    the same 8 steps eagerly from the same seeded init, in one process:
+    both p50s, both peaks (allocated and reserved), and the largest
+    relative loss difference, which must be at most 1e-6.  Fails unless
+    every loss is finite and the last is below the first, the first
+    step's gradient of every leaf (of every layer) is finite and non-zero,
+    and no flash or SSD kernel launched.  Tokens/s is B*S over the
+    captured p50.  A ninth step (data step 8) runs eagerly under the
+    profiler (``profiled_step``), a tenth is counted eagerly
+    (``dryrun_vs_card``: a replay's ops pass no dispatch mode), then
+    ``TRAIN_NONE_STEPS`` eager steps with ``remat_policy="none"`` and as
+    many captured ones (``remat_none``)."""
     cfg = configs.get("qwen3-1.7b")
     dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
     ocfg = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1,
                            decay_steps=TRAIN_STEPS)
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     params, opt = train_loop.make_train_state(cfg, seed=0, device="cuda")
     n_params = sum(t.numel() for t in adamw.leaves(params))
     reset_launches()
@@ -3213,18 +3425,17 @@ def phase_train(info: dict) -> dict:
         params, batch_for_model(cfg, dcfg, 0, device="cuda"), cfg=cfg)
     seen = _grad_report(grads)
     del grads
-    losses, times = [], []
-    for step in range(TRAIN_STEPS):
-        batch = batch_for_model(cfg, dcfg, step, device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt, m = train_steps.train_step(params, opt, batch, cfg=cfg,
-                                                opt_cfg=ocfg)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(m["loss"].item())
+    captured = _train_steps(params, opt, cfg, dcfg, ocfg, 0, TRAIN_STEPS,
+                            captured=True)
+    del params, opt
+    torch.cuda.empty_cache()
+    params, opt = train_loop.make_train_state(cfg, seed=0, device="cuda")
+    eager = _train_steps(params, opt, cfg, dcfg, ocfg, 0, TRAIN_STEPS,
+                         captured=False)
+    losses = captured["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                       eager["losses"]))
     launches = row_launches()
-    peak = torch.cuda.max_memory_allocated()
     profiled = _profile_train_step(
         params, opt, batch_for_model(cfg, dcfg, TRAIN_STEPS, device="cuda"),
         cfg, ocfg)
@@ -3232,44 +3443,39 @@ def phase_train(info: dict) -> dict:
     _, counted = _counted(lambda: train_steps.train_step(
         params, opt, batch, cfg=cfg, opt_cfg=ocfg), (params, opt, batch))
     none_cfg = dataclasses.replace(cfg, remat_policy="none")
-    none_losses, none_times = [], []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for step in range(TRAIN_NONE_STEPS):
-        batch = batch_for_model(cfg, dcfg, TRAIN_STEPS + 2 + step,
-                                device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt, m = train_steps.train_step(params, opt, batch,
-                                                cfg=none_cfg, opt_cfg=ocfg)
-        torch.cuda.synchronize()
-        none_times.append(time.perf_counter() - t0)
-        none_losses.append(m["loss"].item())
-    none_peak = torch.cuda.max_memory_allocated()
+    first = TRAIN_STEPS + 2
+    none = {"eager": _train_steps(params, opt, none_cfg, dcfg, ocfg, first,
+                                  TRAIN_NONE_STEPS, captured=False),
+            "captured": _train_steps(params, opt, none_cfg, dcfg, ocfg,
+                                     first + TRAIN_NONE_STEPS,
+                                     TRAIN_NONE_STEPS, captured=True)}
     launches_none = row_launches()
     del params, opt
     torch.cuda.empty_cache()
-    if not all(np.isfinite(losses + none_losses)) \
-            or not losses[-1] < losses[0] \
+    none_losses = [x for r in none.values() for x in r["losses"]]
+    if not all(np.isfinite(losses + eager["losses"] + none_losses)) \
+            or not losses[-1] < losses[0] or loss_rel > 1e-6 \
             or any(launches_none[r] for r in MODEL_ROWS):
-        raise AssertionError(f"train: losses {losses}, {none_losses}, "
-                             f"launches {launches_none}")
-    p50 = float(np.median(times))
-    none_p50 = float(np.median(none_times))
+        raise AssertionError(f"train: losses {losses}, eager "
+                             f"{eager['losses']}, {none_losses}, launches "
+                             f"{launches_none}")
+    p50 = captured["step_p50_ms"]
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
            "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
            "remat": cfg.remat, "remat_policy": cfg.remat_policy,
            "batch": dcfg.global_batch, "seq_len": dcfg.seq_len,
-           "steps": TRAIN_STEPS, "losses": losses, "step_s": times,
-           "step_p50_ms": p50 * 1e3,
-           "tokens_per_s": dcfg.global_batch * dcfg.seq_len / p50,
-           "max_memory_allocated_gb": peak / 1e9,
-           "remat_none": {"steps": TRAIN_NONE_STEPS, "losses": none_losses,
-                          "step_s": none_times,
-                          "step_p50_ms": none_p50 * 1e3,
-                          "max_memory_allocated_gb": none_peak / 1e9},
-           "p50_full_over_none": p50 / none_p50,
-           "peak_gb_none_less_full": (none_peak - peak) / 1e9,
+           "steps": TRAIN_STEPS, "losses": losses,
+           "step_s": captured["step_s"], "step_p50_ms": p50,
+           "tokens_per_s": dcfg.global_batch * dcfg.seq_len / p50 * 1e3,
+           "max_memory_allocated_gb": captured["max_memory_allocated_gb"],
+           "captured": captured, "eager": eager,
+           "eager_over_captured_p50": eager["step_p50_ms"] / p50,
+           "loss_max_rel_diff": loss_rel,
+           "remat_none": {"steps": TRAIN_NONE_STEPS, **none,
+                          "eager_over_captured_p50":
+                              none["eager"]["step_p50_ms"]
+                              / none["captured"]["step_p50_ms"]},
+           "p50_full_over_none": p50 / none["captured"]["step_p50_ms"],
            "first_step_grads": seen, "launches": launches,
            "profiled_step": profiled, "nvidia_smi": info["nvidia_smi"]}
     emit("train", **out)
@@ -4204,7 +4410,7 @@ def main() -> int:
     cfg = configs.get("mamba2-2.7b")
     params = M.init_lm(cfg, seed=0, device="cuda")
     serve_ssm = phase_serve_ssm(params, cfg)
-    gspmd_ref = gspmd_one_device(params, cfg)
+    gspmd_ref = gspmd_one_device()
     graph_turns[cfg.name] = serve_graphs_ssm(
         params, cfg, phase_profile(params, cfg, SERVE_SSM,
                                    phase="profile_ssm"))

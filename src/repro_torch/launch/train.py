@@ -4,7 +4,9 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --smoke --device cpu --steps 4 --batch 8 --seq 32 --ckpt-dir /tmp/ck
 
-Runs on the card unless ``--device cpu``.  Every run goes through the
+Runs on the card unless ``--device cpu``; there the one-device step is a
+captured CUDA graph (``train.graphs.TrainGraph``) unless
+``--no-step-graphs``.  Every run goes through the
 :class:`~repro_torch.ft.Supervisor`: the loop checkpoints (async by
 default), heartbeats to the FT manager, and on worker death, non-finite
 loss or elastic capacity loss the supervisor restores from the newest
@@ -73,6 +75,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--blocking-ckpt", action="store_true",
                     help="synchronous checkpoint saves (default: overlapped "
                          "async device-to-host + background write)")
+    ap.add_argument("--no-step-graphs", action="store_true",
+                    help="dispatch the one-device step eagerly (default on "
+                         "CUDA: a captured CUDA graph, replayed)")
     ap.add_argument("--mesh", default="none", choices=["none", "host",
                                                        "single", "multi"])
     ap.add_argument("--ranks", type=int, default=None,
@@ -133,7 +138,8 @@ def run(args, mesh: mesh_lib.Mesh | None = None) -> int:
                        ckpt_dir=args.ckpt_dir,
                        async_ckpt=not args.blocking_ckpt,
                        num_microbatches=args.microbatches,
-                       device=args.device)
+                       device=args.device,
+                       step_graphs=False if args.no_step_graphs else None)
     ocfg = adamw.OptConfig(peak_lr=args.lr,
                            warmup_steps=min(100, args.steps // 10 + 1),
                            decay_steps=args.steps)

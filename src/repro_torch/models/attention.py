@@ -115,8 +115,9 @@ def prefill_kv(p, x: torch.Tensor, cfg: ModelConfig) -> dict[str, Any]:
     attention: K (qk-normed, rotated) and V at positions 0..S-1."""
     s = x.shape[1]
     _, k, v = _qkv(p, x, cfg, torch.arange(s, device=x.device))
+    # a fill, not a copy from the host: a captured prefill holds it
     return {"k": k, "v": v,
-            "len": torch.tensor(s, dtype=torch.int32, device=x.device)}
+            "len": torch.full((), s, dtype=torch.int32, device=x.device)}
 
 
 def _sdpa(q, k, v, *, causal: bool, window: int | None = None,
@@ -221,8 +222,8 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
             window=cfg.window).transpose(1, 2)
         if return_cache:
             new_cache = {"k": k, "v": v,
-                         "len": torch.tensor(s, dtype=torch.int32,
-                                             device=x.device)}
+                         "len": torch.full((), s, dtype=torch.int32,
+                                           device=x.device)}
     return _out(p, o, cfg), new_cache
 
 

@@ -666,7 +666,7 @@ def _decode_enc_dec(p: Params, caches, x: torch.Tensor, cfg: ModelConfig):
 def decode_tokens(p: Params, caches, tokens: torch.Tensor, cfg: ModelConfig,
                   *, pt: torch.Tensor | None = None,
                   active: torch.Tensor | None = None,
-                  n_valid: int | None = None,
+                  n_valid: int | torch.Tensor | None = None,
                   embeds: torch.Tensor | None = None):
     """Cache-advancing forward of an attention family over ``tokens`` (B,
     S) -> (logits (B, S, vocab), caches).
@@ -676,9 +676,9 @@ def decode_tokens(p: Params, caches, tokens: torch.Tensor, cfg: ModelConfig,
     ``attention``'s paged branch: ``pt`` (B, n_pages) int32 page tables,
     ``active`` (B,) bool rows that may write real pages and advance, and
     ``n_valid`` — how many of the S positions are real (a padded final
-    chunk advances ``len`` by n_valid).  ``embeds`` (B, S, d) replaces the
-    token embeddings (a VLM prompt's chunk).  MoE layers are dropless
-    here."""
+    chunk advances ``len`` by n_valid; an int or a 0-dim device tensor).
+    ``embeds`` (B, S, d) replaces the token embeddings (a VLM prompt's
+    chunk).  MoE layers are dropless here."""
     if cfg.family not in ATTENTION_FAMILIES:
         raise ValueError(f"decode_tokens supports attention families "
                          f"(dense/moe/vlm), not {cfg.family!r}")
@@ -851,31 +851,49 @@ def set_slot_lens(caches, slot: int, value: int):
     return caches
 
 
-def slot_view(caches, slot: int):
+def slot_view(caches, slot: int | torch.Tensor):
     """A batch-1 view of one slot: its lengths sliced (a view, so writes go
-    through), page stores passed whole."""
-    return {"k": caches["k"], "v": caches["v"],
-            "len": caches["len"][:, slot:slot + 1]}
+    through) or, for a 0-dim device tensor ``slot``, selected (a copy that
+    :func:`merge_slot` writes back); page stores passed whole."""
+    lens = caches["len"]
+    if isinstance(slot, torch.Tensor):
+        lens = lens.index_select(1, slot.reshape(1).long())
+    else:
+        lens = lens[:, slot:slot + 1]
+    return {"k": caches["k"], "v": caches["v"], "len": lens}
 
 
-def merge_slot(caches, view, slot: int):
+def merge_slot(caches, view, slot: int | torch.Tensor):
     """Write a :func:`slot_view` back: the page stores are shared (writes
-    already landed at absolute page ids); the lengths scatter at ``slot``."""
-    caches["len"][:, slot:slot + 1] = view["len"]
+    already landed at absolute page ids); the lengths scatter at ``slot``
+    (an int, or a 0-dim device tensor)."""
+    if isinstance(slot, torch.Tensor):
+        caches["len"].index_copy_(1, slot.reshape(1).long(), view["len"])
+    else:
+        caches["len"][:, slot:slot + 1] = view["len"]
     return caches
 
 
 def prefill_chunk(p: Params, caches, tokens: torch.Tensor,
-                  pt_row: torch.Tensor, slot: int, n_valid: int,
-                  cfg: ModelConfig, embeds: torch.Tensor | None = None):
+                  pt_row: torch.Tensor, slot: int | torch.Tensor,
+                  n_valid: int | torch.Tensor, cfg: ModelConfig,
+                  embeds: torch.Tensor | None = None):
     """One chunked-prefill step for one slot over the paged cache.
 
     ``tokens`` (1, chunk) is the next prompt chunk, zero-padded past
     ``n_valid`` on the final chunk (``embeds`` (1, chunk, d), when given,
     in their place, padded alike); ``pt_row`` (1, n_pages) is the slot's
-    page table.  Returns the logits at the last valid position ((1, vocab),
-    only meaningful on the final chunk) and the updated caches."""
+    page table.  ``slot`` and ``n_valid`` are ints or 0-dim device tensors,
+    as the reference traces them: a chunk step captured once per chunk
+    shape takes them as static inputs, so nothing here reads them on the
+    host.  Returns the logits at the last valid position ((1, vocab), only
+    meaningful on the final chunk) and the updated caches."""
     view = slot_view(caches, slot)
     logits, view = decode_tokens(p, view, tokens, cfg, pt=pt_row,
                                  n_valid=n_valid, embeds=embeds)
+    if isinstance(n_valid, torch.Tensor):
+        last = (n_valid.long() - 1).reshape(1, 1, 1).expand(
+            logits.shape[0], 1, logits.shape[2])
+        return (torch.gather(logits, 1, last)[:, 0],
+                merge_slot(caches, view, slot))
     return logits[:, n_valid - 1], merge_slot(caches, view, slot)

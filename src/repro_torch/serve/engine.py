@@ -93,16 +93,25 @@ layer at a time, and a rank's peak holds its blocks and one layer whole.
 ``compressed_collectives`` needs the manual path's seams and is refused
 on this one, as the reference refuses it.
 
-Compiled dispatch: the reference jits each engine's decode step with its
-caches donated.  On one device (``mesh=None``) the continuous engine's
-lockstep decode, paged or contiguous, runs through a
-:class:`~repro_torch.serve.graphs.StepGraph` (``ServeConfig.step_graphs``,
-on by default): on a CUDA device the step is captured once as a CUDA graph
-over the caches, which it advances in place, and replayed on every later
-step, only its small inputs copied in; a schedule swap drops the graph and
-the next decode re-captures it.  Prefill, chunked prefill, insertion,
-``Engine.generate`` and every mesh path (whose seams are gloo collectives,
-host operations that no graph holds) dispatch eagerly.
+Compiled dispatch: the reference jits each engine's prefill, insert,
+chunk and decode steps with its caches donated.  On one device
+(``mesh=None``, ``ServeConfig.step_graphs`` on by default) the continuous
+engine's steps run through :mod:`~repro_torch.serve.graphs`: the lockstep
+decode, paged or contiguous, through a ``StepGraph``, captured once as a
+CUDA graph over the caches, which it advances in place, and replayed on
+every later step, only its small inputs copied in; a whole-prompt prefill
+with its insert (``PrefillStep``) and a chunked-prefill step
+(``ChunkStep``) through ``PrefillGraphs``, which captures each shape on its
+``CAPTURE_AT``-th sighting and replays it on every later one.  A schedule
+swap drops every graph and the next call re-captures.  A whole-prompt
+graph holds one exact (group, prompt length, extras) shape: padding a
+prompt to its page-rounded length, the reference's compile key, would
+change what a capacity-bound MoE prefill drops and the shapes of its
+products, so its tokens would no longer be the eager engine's.
+``M.set_slot_lens`` (one indexed fill: a graph of one launch saves
+nothing), ``Engine.generate`` (the differential oracle) and every mesh
+path (whose seams are gloo collectives, host operations that no graph
+holds) dispatch eagerly.
 """
 
 from __future__ import annotations
@@ -124,7 +133,8 @@ from repro_torch.models.config import ModelConfig, check_supported
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.recorder import WorkloadRecorder
-from repro_torch.serve.graphs import StepGraph
+from repro_torch.serve.graphs import (ChunkStep, PrefillGraphs, PrefillStep,
+                                      StepGraph)
 from repro_torch.serve.pages import PagePool, PagesExhausted, PrefixCache
 from repro_torch.serve.slots import SlotPool
 
@@ -159,11 +169,11 @@ class ServeConfig:
                                     # token-exact)
     compress_block: int = 64        # quantization block for compressed seams
     # ---- compiled dispatch (ContinuousEngine with mesh=None) -------------
-    step_graphs: bool = True        # decode through a serve.graphs.StepGraph:
-                                    # on a CUDA device a captured CUDA graph,
-                                    # replayed; on the CPU the same static-
-                                    # buffer step, eager.  False: eager
-                                    # dispatch (the reference's
+    step_graphs: bool = True        # decode, prefill and chunk steps through
+                                    # serve.graphs: on a CUDA device captured
+                                    # CUDA graphs, replayed; on the CPU the
+                                    # same static-buffer steps, eager.
+                                    # False: eager dispatch (the reference's
                                     # jax.disable_jit)
 
 
@@ -467,6 +477,7 @@ class ContinuousEngine:
             self.layout = partition.ServeLayout(pshard, cshard)
             self.caches = partition.blocks_zeros(whole, cshard, self.device)
         self.graph: StepGraph | None = None
+        self.prefill_graphs: PrefillGraphs | None = None
         self._make_dispatchers()
         # schedule hot-swap: the store the engine is built under and its
         # version; _maybe_refresh_schedules() swaps when the version moves
@@ -507,22 +518,24 @@ class ContinuousEngine:
         """(Re)build what the engine dispatches through; called at
         construction and on every schedule swap.  The JAX engine re-creates
         its jitted step functions here, since a jit trace would keep the
-        schedules it resolved.  So does a captured decode step: with
-        ``step_graphs`` on one device the engine decodes through a
-        :class:`~repro_torch.serve.graphs.StepGraph`, made here at
-        construction and dropped here on a swap, so the next decode
-        re-captures the step with the new schedules.  Eager dispatch
-        (prefill, chunks, a mesh's steps, or ``step_graphs`` off) keeps
-        nothing to drop: each registry kernel re-resolves its schedule on
-        its first call after the store's version moves
-        (``SipKernel.__call__``)."""
+        schedules it resolved.  So do captured steps: with ``step_graphs``
+        on one device the engine decodes through a
+        :class:`~repro_torch.serve.graphs.StepGraph` and prefills through a
+        :class:`~repro_torch.serve.graphs.PrefillGraphs`, made here at
+        construction and dropped here on a swap, so the next call
+        re-captures with the new schedules.  Eager dispatch (a first
+        sighting, a mesh's steps, or ``step_graphs`` off) keeps nothing to
+        drop: each registry kernel re-resolves its schedule on its first
+        call after the store's version moves (``SipKernel.__call__``)."""
         if self.graph is not None:
             self.graph.drop()
+            self.prefill_graphs.drop()
         elif self.scfg.step_graphs and self.mesh is None:
             self.graph = StepGraph(
                 self.params, self.caches, self.cfg, self.capacity,
                 device=self.device,
                 n_slot_pages=self._n_slot_pages if self.paged else None)
+            self.prefill_graphs = PrefillGraphs(self.device, self.obs)
 
     def _maybe_refresh_schedules(self) -> None:
         """Pick up a commit to the store the engine was built under (an
@@ -708,10 +721,9 @@ class ContinuousEngine:
         t0 = time.perf_counter()
         slots = np.asarray([s for s, _ in group], np.int32)
         prompts = np.stack([r.prompt for _, r in group])
-        inputs = {"tokens": self._dev(prompts)}
+        arrays = {"tokens": prompts}
         for k in (group[0][1].extra or {}):
-            inputs[k] = self._dev(np.stack([np.asarray(r.extra[k])
-                                            for _, r in group]))
+            arrays[k] = np.stack([np.asarray(r.extra[k]) for _, r in group])
         if self.paged:
             # prefill at the prompt length rounded up to a page multiple —
             # the group cache then splits exactly into pages; the JAX engine
@@ -719,28 +731,40 @@ class ContinuousEngine:
             ps = self.pages.page_size
             n_pg = -(-int(prompts.shape[1]) // ps)
             shape = (len(group), n_pg * ps)
+            max_len = n_pg * ps
+            page_rows = np.asarray(
+                [self._slot_pages[s][:n_pg] for s in slots], np.int32)
         else:
             shape = (len(group), prompts.shape[1])
+            max_len = self.scfg.max_len
         if shape not in self._prefill_shapes_seen:
             self._prefill_shapes_seen.add(shape)
             self._c["prefill_compiles"].inc()
         with obs_trace.span("serve.prefill", batch=len(group),
                             prompt_len=int(prompts.shape[1])):
-            if self.paged:
+            logits = None
+            if self.prefill_graphs is not None:
+                statics = {**arrays, "slots": slots.astype(np.int64)}
+                if self.paged:
+                    statics["page_rows"] = page_rows
+                key = ("prefill",) + tuple(
+                    (k, a.shape, a.dtype.str) for k, a in arrays.items())
+                logits = self.prefill_graphs.run(
+                    key, lambda pool: PrefillStep(
+                        self.params, self.caches, self.cfg, max_len, statics,
+                        device=self.device, pool=pool), statics)
+            if logits is None:
+                inputs = {k: self._dev(a) for k, a in arrays.items()}
                 logits, grp = M.prefill(self.params, inputs, self.cfg,
-                                        max_len=n_pg * ps)
+                                        max_len=max_len)
                 grp = self._local_group(grp)
-                page_rows = np.asarray(
-                    [self._slot_pages[s][:n_pg] for s in slots], np.int32)
-                self.caches = M.insert_pages(self.caches, grp,
-                                             self._dev(slots),
-                                             self._dev(page_rows))
-            else:
-                logits, grp = M.prefill(self.params, inputs, self.cfg,
-                                        max_len=self.scfg.max_len)
-                self.caches = M.insert_slots(self.caches,
-                                             self._local_group(grp),
-                                             self._dev(slots))
+                if self.paged:
+                    self.caches = M.insert_pages(self.caches, grp,
+                                                 self._dev(slots),
+                                                 self._dev(page_rows))
+                else:
+                    self.caches = M.insert_slots(self.caches, grp,
+                                                 self._dev(slots))
             toks = _pick(logits, self.scfg.temperature,
                          self._gen).cpu().numpy()
         dt = time.perf_counter() - t0
@@ -865,12 +889,13 @@ class ContinuousEngine:
         n = min(cs, remaining)
         buf = np.zeros((1, cs), np.int32)
         buf[0, :n] = req.prompt[task.pos:task.pos + n]
-        embeds = eshape = None
+        arrays = {"tokens": buf}
+        eshape = None
         if _has_embeds(req):
             e = np.asarray(req.extra["embeds"])
             ebuf = np.zeros((1, cs) + e.shape[1:], e.dtype)
             ebuf[0, :n] = e[task.pos:task.pos + n]
-            embeds = self._dev(ebuf)
+            arrays["embeds"] = ebuf
             eshape = tuple(e.shape[1:])
         shape = ("chunk", cs, eshape)
         if shape not in self._prefill_shapes_seen:
@@ -879,10 +904,23 @@ class ContinuousEngine:
         t0 = time.perf_counter()
         with obs_trace.span("serve.prefill_chunk", slot=slot, chunk=int(cs),
                             valid=int(n)):
-            last, self.caches = M.prefill_chunk(
-                self.params, self.caches, self._dev(buf),
-                self._dev(self._pt[slot:slot + 1]), slot, n, self.cfg,
-                embeds=embeds)
+            last = None
+            pt_row = self._pt[slot:slot + 1]
+            if self.prefill_graphs is not None:
+                statics = {**arrays, "pt": pt_row, "slot": np.int64(slot),
+                           "n_valid": np.int32(n)}
+                key = shape + tuple((k, a.dtype.str)
+                                    for k, a in arrays.items())
+                last = self.prefill_graphs.run(
+                    key, lambda pool: ChunkStep(
+                        self.params, self.caches, self.cfg, statics,
+                        device=self.device, pool=pool), statics)
+            if last is None:
+                last, self.caches = M.prefill_chunk(
+                    self.params, self.caches, self._dev(buf),
+                    self._dev(pt_row), slot, n, self.cfg,
+                    embeds=(self._dev(arrays["embeds"])
+                            if "embeds" in arrays else None))
             _sync(self.device)
         dt = time.perf_counter() - t0
         self._c["prefill_s"].inc(dt)

@@ -25,6 +25,14 @@ restore reshards them onto the current mesh.
 The FT verdict is the first rank's: it decides and broadcasts, so every
 rank raises the same failure at the same step.  A rank that an elastic
 reshape leaves out of the mesh returns at once (``outside_mesh``).
+
+Compiled dispatch: on one CUDA device the step runs as a captured CUDA
+graph (:class:`~repro_torch.train.graphs.TrainGraph`, ``TrainConfig.
+step_graphs``), the reference's jitted step with its state donated: the
+first step warms up and captures it, every later one copies its batch in
+and replays it.  A restore, a rollback or an elastic restart re-enters
+:func:`train`, which captures anew over the restored state.  The sharded
+step (its seams are gloo collectives, host operations) stays eager.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import adamw
+from repro_torch.train.graphs import TrainGraph
 
 #: the default checkpoint directory, inside the checkout (gitignored)
 DEFAULT_CKPT_DIR = str(_build.BUILD_DIR.parent / "ckpt")
@@ -70,6 +79,10 @@ class TrainConfig:
     # not grow an unbounded list of per-step dicts)
     log_history: int | None = None
     device: str = "cuda"
+    # the one-device step as a captured CUDA graph (train.graphs); None:
+    # on when the device is CUDA and there is no mesh.  True on the CPU
+    # runs the same static-buffer step eagerly; False: eager dispatch
+    step_graphs: bool | None = None
 
 
 def state_shardings(mcfg: ModelConfig, mesh) -> dict[str, Any]:
@@ -153,6 +166,14 @@ def train(mcfg: ModelConfig, dcfg: DataConfig, tcfg: TrainConfig,
     start_step, params, opt_state = _restore(ckpt, params, opt_state,
                                              shardings)
     writer = mesh is None or mesh.rank == 0
+    graphs = tcfg.step_graphs
+    if graphs is None:
+        graphs = device.type == "cuda"
+    graph = None
+    if graphs and mesh is None:
+        graph = TrainGraph(params, opt_state, cfg=mcfg, opt_cfg=ocfg,
+                           num_microbatches=tcfg.num_microbatches,
+                           device=device)
 
     history: Any = (deque(maxlen=tcfg.log_history)
                     if tcfg.log_history is not None else [])
@@ -170,7 +191,9 @@ def train(mcfg: ModelConfig, dcfg: DataConfig, tcfg: TrainConfig,
             batch = batch_for_model(mcfg, dcfg, data_step, device=device)
             t0 = time.perf_counter()
             with obs_trace.span("train.step", step=step) as sp:
-                if mesh is None:
+                if graph is not None:
+                    metrics = graph.step(batch)
+                elif mesh is None:
                     params, opt_state, metrics = steps.train_step(
                         params, opt_state, batch, cfg=mcfg, opt_cfg=ocfg,
                         num_microbatches=tcfg.num_microbatches)

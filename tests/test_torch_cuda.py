@@ -16,7 +16,11 @@ an autotune promotion on the card that the running engine swaps to
 and launches, and the continuous engine's captured decode step (tokens
 equal eager dispatch's on qwen3 paged and contiguous and mamba2, captured
 with no sync, the gather's credited launches equal to the eager count, a
-promoted gather schedule launched on replay, a failed capture raising).
+promoted gather schedule launched on replay, a failed capture raising),
+its captured whole-prompt prefills and chunk steps (tokens and flash,
+gather and SSD launch counts equal eager dispatch's on qwen3 paged and
+mamba2, re-captured after a swap in no more memory) and the captured train
+step (losses equal eager steps' under remat "full" and "dots").
 Marked ``cuda``: they skip without a card.  On the GPU
 machine:
 
@@ -897,3 +901,129 @@ def test_recapturing_holds_no_more_device_memory(cuda):
     torch.cuda.synchronize()
     assert eng.graph.captures == 4
     assert torch.cuda.memory_allocated() - before < 2 ** 20
+
+
+# ------------------------------------- captured prefill, chunk and train
+#: (arch, engine settings) of the captured-prefill cases: qwen3 paged with
+#: chunked prefill (prompts of 12 whole, of 20 in chunks of 16), mamba2
+#: contiguous (both whole, the SSD kernel in every prefill)
+PREFILL_CASES = {"qwen3_paged": ("qwen3-1.7b", dict(paged=True, page_size=8,
+                                                    prefill_chunk=16)),
+                 "mamba2": ("mamba2-2.7b", {})}
+
+
+def _prefill_traffic(cfg, capacity: int = 2):
+    """Prompts of 12 tokens, then as many of 20, 4 new tokens each: with
+    ``capacity`` 2 each pair prefills as one group, so every group shape
+    is sighted ``CAPTURE_AT + 1`` times (eager, captured, replayed)."""
+    from repro_torch.serve.graphs import CAPTURE_AT
+    rng = np.random.default_rng(6)
+    n = capacity * (CAPTURE_AT + 1)
+    return [(rng.integers(1, cfg.vocab, m).astype(np.int32), 4)
+            for m in (12,) * n + (20,) * n]
+
+
+def _served(cuda, params, cfg, reqs, **scfg):
+    from repro_torch.serve import graphs
+    counts = (fa.launches, pg.launches, sk.launches)
+    eng = ContinuousEngine(params, cfg, ServeConfig(max_len=64, capacity=2,
+                                                    **scfg))
+    uids = [eng.submit(t, n).uid for t, n in reqs]
+    with graphs.checking_syncs():
+        got = eng.run(max_steps=500)
+    torch.cuda.synchronize()
+    launched = tuple(b - a for a, b in zip(counts, (fa.launches, pg.launches,
+                                                    sk.launches)))
+    return eng, [got[u] for u in uids], launched
+
+
+@pytest.mark.parametrize("case", list(PREFILL_CASES))
+def test_captured_prefill_and_chunk_equal_eager_dispatch_on_card(cuda, case):
+    """Whole-prompt prefills and chunk steps captured (warm-up and capture
+    under the sync debug mode "error") give the eager engine's tokens, and
+    the flash, gather and SSD launches their replays credit equal the
+    eager engine's counts."""
+    arch, extra = PREFILL_CASES[case]
+    cfg, params = _smoke_on(cuda, arch)
+    reqs = _prefill_traffic(cfg)
+    eager_eng, eager, eager_launches = _served(
+        cuda, params, cfg, reqs, step_graphs=False, **extra)
+    eng, got, launches = _served(cuda, params, cfg, reqs, **extra)
+    assert eager_eng.prefill_graphs is None
+    for a, b in zip(eager, got):
+        np.testing.assert_array_equal(a, b)
+    assert launches == eager_launches
+    graphs = eng.prefill_graphs
+    # one shape a kind (whole 12s and 20s, or whole 12s and 16-chunks)
+    assert graphs.captures == 2 and graphs.replays > 0
+    assert graphs.pool_bytes() > 0
+    assert eng.stats["prefill_compiles"] == eager_eng.stats[
+        "prefill_compiles"]
+
+
+def test_recaptured_prefill_graphs_hold_no_more_device_memory(cuda):
+    """Dropping every prefill and chunk graph (a schedule swap does) and
+    capturing them again over the same traffic holds no more allocated
+    memory, nor a larger shared pool."""
+    cfg, params = _smoke_on(cuda, "qwen3-1.7b")
+    reqs = _prefill_traffic(cfg)
+    eng = ContinuousEngine(params, cfg, ServeConfig(
+        max_len=64, capacity=2, **PREFILL_CASES["qwen3_paged"][1]))
+
+    def serve():
+        for t, n in reqs:
+            eng.submit(t, n)
+        eng.run(max_steps=500)
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated(), eng.prefill_graphs.pool_bytes()
+
+    serve()
+    before, pool = serve()
+    eng._make_dispatchers()           # what a swap does
+    assert not eng.prefill_graphs.steps
+    after, pool_after = serve()
+    assert eng.prefill_graphs.captures == 4
+    assert after - before < 2 ** 20 and pool_after <= pool
+
+
+def test_captured_train_steps_equal_eager_on_card(cuda, capsys):
+    """Four train steps through a captured ``TrainGraph`` (warm-up and
+    capture under the sync debug mode "error"; remat "full" and "dots")
+    from the eager steps' weights and batches: losses within 1e-6
+    relative, and the largest leaf difference printed."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, batch_for_model
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    from repro_torch.serve import graphs
+    from repro_torch.train.graphs import TrainGraph
+
+    for policy in ("full", "dots"):
+        cfg = configs.get_smoke("qwen3-1.7b", remat_policy=policy)
+        dcfg = DataConfig(global_batch=4, seq_len=64, vocab=cfg.vocab)
+        ocfg = adamw.OptConfig(peak_lr=1e-3, warmup_steps=1)
+        runs = []
+        for captured in (False, True):
+            p = M.init_lm(cfg, seed=0, device=cuda, dtype=torch.float32)
+            opt = adamw.init_opt_state(p)
+            if captured:
+                graph = TrainGraph(p, opt, cfg=cfg, opt_cfg=ocfg,
+                                   device=cuda)
+            losses = []
+            with graphs.checking_syncs():
+                for s in range(4):
+                    batch = batch_for_model(cfg, dcfg, s, device=cuda)
+                    if captured:
+                        m = graph.step(batch)
+                    else:
+                        _, _, m = steps.train_step(p, opt, batch, cfg=cfg,
+                                                   opt_cfg=ocfg)
+                    losses.append(m["loss"].item())
+            runs.append((losses, adamw.leaves(p)))
+        (le, pe), (lg, pg_) = runs
+        assert graph.captures == 1 and graph.replays == 3
+        np.testing.assert_allclose(lg, le, rtol=1e-6)
+        worst = max(float((a - b).abs().max()) for a, b in zip(pg_, pe))
+        with capsys.disabled():
+            print(f"\n[train graph] remat {policy}: losses {lg} vs {le}, "
+                  f"largest leaf difference {worst:.3e}")
