@@ -395,6 +395,14 @@ SSD_SHAPES = [(2, 8, 2, 4, 8), (4, 16, 4, 8, 16), (6, 64, 80, 64, 128),
               (6, 64, 112, 64, 64)]
 #: (rows, d): the smoke and deploy workloads and the model's width
 RMS_SHAPES = [(16, 32), (64, 128), (4096, 2560)]
+#: the SSD at the head counts a rank runs when the mixer's heads split
+#: along "model": mamba2's 80 (state 128) and zamba2's 112 (state 64) cut
+#: 16 and 2 ways (the odd 5 and 7 leave zero-filled heads in the last head
+#: group of every block), one 256-row chunk
+SSD_SPLIT_SHAPES = {"mamba2_16way": (1, 256, 5, 64, 128),
+                    "mamba2_2way": (1, 256, 40, 64, 128),
+                    "zamba2_16way": (1, 256, 7, 64, 64),
+                    "zamba2_2way": (1, 256, 56, 64, 64)}
 
 
 def gather_tiled(static) -> dict:
@@ -1088,9 +1096,31 @@ def phase_ssd(gen) -> dict:
     out = {"cases": results, "standard_normal_la_q256": positive,
            "max_abs_err_vs_cpu_plain_q256": vs_cpu,
            "max_abs_err": max(r["max_abs_err"] for r in results),
-           "timed_f32": timed}
+           "timed_f32": timed, "split_heads": ssd_split_heads(gen)}
     emit("ssd_intra_chunk", **out)
     return {**out, **timed["g1_q256_h80_p64_n128"]}
+
+
+def ssd_split_heads(gen) -> dict:
+    """The SSD at ``SSD_SPLIT_SHAPES``, float32 and bfloat16, against its
+    plain version on the same (rounded) inputs in float32: each dtype's
+    tolerance, the largest per-row error and the kernel's head groups."""
+    out = {}
+    for name, shape in SSD_SPLIT_SHAPES.items():
+        args = ssd_inputs(*shape, gen)
+        for dt in (F32, BF16):
+            mine = [a.to(dt) for a in args]
+            kern = ssd_kernel(ssd_static(*shape, dtype=dt))
+            got = kern(*mine)
+            want = sk_ref.intra_chunk(*[a.float() for a in mine])
+            g, q, h = shape[:3]
+            out[f"{name}_{_dt(dt)}"] = {
+                "heads": h, "heads_per_block": kern.layout["HG"],
+                "grid": list(kern.grid(g, q, h, kern.br)),
+                "max_abs_err": compare(got, want, dt, f"ssd {name} {dt}"),
+                "max_row_rel_err": row_rel_err(got, want),
+                "max_abs_want": want.abs().max().item()}
+    return out
 
 
 def phase_rmsnorm(gen) -> dict:
@@ -2933,6 +2963,11 @@ def phase_differential_tp() -> dict:
 #: gathers the whole model, a layer at a time, over gloo)
 GSPMD_SERVE = ServeConfig(max_len=512, capacity=4)
 GSPMD_REQUESTS, GSPMD_NEW, GSPMD_LAYERS = 3, 2, 16
+#: the same phase while the mixer's compute was replicated along "model"
+#: (each layer gathered whole a dispatch), on this card model at 700 W:
+#: decode step p50, from PERF.md section 5 (a printed constant, not this
+#: run's measurement)
+GSPMD_REPLICATED = {"decode_step_p50_ms": 2281.0, "source": "PERF.md 5"}
 
 
 def _gspmd_cfg():
@@ -3015,11 +3050,15 @@ def _serve_gspmd_rank(mesh) -> dict:
     resident = {"params_gb": _gb(eng.params), "caches_gb": _gb(eng.caches)}
     out = _timed_run(eng, *_gspmd_requests(cfg.vocab))
     dispatches = out["prefill_dispatches"] + out["decode_steps"]
+    split = eng.layout.split
     out.update(tp_path=eng.tp_path, tp_reason=eng.tp_reason,
                full_params_gb=full_gb, resident_gb=resident,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                gathered_gb_per_dispatch=eng.layout.gathered_bytes / 1e9
-               / dispatches)
+               / dispatches,
+               split_cut=sorted(split.cut) if split else [],
+               ssd_served_heads=sorted({s["h"] for s in registry.get(
+                   sk_ops.NAME).served_signatures()}))
     del eng
     torch.cuda.empty_cache()
     return out
@@ -3229,20 +3268,26 @@ def phase_mesh_serving(one_device: dict) -> dict:
 
     sg = [r["serve_gspmd"] for r in ranks]
     n_layers = GSPMD_LAYERS
+    local_heads = configs.get("mamba2-2.7b").ssm_heads // MESH_RANKS
     for o in sg:
         if o["tp_path"] != "gspmd" or o["tokens"] != one_device["tokens"] \
                 or o["launches"][sk.FUNCTION] \
-                < n_layers * o["prefill_dispatches"]:
+                < n_layers * o["prefill_dispatches"] \
+                or o["split_cut"] != ["ssm"] \
+                or o["ssd_served_heads"] != [local_heads]:
             raise AssertionError(
-                f"serve_gspmd: path {o['tp_path']}, tokens {o['tokens']} "
-                f"(one device {one_device['tokens']}), launches "
-                f"{o['launches']} in {o['prefill_dispatches']} prefills")
+                f"serve_gspmd: path {o['tp_path']}, split "
+                f"{o['split_cut']}, SSD heads {o['ssd_served_heads']}, "
+                f"tokens {o['tokens']} (one device "
+                f"{one_device['tokens']}), launches {o['launches']} in "
+                f"{o['prefill_dispatches']} prefills")
     keep = ("tokens_per_s", "decode_step_p50_ms", "wall_s", "peak_mem_gb",
             "resident_gb", "gathered_gb_per_dispatch", "launches")
     emit("serve_gspmd", arch="mamba2-2.7b", dtype="bfloat16",
          n_layers=n_layers, requests=GSPMD_REQUESTS, new_tokens=GSPMD_NEW,
          capacity=GSPMD_SERVE.capacity, mesh=[MESH_RANKS],
          tp_path=sg[0]["tp_path"], tp_reason=sg[0]["tp_reason"],
+         split_cut=sg[0]["split_cut"], ssd_heads_per_rank=local_heads,
          token_identical_to_one_device=True,
          full_params_gb=sg[0]["full_params_gb"],
          prefill_dispatches=sg[0]["prefill_dispatches"],
@@ -3252,7 +3297,7 @@ def phase_mesh_serving(one_device: dict) -> dict:
              "tokens_per_s", "decode_step_p50_ms", "wall_s")},
          reduced={"n_layers": f"{GSPMD_LAYERS} of "
                               f"{configs.get('mamba2-2.7b').n_layers}"},
-         job_s=job_s, note=note)
+         replicated_before=GSPMD_REPLICATED, job_s=job_s, note=note)
 
     diff = [r["differential_gspmd"] for r in ranks]
     for case in _differential_gspmd_cases():
@@ -3692,6 +3737,14 @@ SHARDED_RANKS = 2
 #: timed ones; one timed step on (2, 1), whose ~17-20 s are gloo's host
 #: copies of the params and gradient
 SHARDED_STEPS = {(SHARDED_RANKS, 1): 2, (1, SHARDED_RANKS): 3}
+#: train_sharded's SSM run on (1, 2): mamba2-2.7b at full width, its depth
+#: cut for the script's time, and its steps (one counted, one timed)
+SSM_TRAIN_LAYERS, SSM_TRAIN_STEPS = 16, 2
+
+
+def _ssm_train_cfg():
+    return dataclasses.replace(configs.get("mamba2-2.7b"),
+                               n_layers=SSM_TRAIN_LAYERS)
 #: the elastic phase: steps, checkpoint cadence, the heartbeat clock's tick
 #: (the lost worker times out 4 steps after it stops: step 7 of 8)
 ELASTIC_STEPS, ELASTIC_EVERY, ELASTIC_TICK = 8, 4, 0.3
@@ -3734,12 +3787,13 @@ def _span_s(events, names) -> dict:
     return out
 
 
-def _train_sharded_full(mesh) -> dict:
-    """``train_sharded`` on one rank: qwen3-1.7b at full width on ``mesh``
-    ((2, 1) or (1, 2)), ``train``'s data and optimizer, the mesh's
-    ``SHARDED_STEPS`` sharded steps (the first untimed and counted),
-    traced."""
-    cfg = configs.get("qwen3-1.7b")
+def _train_sharded_full(mesh, cfg=None, n_steps: int | None = None) -> dict:
+    """``train_sharded`` on one rank: ``cfg`` (default qwen3-1.7b) at full
+    width on ``mesh`` ((2, 1) or (1, 2)), ``train``'s data and optimizer,
+    ``n_steps`` (default the mesh's ``SHARDED_STEPS``) sharded steps (the
+    first untimed and counted), traced."""
+    cfg = cfg or configs.get("qwen3-1.7b")
+    n_steps = n_steps or SHARDED_STEPS[tuple(mesh.shape.values())]
     dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
     ocfg = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1,
                            decay_steps=TRAIN_STEPS)
@@ -3758,7 +3812,7 @@ def _train_sharded_full(mesh) -> dict:
             params, opt, batch, cfg=cfg, opt_cfg=ocfg, mesh=mesh,
             shardings=pshard)[2]
     with obs.tracing() as tracer:
-        for step in range(SHARDED_STEPS[tuple(mesh.shape.values())]):
+        for step in range(n_steps):
             batch = batch_for_model(cfg, dcfg, step, device=mesh.device)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3932,8 +3986,11 @@ def _sharded_rank(rank: int, workdir: str) -> dict:
     mesh = mesh_for((SHARDED_RANKS, 1), AXES)
     out = {"train_sharded": _train_sharded_full(mesh)}
     torch.cuda.empty_cache()
-    out["train_sharded_model"] = _train_sharded_full(
-        mesh_for((1, SHARDED_RANKS), AXES))
+    model = mesh_for((1, SHARDED_RANKS), AXES)
+    out["train_sharded_model"] = _train_sharded_full(model)
+    torch.cuda.empty_cache()
+    out["train_sharded_ssm"] = _train_sharded_full(
+        model, _ssm_train_cfg(), SSM_TRAIN_STEPS)
     torch.cuda.empty_cache()
     out["differential_train_sharded"] = _differential_sharded(
         ((SHARDED_RANKS, 1), (1, SHARDED_RANKS)), mesh.device)
@@ -3942,6 +3999,25 @@ def _sharded_rank(rank: int, workdir: str) -> dict:
     torch.cuda.empty_cache()
     out["train_elastic"] = _train_elastic(workdir)
     return out
+
+
+def _ssm_one_device_losses() -> list[float]:
+    """``train_sharded``'s SSM run on this card alone: the same config,
+    init (seed 0), data, optimizer and steps, one device."""
+    cfg = _ssm_train_cfg()
+    dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
+    ocfg = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1,
+                           decay_steps=TRAIN_STEPS)
+    params, opt = train_loop.make_train_state(cfg, seed=0)
+    losses = []
+    for step in range(SSM_TRAIN_STEPS):
+        params, opt, m = train_steps.train_step(
+            params, opt, batch_for_model(cfg, dcfg, step, device="cuda"),
+            cfg=cfg, opt_cfg=ocfg)
+        losses.append(m["loss"].item())
+    del params, opt
+    torch.cuda.empty_cache()
+    return losses
 
 
 def phase_train_sharded(workdir: Path, info: dict, train: dict) -> dict:
@@ -3977,6 +4053,7 @@ def phase_train_sharded(workdir: Path, info: dict, train: dict) -> dict:
     under grad).  Two processes on one card, every collective through host
     memory: nothing here measures training across cards."""
     note = "2 ranks share 1 card over gloo: not multi-GPU training"
+    ssm_one = _ssm_one_device_losses()
     # the ranks need ~29 GB each: hand back what this process's allocator
     # still holds from the earlier phases
     torch.cuda.empty_cache()
@@ -3997,15 +4074,15 @@ def phase_train_sharded(workdir: Path, info: dict, train: dict) -> dict:
     tokens = TRAIN_DATA["global_batch"] * TRAIN_DATA["seq_len"]
     cfg = configs.get("qwen3-1.7b")
 
-    def run_line(key, mesh):
+    def run_line(key, mesh, one=one):
         ts = [r[key] for r in ranks]
         losses = ts[0]["losses"]
         first_rel = abs(losses[0] - one[0]) / abs(one[0])
         if not all(np.isfinite(losses)) or first_rel > 1e-2 \
                 or any(t["losses"] != losses for t in ts):
             raise AssertionError(f"train_sharded {mesh}: losses "
-                                 f"{[t['losses'] for t in ts]}, train's "
-                                 f"{one}")
+                                 f"{[t['losses'] for t in ts]}, one "
+                                 f"device's {one}")
         p50 = float(np.median(ts[0]["step_s"][1:]))
         model = ts[0]["counted_step"]["counts"][
             "collective_bytes_by_axis"].get("model", {})
@@ -4030,9 +4107,22 @@ def phase_train_sharded(workdir: Path, info: dict, train: dict) -> dict:
     if model_line["seams_cut"] != ["attn", "mlp", "vocab"] \
             or model_line["model_axis_gb_per_step"].get("all-gather"):
         raise AssertionError(f"train_sharded (1, 2): {model_line}")
+    ssm_line = run_line("train_sharded_ssm", [1, SHARDED_RANKS], ssm_one)
+    ssm_rel = [abs(a - b) / abs(b)
+               for a, b in zip(ssm_line["losses"], ssm_one)]
+    if ssm_line["seams_cut"] != ["ssm", "vocab"] or max(ssm_rel) > 1e-2 \
+            or ssm_line["model_axis_gb_per_step"].get("all-gather") \
+            or not ssm_line["model_axis_gb_per_step"].get("all-to-all"):
+        raise AssertionError(f"train_sharded mamba2 (1, 2): {ssm_line}, "
+                             f"one device's losses {ssm_one}")
+    ssm_line.update(arch="mamba2-2.7b", losses_one_device=ssm_one,
+                    loss_rel_diff=ssm_rel,
+                    reduced={"n_layers": f"{SSM_TRAIN_LAYERS} of "
+                             f"{configs.get('mamba2-2.7b').n_layers}"})
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
            "param_dtype": cfg.param_dtype, "remat_policy": cfg.remat_policy,
            "axes": list(AXES), **TRAIN_DATA, **data_line, "losses_one_device": one, "model": model_line,
+           "ssm": ssm_line,
            "job_s": job_s, "parent_reserved_gb": parent_gb,
            "nvidia_smi": info["nvidia_smi"], "note": note}
     emit("train_sharded", **out)

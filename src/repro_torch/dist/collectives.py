@@ -27,14 +27,41 @@ runs on NCCL, and on gloo with CPU tensors and with CUDA tensors (two ranks
 sharing one H100, torch 2.11: ``tools/gloo_probe.py``), though gloo's
 documentation lists only ``broadcast``, ``all_reduce`` and ``barrier`` for
 CUDA tensors.
+
+:func:`settled` runs any collective so that its CPU tensors are freed on
+the caller's thread (see its docstring); the port's seams, gathers and
+re-lays run through it.
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 import torch.distributed as dist
 
 QMAX = 127.0
+#: the seconds :func:`settled` waits at most for a process group to let go
+SETTLE_S = 1.0
+
+
+def settled(op, *tensors: torch.Tensor) -> None:
+    """Run ``op()``, a collective over ``tensors``, and return once the
+    process group has let go of them.  Gloo's worker thread drops its
+    references a little after the collective completes, so a tensor
+    whose last reference it held would be freed on that thread at a moment
+    its timing decides, and a rank's peak memory with it; waiting (at most
+    ``SETTLE_S``) frees each where its caller drops it, as one thread
+    would.  CUDA tensors are not waited for: their memory is the caching
+    allocator's, not a count held to the dry run exactly."""
+    held = [t._use_count() for t in tensors]
+    op()
+    if any(t.device.type != "cpu" for t in tensors):
+        return
+    end = time.monotonic() + SETTLE_S
+    while any(t._use_count() > n for t, n in zip(tensors, held)) \
+            and time.monotonic() < end:
+        time.sleep(0)
 
 
 def quantize_int8(x: torch.Tensor, block: int = 64):

@@ -30,9 +30,21 @@ Serving on the GSPMD path (``serve/engine.py``) keeps each rank's blocks
 of the params and caches under :data:`SERVE_RULES` (a
 :class:`ServeLayout`) and runs the model inside :func:`materialising`:
 the model's layer loops call :func:`whole` and :func:`whole_cache` on
-what a layer reads, :func:`take` for an embedding lookup and
-:func:`write_back` for the caches a layer wrote, so a rank gathers one
-layer at a time and computes what one device computes.
+what a layer reads, :func:`take` for an embedding lookup,
+:func:`by_columns` for the logits and :func:`write_back` for the
+caches a layer wrote, so a rank gathers one layer at a time and computes
+what one device computes.  Where the layout carries a split
+(``launch/steps.model_split``: an SSM mixer's heads, a hybrid's shared
+attention and MLP) the rank computes with its blocks of the leaves the
+split cuts instead of gathering them.
+
+Two leaves of an SSM mixer are not cut at head boundaries: ``in_proj``'s
+concatenated ``[z | x | B | C | dt]`` columns and the conv's ``[x | B |
+C]`` channels lie in contiguous blocks.  :func:`relay` re-lays such a
+block into the columns a rank's heads read (one all-to-all along
+``"model"``; every rank reads ``B`` and ``C``, so each of their columns
+goes to every rank), and :func:`relay_back` lays a head-aligned result
+(the conv state) back into the blocks at rest.
 """
 
 from __future__ import annotations
@@ -40,11 +52,15 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import math
 from typing import Any, Iterator, Sequence
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.dist import tp
+from repro_torch.dist.collectives import settled
 
 # Logical axis -> mesh axis (or tuple of mesh axes, outermost first).
 # ``None`` documents an axis that deliberately stays replicated/unsharded.
@@ -260,7 +276,10 @@ class NamedSharding:
         out = shard
         for dim, a in self._dims(axes):
             parts = [torch.empty_like(out) for _ in range(self.mesh.shape[a])]
-            dist.all_gather(parts, out.contiguous(), group=self.mesh.group(a))
+            mine = out.contiguous()
+            settled(lambda: dist.all_gather(parts, mine,
+                                            group=self.mesh.group(a)),
+                    mine, *parts)
             out = torch.cat(parts, dim=dim)
         return out
 
@@ -275,9 +294,10 @@ class NamedSharding:
             n = self.mesh.shape[a]
             mine = torch.empty_like(out.narrow(dim, 0, out.shape[dim] // n),
                                     memory_format=torch.contiguous_format)
-            dist.reduce_scatter(mine, [c.contiguous()
-                                       for c in out.chunk(n, dim=dim)],
-                                group=self.mesh.group(a))
+            chunks = [c.contiguous() for c in out.chunk(n, dim=dim)]
+            settled(lambda: dist.reduce_scatter(mine, chunks,
+                                                group=self.mesh.group(a)),
+                    mine, *chunks)
             out = mine
         return out
 
@@ -351,25 +371,63 @@ class ServeLayout:
     """The state of a serving rank at rest, laid out as the reference's
     GSPMD path lays it out: the :class:`NamedSharding` of every param leaf
     (``params``) and of every serving-cache leaf (``caches``), whose
-    blocks are all the rank keeps.  ``gathered_bytes`` counts the whole
-    tensors its dispatches have gathered."""
+    blocks are all the rank keeps.  ``split`` (a
+    ``launch.steps.ModelSplit``, or None) is how its dispatches split the
+    compute along ``"model"``: a leaf that ``"model"`` cuts and the split
+    does not gather whole (``split.whole``) is gathered over the other
+    axes only, and the caches under ``split.caches`` are computed as the
+    rank's blocks.  ``gathered_bytes`` counts what its dispatches'
+    collectives assembled: the whole tensors gathered, the logits'
+    columns, the re-laid columns received."""
 
     params: Any
     caches: Any
+    split: Any = None
     gathered_bytes: int = 0
 
-    def gather(self, tree: Any, shardings: Any) -> Any:
+    @property
+    def mesh(self):
+        tree = self.params
+        while isinstance(tree, dict):
+            tree = next(iter(tree.values()))
+        return tree.mesh
+
+    def gather(self, tree: Any, shardings: Any,
+               path: tuple[str, ...] | None = None) -> Any:
         """A tree of this rank's blocks (whole leaves, or one layer's
-        slices of stacked ones) gathered whole, leaf by leaf; an uncut
-        leaf is returned as it is."""
+        slices of stacked ones) gathered whole, leaf by leaf; given the
+        ``path`` of the params it lies at, a leaf the split computes with
+        over the axes but ``"model"`` only.  An uncut leaf is returned as
+        it is."""
         if isinstance(tree, dict):
-            return {k: self.gather(v, shardings[k]) for k, v in tree.items()}
+            return {k: self.gather(v, shardings[k],
+                                   None if path is None else path + (k,))
+                    for k, v in tree.items()}
         sh = shardings.inner(tree.dim())
         if sh.replicated:
             return tree
-        out = sh.gather(tree)
-        self.gathered_bytes += out.numel() * out.element_size()
+        axes = None
+        if path is not None and self.split is not None \
+                and sh.cuts("model") and path not in self.split.whole:
+            axes = [a for a in sh.mesh.shape if a != "model"]
+        out = sh.gather(tree, axes)
+        if out is not tree:
+            self.gathered_bytes += out.numel() * out.element_size()
         return out
+
+    def splits_caches(self, path: tuple[str, ...]) -> bool:
+        """Whether the split computes the caches at ``path`` as the rank's
+        blocks (no gather, no cut)."""
+        return self.split is not None and path in self.split.caches
+
+    def blocks_of(self, caches: Any, shardings: Any) -> Any:
+        """This rank's blocks of the caches a prefill returned
+        (``shardings``: theirs): cut from whole leaves, except under the
+        paths the split computes, which are blocks already."""
+        if self.splits_caches(()):
+            return caches
+        return {k: v if self.splits_caches((k,))
+                else local_tree(v, shardings[k]) for k, v in caches.items()}
 
 
 _LAYOUT: contextvars.ContextVar[ServeLayout | None] = \
@@ -380,12 +438,20 @@ _LAYOUT: contextvars.ContextVar[ServeLayout | None] = \
 def materialising(layout: ServeLayout) -> Iterator[ServeLayout]:
     """Run model code on a serving rank whose state is ``layout``'s blocks:
     inside, :func:`whole`, :func:`whole_cache` and :func:`take` gather what
-    a layer reads just before it runs, and :func:`write_back` keeps the
-    rank's block of what it wrote.  Outside, all four are the identity (or
-    a plain copy), so one-device paths pay one context lookup a layer."""
+    a layer reads just before it runs, :func:`by_columns` the logits,
+    and :func:`write_back` keeps the rank's block of what it wrote; with a
+    split, its seams are active (``dist.tp.training`` over ``"model"``).
+    Outside, the hooks are the identity (or a plain copy), so one-device
+    paths pay one context lookup a layer."""
     token = _LAYOUT.set(layout)
     try:
-        yield layout
+        if layout.split is None:
+            yield layout
+        else:
+            mesh = layout.mesh
+            with tp.training(mesh.group("model"), mesh.coord("model"),
+                             mesh.shape["model"], layout.split.cut):
+                yield layout
     finally:
         _LAYOUT.reset(token)
 
@@ -399,30 +465,33 @@ def _at(tree: Any, path: Sequence[str]) -> Any:
 def whole(tree: Any, *path: str) -> Any:
     """The params at ``path`` of the param tree (a leaf, a subtree, or one
     layer's view of stacked leaves), whole: gathered inside a
-    :func:`materialising` scope, ``tree`` itself outside one."""
+    :func:`materialising` scope (a leaf its split computes with, over the
+    axes but ``"model"`` only), ``tree`` itself outside one."""
     layout = _LAYOUT.get()
     if layout is None:
         return tree
-    return layout.gather(tree, _at(layout.params, path))
+    return layout.gather(tree, _at(layout.params, path), path)
 
 
 def whole_cache(tree: Any, *path: str) -> Any:
     """:func:`whole` for the serving caches: ``tree`` holds some leaves of
-    the cache subtree at ``path`` (one layer's slices, say)."""
+    the cache subtree at ``path`` (one layer's slices, say); ``tree``
+    itself where the layout's split computes them as blocks."""
     layout = _LAYOUT.get()
-    if layout is None:
+    if layout is None or layout.splits_caches(path):
         return tree
     return layout.gather(tree, _at(layout.caches, path))
 
 
 def write_back(view: dict, new: dict, *path: str) -> None:
     """Store ``new`` (the leaves a layer wrote: whole inside a
-    :func:`materialising` scope) into the resident cache slices ``view``
-    of the subtree at ``path``: this rank's block of each, in place; a
-    leaf that is its view's own tensor (written in place already) is
-    skipped."""
+    :func:`materialising` scope, or the rank's blocks where its split
+    computes them) into the resident cache slices ``view`` of the subtree
+    at ``path``: this rank's block of each, in place; a leaf that is its
+    view's own tensor (written in place already) is skipped."""
     layout = _LAYOUT.get()
-    shardings = None if layout is None else _at(layout.caches, path)
+    shardings = None if layout is None or layout.splits_caches(path) \
+        else _at(layout.caches, path)
     for k, v in view.items():
         n = new[k]
         if n is v:
@@ -452,6 +521,184 @@ def take(table: torch.Tensor, ids: torch.Tensor, *path: str) -> torch.Tensor:
     layout.gathered_bytes += every.numel() * every.element_size()
     owner = (ids // rows)[None, ..., None].expand((1,) + tuple(mine.shape))
     return torch.take_along_dim(every, owner, dim=0)[0]
+
+
+def by_columns(fn, leaf: torch.Tensor, *path: str) -> torch.Tensor:
+    """``fn(leaf)`` for a product whose columns are the last dimension of
+    the param leaf at ``path`` (the logits of ``lm_head``): inside a
+    :func:`materialising` scope whose layout cuts that dimension by
+    ``"model"`` alone, ``fn`` of the rank's column block (gathered over the
+    other axes) with its result's columns gathered along ``"model"``; else
+    ``fn`` of :func:`whole`."""
+    layout = _LAYOUT.get()
+    if layout is None:
+        return fn(leaf)
+    sh = _at(layout.params, path)
+    entry = sh.spec[-1]
+    if not sh.cuts("model") or _names(entry) != ("model",):
+        return fn(whole(leaf, *path))
+    mine = sh.gather(leaf, [a for a in sh.mesh.shape if a != "model"])
+    if mine is not leaf:
+        layout.gathered_bytes += mine.numel() * mine.element_size()
+    out = fn(mine)
+    every = NamedSharding(
+        sh.mesh, PartitionSpec(*[None] * (out.dim() - 1), entry),
+        tuple(out.shape[:-1]) + (out.shape[-1] * sh._ways(entry),)
+    ).gather(out)
+    layout.gathered_bytes += every.numel() * every.element_size()
+    return every
+
+
+# ------------------------------------------------------------------ re-lay
+def _clip(ranges, lo: int, hi: int) -> list[tuple[int, int]]:
+    return [(max(a, lo), min(b, hi)) for a, b in ranges
+            if max(a, lo) < min(b, hi)]
+
+
+def _idx(ranges, offset: int = 0) -> tuple[int, ...]:
+    return tuple(i - offset for a, b in ranges for i in range(a, b))
+
+
+def _index(values: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """``values`` as a long tensor on ``device`` (made at every call: a
+    tensor kept across calls could outlive the fake mode of a dry run)."""
+    return torch.tensor(values, dtype=torch.long, device=device)
+
+
+@functools.lru_cache(maxsize=256)
+def _relay_plan(size: int, need: tuple, rank: int, n: int):
+    """How rank ``rank`` of ``n`` re-lays its contiguous block of a
+    dimension of ``size`` into the columns ``need[rank]`` (sorted disjoint
+    ranges; ``need`` holds every rank's), each column coming from the
+    rank whose block holds it: (the positions in its block it sends each
+    rank, flattened; how many it sends each; how many it receives from
+    each; the positions in its block of its own columns it holds)."""
+    part = size // n
+    lo = rank * part
+    send = [() if q == rank else _idx(_clip(need[q], lo, lo + part), lo)
+            for q in range(n)]
+    recv = tuple(0 if s == rank else
+                 len(_idx(_clip(need[rank], s * part, (s + 1) * part)))
+                 for s in range(n))
+    return (sum(send, ()), tuple(map(len, send)), recv,
+            _idx(_clip(need[rank], lo, lo + part), lo))
+
+
+def _exchange(rows: torch.Tensor, sizes_in, sizes_out, group):
+    """``all_to_all_single`` along dim 0 of ``rows`` -> the rows received
+    (counted in the active layout's ``gathered_bytes``)."""
+    send = rows.contiguous()
+    out = rows.new_empty((sum(sizes_out),) + tuple(rows.shape[1:]))
+    settled(lambda: dist.all_to_all_single(
+        out, send, list(sizes_out), list(sizes_in), group=group), send, out)
+    layout = _LAYOUT.get()
+    if layout is not None:
+        layout.gathered_bytes += out.numel() * out.element_size()
+    return out
+
+
+class _Relay(torch.autograd.Function):
+    """:func:`relay` of a block, along dim 0: forward, the columns each
+    rank needs from this rank's block sent to it, and this rank's
+    assembled in ``need`` order; backward, each received column's
+    gradient sent back to the rank whose block holds it and summed there
+    (a ``B``/``C`` column's over every rank that read it)."""
+
+    @staticmethod
+    def forward(ctx, t, plan, group, rank):
+        send, n_send, recv, keep = plan
+        ctx.plan, ctx.group, ctx.rank, ctx.rows = plan, group, rank, \
+            t.shape[0]
+        got = _exchange(t.index_select(0, _index(send, t.device)), n_send,
+                        recv, group).split(recv)
+        mine = t.index_select(0, _index(keep, t.device))
+        return torch.cat([mine if s == rank else got[s]
+                          for s in range(len(recv))])
+
+    @staticmethod
+    def backward(ctx, grad):
+        send, n_send, recv, keep = ctx.plan
+        sizes = [len(keep) if s == ctx.rank else r
+                 for s, r in enumerate(recv)]
+        parts = grad.split(sizes)
+        back = _exchange(torch.cat([p for s, p in enumerate(parts)
+                                    if s != ctx.rank]), recv, n_send,
+                         ctx.group)
+        out = grad.new_zeros((ctx.rows,) + tuple(grad.shape[1:]))
+        out.index_add_(0, _index(send, grad.device), back)
+        out.index_add_(0, _index(keep, grad.device), parts[ctx.rank])
+        return out, None, None, None
+
+
+def relay(t: torch.Tensor, dim: int, size: int, need: tuple, rank: int,
+          n: int, group) -> torch.Tensor:
+    """The columns ``need[rank]`` (sorted disjoint ``(start, stop)``
+    ranges of a dimension of ``size``; ``need`` holds every rank's) of a
+    leaf of which this rank holds ``t``: its contiguous block of ``size /
+    n`` along ``dim``, or the whole of it.  A block is re-laid by one
+    all-to-all over ``group`` (differentiable: see :class:`_Relay`); the
+    whole of it is sliced."""
+    if t.shape[dim] == size:
+        return t.index_select(dim, _index(_idx(need[rank]), t.device))
+    if t.shape[dim] * n != size:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} is neither {size} "
+                         f"nor its block over {n} ranks")
+    return _Relay.apply(t.movedim(dim, 0), _relay_plan(size, need, rank, n),
+                        group, rank).movedim(0, dim)
+
+
+@functools.lru_cache(maxsize=256)
+def _relay_back_plan(size: int, need: tuple, rank: int, n: int,
+                     blocked: bool):
+    """How rank ``rank`` lays its ``need[rank]`` columns back into its
+    block (``blocked``) or the whole dimension: a column it read comes
+    from itself, every other from the one rank that read it: (the
+    positions in its columns it sends each rank, flattened; how many it
+    sends each; the positions in its block the ranks' columns fill,
+    flattened; how many from each; the positions in its columns and in
+    its block of those it keeps)."""
+    part = size // n if blocked else size
+    lo = rank * part if blocked else 0
+    mine = _idx(need[rank])
+    at = {c: i for i, c in enumerate(mine)}
+    send, fill = [], []
+    for q in range(n):
+        theirs = () if q == rank else _idx(need[q])
+        read = set(theirs)
+        send.append(() if q == rank else tuple(
+            at[c] for c in range(q * part if blocked else 0,
+                                 (q + 1) * part if blocked else size)
+            if c in at and c not in read))
+        fill.append(tuple(c - lo for c in theirs
+                          if lo <= c < lo + part and c not in at))
+    keep = [(at[c], c - lo) for c in range(lo, lo + part) if c in at]
+    if sum(map(len, fill)) + len(keep) != part:
+        raise ValueError("the columns read do not cover the block")
+    return (sum(send, ()), tuple(map(len, send)), sum(fill, ()),
+            tuple(map(len, fill)), tuple(a for a, _ in keep),
+            tuple(b for _, b in keep))
+
+
+def relay_back(y: torch.Tensor, dim: int, size: int, need: tuple,
+               rank: int, n: int, group, blocked: bool) -> torch.Tensor:
+    """The inverse of :func:`relay` for a result computed redundantly
+    where ranks' columns overlap (the conv state: ``B`` and ``C`` on every
+    rank): ``y`` holds this rank's ``need[rank]`` columns along ``dim``;
+    -> this rank's contiguous block of the ``size`` columns (``blocked``),
+    else all of them, each column from the rank that read it, this rank
+    first.  One all-to-all over ``group``; no gradient."""
+    send, n_send, fill, n_fill, kept, keep_at = _relay_back_plan(
+        size, need, rank, n, blocked)
+    rows = y.movedim(dim, 0)
+    dev = y.device
+    got = _exchange(rows.index_select(0, _index(send, dev)), n_send, n_fill,
+                    group)
+    out = rows.new_empty((size // n if blocked else size,)
+                         + tuple(rows.shape[1:]))
+    out.index_copy_(0, _index(fill, dev), got)
+    out.index_copy_(0, _index(keep_at, dev),
+                    rows.index_select(0, _index(kept, dev)))
+    return out.movedim(0, dim)
 
 
 # ---------------------------------------------------------------- constraint

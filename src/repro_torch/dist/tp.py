@@ -24,7 +24,9 @@ token.
   every seam dimension must divide the mesh exactly.
 
 Training sharded along ``"model"`` (``launch/steps.sharded_train_step``)
-enters :func:`training` instead.  There the seams are Megatron's two
+enters :func:`training` instead, and so does a dispatch of the GSPMD
+serving path that splits an SSM mixer by heads
+(``dist.partition.materialising``; there the seams run under no grad).  There the seams are Megatron's two
 autograd operators over the ``"model"`` group: :func:`tp_enter` (the
 identity forward, an all-reduce of the gradient backward) where a
 replicated activation enters a cut product, and :func:`tp_allreduce`
@@ -33,8 +35,10 @@ leave it.  Each acts only on the seams the scope names as cut (the
 rank's params are cut there; elsewhere compute is replicated and the
 seams are the identity).  :func:`model_part` tells model code which part
 of a cut dimension the rank holds (the expert-parallel MoE, the router,
-the vocab-parallel embedding and loss), and :func:`model_max` is the
-loss's max over the vocab shards.
+the vocab-parallel embedding and loss, the SSM mixer's heads) and
+:func:`model_group` over which group, :func:`model_max` is the loss's max
+over the vocab shards, and :func:`sum_over_model` the SSM mixer's norm's
+sum of squares over its channel shards.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from typing import Any, Iterator
 import torch
 import torch.distributed as dist
 
-from repro_torch.dist.collectives import compressed_all_reduce
+from repro_torch.dist.collectives import compressed_all_reduce, settled
 from repro_torch.models.config import ModelConfig
 
 #: Serving tensor-parallel rules (1-D ``("model",)`` mesh), the reference's:
@@ -82,9 +86,9 @@ TP_FAMILIES = ("dense", "moe", "vlm")
 
 #: the seams a training scope may cut (``training``): attention heads,
 #: the dense or expert MLP's hidden dim, the experts (expert-parallel FFN),
-#: the MoE router's expert columns, and the vocab (embedding rows and
-#: lm_head columns)
-TRAIN_SEAMS = ("attn", "mlp", "experts", "router", "vocab")
+#: the MoE router's expert columns, the vocab (embedding rows and
+#: lm_head columns) and the SSM mixer's heads (``models/ssm.py``)
+TRAIN_SEAMS = ("attn", "mlp", "experts", "router", "vocab", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,7 +154,7 @@ class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         g = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, group=ctx.group)
+        settled(lambda: dist.all_reduce(g, group=ctx.group), g)
         return g, None
 
 
@@ -161,7 +165,7 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=group)
+        settled(lambda: dist.all_reduce(out, group=group), out)
         return out
 
     @staticmethod
@@ -192,6 +196,47 @@ def model_part(seam: str) -> tuple[int, int] | None:
     return None if scope is None else (scope.rank, scope.n)
 
 
+def model_group(seam: str):
+    """The ``"model"`` process group of a training scope that cuts
+    ``seam``, else None."""
+    scope = _train_seam(seam)
+    return None if scope is None else scope.group
+
+
+class _SumOverModel(torch.autograd.Function):
+    """A sum over the group both ways: forward, every rank's partial sum
+    summed; backward, every rank's gradient of the sum summed (each rank's
+    sum feeds its own cut products)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        settled(lambda: dist.all_reduce(out, group=group), out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.clone(memory_format=torch.contiguous_format)
+        settled(lambda: dist.all_reduce(g, group=ctx.group), g)
+        return g, None
+
+
+def sum_over_model(x: torch.Tensor, seam: str) -> torch.Tensor:
+    """``x``, a sum over this rank's channels of a dimension that ``seam``
+    cuts (the SSM mixer's gated RMSNorm's sum of squares), summed over the
+    ``"model"`` ranks, forward and backward, under a training scope that
+    cuts ``seam``; else ``x``.  Neither :func:`tp_enter` nor
+    :func:`tp_allreduce`: both its input and its output feed cut
+    compute."""
+    global seams
+    scope = _train_seam(seam)
+    if scope is None:
+        return x
+    seams += 1
+    return _SumOverModel.apply(x, scope.group)
+
+
 def model_max(x: torch.Tensor, seam: str) -> torch.Tensor:
     """The elementwise max of ``x`` over the ``"model"`` ranks of a
     training scope that cuts ``seam`` (no gradient), else ``x``."""
@@ -199,7 +244,8 @@ def model_max(x: torch.Tensor, seam: str) -> torch.Tensor:
     if scope is None:
         return x
     out = x.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=scope.group)
+    settled(lambda: dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                                    group=scope.group), out)
     return out
 
 
@@ -223,7 +269,7 @@ def tp_allreduce(x: torch.Tensor, seam: str = "attn") -> torch.Tensor:
         return compressed_all_reduce(x, scope.group, block=scope.block)
     # all_reduce needs a dense tensor; a product's output already is one
     x = x.contiguous()
-    dist.all_reduce(x, group=scope.group)
+    settled(lambda: dist.all_reduce(x, group=scope.group), x)
     return x
 
 

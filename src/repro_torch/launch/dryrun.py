@@ -243,17 +243,18 @@ def count(step, args, mesh=None) -> dict[str, Any]:
 
 # ============================================================ fake worlds
 @contextlib.contextmanager
-def fake_world(ranks: int) -> Iterator[None]:
-    """This process as rank 0 of a fake world of ``ranks`` ranks (torch's
-    ``"fake"`` backend), destroyed on the way out.  Refuses to start while
-    a process group is initialized: the dry run never joins a real job,
-    and leaves none behind to poison a later one."""
+def fake_world(ranks: int, rank: int = 0) -> Iterator[None]:
+    """This process as rank ``rank`` (default the first) of a fake world of
+    ``ranks`` ranks (torch's ``"fake"`` backend), destroyed on the way
+    out.  Refuses to start while a process group is initialized: the dry
+    run never joins a real job, and leaves none behind to poison a later
+    one."""
     if dist.is_initialized():
         raise RuntimeError("the dry run starts its own fake world, and a "
                            "process group is already initialized here")
     # importing it registers the "fake" backend
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=ranks)
     try:
         yield
@@ -418,12 +419,14 @@ def measure_costs(cfg, shape, mesh, *,
 
 def count_cell(cfg, shape, mesh_shape: tuple[int, ...],
                axes: tuple[str, ...] = ("data", "model"), *,
-               max_len: int | None = None) -> dict[str, float]:
+               max_len: int | None = None, rank: int = 0) -> dict[str, float]:
     """The dry run of one cell of any size on a mesh of ``mesh_shape`` over
-    ``axes``, in a fake world of its ranks: :func:`measure_costs` and the
-    rank's ``param_bytes`` (a prediction to hold a real run to)."""
+    ``axes``, in a fake world of its ranks, as its rank ``rank`` (ranks
+    differ where what a rank moves depends on its place: an SSM mixer's
+    re-lays): :func:`measure_costs` and the rank's ``param_bytes`` (a
+    prediction to hold a real run to)."""
     refuse_kernels(cfg)
-    with fake_world(math.prod(mesh_shape)):
+    with fake_world(math.prod(mesh_shape), rank):
         mesh = fake_mesh(mesh_shape, axes)
         out = measure_costs(cfg, shape, mesh, max_len=max_len)
         out["param_bytes"] = param_bytes(cfg, shape, mesh)

@@ -177,30 +177,37 @@ def _all_reduce_data(x: torch.Tensor, mesh) -> torch.Tensor:
 class ModelSplit:
     """How a rank of a mesh with a ``"model"`` axis runs its step's compute
     split along it (:func:`model_split`): ``cfg``, the rank's local config
-    (its heads, kv heads, hidden dim); ``cut``, the seams whose params the
+    (its heads, kv heads, hidden dim; an SSM mixer reads its heads' share
+    from the scope, ``models/ssm.py``); ``cut``, the seams whose params the
     rank holds cut (``dist.tp.TRAIN_SEAMS``); ``whole``, the paths of
     ``"model"``-cut leaves gathered whole all the same (their compute is
     replicated); ``summed``, the paths of leaves replicated along
     ``"model"`` but read inside a cut region, whose gradients are partial
     and summed over ``"model"``; ``kv``, the kv head this rank's query
     heads map to where the kv heads are fewer than the ranks (the rank
-    reads that head of the replicated ``wk``/``wv``), else None."""
+    reads that head of the replicated ``wk``/``wv``), else None;
+    ``attn``, the path of the attention subtree the seams cut;
+    ``caches``, on the serving path, the cache subtrees (their paths) the
+    rank computes as its blocks."""
 
     cfg: ModelConfig
     cut: frozenset
     whole: frozenset
     summed: frozenset
     kv: int | None
+    attn: tuple[str, ...] = ("blocks", "attn")
+    caches: frozenset = frozenset()
 
     def view(self, tree):
         """The tree the rank's model reads: ``tree`` with ``wk``/``wv``
         narrowed to :attr:`kv`."""
         if self.kv is None:
             return tree
-        attn = tree["blocks"]["attn"]
+        top, leaf = self.attn
+        attn = tree[top][leaf]
         attn = {**attn, **{k: attn[k].narrow(-2, self.kv, 1)
                            for k in ("wk", "wv")}}
-        return {**tree, "blocks": {**tree["blocks"], "attn": attn}}
+        return {**tree, top: {**tree[top], leaf: attn}}
 
 
 #: the leaves each seam cuts, by their path's last two names
@@ -209,56 +216,98 @@ _SEAM_LEAVES = {"attn": {("attn", k) for k in ("wq", "wk", "wv", "wo")},
                 "experts": {("ffn", k) for k in ("w_gate", "w_up",
                                                  "w_down")},
                 "router": {("ffn", "router")},
-                "vocab": {("embed",), ("lm_head",)}}
+                "vocab": {("embed",), ("lm_head",)},
+                "ssm": {("mixer", k) for k in ("in_proj", "conv_w",
+                                               "conv_b", "A_log", "D",
+                                               "dt_bias", "norm",
+                                               "out_proj")}}
+#: an SSM mixer's leaves that lie in contiguous blocks of concatenated
+#: columns, re-laid by heads at use (``partition.relay``)
+RELAID = ("in_proj", "conv_w", "conv_b")
+#: the families whose compute a split covers; the serving path splits
+#: those with SSM mixers only (the others' on the manual path)
+SPLIT_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+SERVE_SPLIT_FAMILIES = ("ssm", "hybrid")
 
 
-def model_split(cfg: ModelConfig, mesh, shardings) -> ModelSplit | None:
+def model_split(cfg: ModelConfig, mesh, shardings, *,
+                serving: bool = False) -> ModelSplit | None:
     """How :func:`sharded_train_step` splits the compute of ``cfg`` along
     ``mesh``'s ``"model"`` axis, the params laid out by ``shardings``, as
     GSPMD does under the reference's rules; None where it replicates it
-    (no ``"model"`` extent, or a family the seams do not cover: ssm,
-    hybrid, enc_dec, padded heads; their leaves are gathered whole).
+    (no ``"model"`` extent, or a family the seams do not cover: enc_dec,
+    padded heads; their leaves are gathered whole).
 
-    * attention: the rank's heads where ``wq`` is cut and the kv heads are
-      cut too or fewer than the ranks and dividing them; else its leaves
-      are gathered whole and its compute replicated (heads that do not
-      divide the ranks);
-    * the dense MLP, or an MoE's experts' hidden dim: the rank's share of
-      it where cut;
+    * an SSM mixer (ssm, and a hybrid's mamba blocks): the rank's heads
+      where the heads divide the ranks (``A_log`` cut), its ``in_proj``
+      and conv re-laid by heads (a leaf the divisibility fallback keeps
+      whole is sliced, and its gradient summed);
+    * attention (a hybrid's shared block's too): the rank's heads where
+      ``wq`` is cut and the kv heads are cut too or fewer than the ranks
+      and dividing them; else its leaves are gathered whole and its
+      compute replicated (heads that do not divide the ranks);
+    * the dense MLP (a hybrid's shared one too), or an MoE's experts'
+      hidden dim: the rank's share of it where cut;
     * an MoE whose experts are cut (they divide the ranks): its router's
       and FFN's experts (expert-parallel), routing replicated;
-    * the embedding and lm_head: the rank's vocab block where cut."""
+    * the embedding and lm_head: the rank's vocab block where cut.
+
+    ``serving`` gives the GSPMD serving path's split (its dispatches run
+    under ``partition.materialising``): only the families with SSM mixers
+    (``SERVE_SPLIT_FAMILIES``), the attention only where its kv heads are
+    cut, and no vocab seam (the embedding is looked up by ``take``, the
+    logits' columns gathered); ``caches`` names the cache subtrees its
+    ranks compute as their blocks."""
     n = mesh.shape.get("model", 1)
-    if n == 1 or cfg.family not in tp_lib.TP_FAMILIES or cfg.padded_heads:
+    families = SERVE_SPLIT_FAMILIES if serving else SPLIT_FAMILIES
+    if n == 1 or cfg.family not in families or cfg.padded_heads:
         return None
-    attn, ffn = shardings["blocks"]["attn"], shardings["blocks"]["ffn"]
     cut, summed, local, kv = set(), set(), {}, None
-    kv_cut = attn["wk"].cuts("model")
-    if attn["wq"].cuts("model") and (kv_cut or n % cfg.n_kv_heads == 0):
-        cut.add("attn")
-        local.update(n_heads=cfg.n_heads // n,
-                     n_kv_heads=cfg.n_kv_heads // n if kv_cut else 1)
-        if not kv_cut:
-            kv = mesh.coord("model") // (n // cfg.n_kv_heads)
-            summed |= {("blocks", "attn", "wk"), ("blocks", "attn", "wv")}
-        if cfg.qk_norm:
-            summed |= {("blocks", "attn", "q_norm"),
-                       ("blocks", "attn", "k_norm")}
-    if cfg.family == "moe" and ffn["router"].cuts("model"):
-        cut |= {"router", "experts"}
-    elif ffn["w_up"].cuts("model"):
-        cut.add("mlp")
-        local["d_ff"] = cfg.d_ff // n
-    if shardings["embed"].cuts("model") and \
+    mixers = {"ssm": ("blocks",), "hybrid": ("groups", "trailing")}.get(
+        cfg.family, ())
+    mixers = [m for m in mixers if m in shardings]
+    if mixers and shardings[mixers[0]]["mixer"]["A_log"].cuts("model"):
+        cut.add("ssm")
+        summed |= {(m, "mixer", k) for m in mixers for k in RELAID
+                   if not shardings[m]["mixer"][k].cuts("model")}
+    top = "shared_attn" if cfg.family == "hybrid" else "blocks"
+    if cfg.family != "ssm":
+        attn, ffn = shardings[top]["attn"], shardings[top]["ffn"]
+        kv_cut = attn["wk"].cuts("model")
+        if attn["wq"].cuts("model") and (
+                kv_cut or (not serving and n % cfg.n_kv_heads == 0)):
+            cut.add("attn")
+            local.update(n_heads=cfg.n_heads // n,
+                         n_kv_heads=cfg.n_kv_heads // n if kv_cut else 1)
+            if not kv_cut:
+                kv = mesh.coord("model") // (n // cfg.n_kv_heads)
+                summed |= {(top, "attn", "wk"), (top, "attn", "wv")}
+            if cfg.qk_norm:
+                summed |= {(top, "attn", "q_norm"), (top, "attn", "k_norm")}
+        if cfg.family == "moe" and ffn["router"].cuts("model"):
+            cut |= {"router", "experts"}
+        elif ffn["w_up"].cuts("model"):
+            cut.add("mlp")
+            local["d_ff"] = cfg.d_ff // n
+    if not serving and shardings["embed"].cuts("model") and \
             shardings["lm_head"].cuts("model"):
         cut.add("vocab")
     covered = set().union(*(_SEAM_LEAVES[c] for c in cut))
     whole = {path for path, sh in _items(shardings)
              if sh.cuts("model") and path[-2:] not in covered
              and path[-1:] not in covered}
-    return ModelSplit(dataclasses.replace(cfg, head_dim=cfg.hd, **local),
-                      frozenset(cut), frozenset(whole), frozenset(summed),
-                      kv)
+    caches = set()
+    if serving:
+        if "ssm" in cut:
+            caches |= {()} if cfg.family == "ssm" else {("mamba",),
+                                                        ("trailing",)}
+        if "attn" in cut:
+            caches.add(("attn",))
+    if cfg.family != "ssm":
+        cfg = dataclasses.replace(cfg, head_dim=cfg.hd, **local)
+    return ModelSplit(cfg, frozenset(cut), frozenset(whole),
+                      frozenset(summed), kv, (top, "attn"),
+                      frozenset(caches))
 
 
 def _gathered_axes(mesh, split: ModelSplit | None,
@@ -284,9 +333,11 @@ def sharded_train_step(params, opt_state, batch, *, cfg: ModelConfig,
       each leaf is gathered over the other axes only (the FSDP ``embed``
       cut over ``"data"``), so a rank holds its block of every leaf that
       ``"model"`` cuts and runs its local config inside
-      ``dist.tp.training``, whose seams sum the partial products.  The
-      families it does not cover gather every leaf whole and replicate
-      their compute along ``"model"``.
+      ``dist.tp.training``, whose seams sum the partial products (an SSM
+      mixer re-lays its ``in_proj`` and conv blocks by heads, and their
+      gradients go back to the blocks).  The families it does not cover
+      gather every leaf whole and replicate their compute along
+      ``"model"``.
     * In ``"split"`` mode (:func:`loss_mode`) the rank runs its slice of
       every microbatch's rows; each slice's loss divides its token sum by
       the whole microbatch's token count (one all-reduce of the counts),
@@ -434,9 +485,11 @@ def prefill_step(params, batch, *, cfg: ModelConfig, max_len: int,
     lcfg = _rows_config(cfg, sh)
     if layout is None:
         layout = serve_layout(cfg, mesh, sh.local_shape[0], max_len)
+    if layout.split is not None:
+        lcfg = _rows_config(layout.split.cfg, sh)
     with partition.materialising(layout):
         logits, caches = M.prefill(params, local, lcfg, max_len=max_len)
-    return logits, partition.local_tree(caches, layout.caches)
+    return logits, layout.blocks_of(caches, layout.caches)
 
 
 def serve_step(params, caches, tokens, *, cfg: ModelConfig, mesh=None,
@@ -454,6 +507,8 @@ def serve_step(params, caches, tokens, *, cfg: ModelConfig, mesh=None,
     if layout is None:
         layout = serve_layout(cfg, mesh, sh.local_shape[0],
                               _cache_len(cfg, caches))
+    if layout.split is not None:
+        cfg = layout.split.cfg
     with partition.materialising(layout):
         return M.decode_step(params, caches, _rows_of(tokens, sh),
                              _rows_config(cfg, sh))
@@ -499,14 +554,17 @@ def serve_layout(cfg: ModelConfig, mesh, rows: int,
     caches of ``max_len``: the params and the caches under
     ``partition.SERVE_RULES``, whose ``"batch"`` is uncut, so a layer's
     gather moves only what the head-like axes cut and never another
-    rank's rows."""
+    rank's rows, and the serving split (:func:`model_split` with
+    ``serving``)."""
+    params = partition.tree_shardings(M.param_logical_axes(cfg), mesh,
+                                      sds_tree=param_sds(cfg),
+                                      rules=partition.SERVE_RULES)
     return partition.ServeLayout(
-        partition.tree_shardings(M.param_logical_axes(cfg), mesh,
-                                 sds_tree=param_sds(cfg),
-                                 rules=partition.SERVE_RULES),
+        params,
         partition.tree_shardings(M.cache_logical_axes(cfg), mesh,
                                  sds_tree=cache_sds(cfg, rows, max_len),
-                                 rules=partition.SERVE_RULES))
+                                 rules=partition.SERVE_RULES),
+        model_split(cfg, mesh, params, serving=True))
 
 
 def _cache_len(cfg: ModelConfig, caches) -> int:

@@ -48,7 +48,10 @@ The serving entry points (:func:`prefill`, :func:`decode_step`,
 ``dist.partition``'s hooks, a layer at a time: on a GSPMD-path serving
 rank (inside ``partition.materialising``) they gather the layer's param
 and cache blocks whole before it runs and keep the rank's block of each
-cache it wrote; elsewhere the hooks hand the tensors back as they are.
+cache it wrote, except what the layout's split computes as blocks (an
+SSM mixer's heads, a hybrid's shared attention and MLP: ``models/ssm.py``),
+and the logits come from the rank's columns of ``lm_head``, gathered;
+elsewhere the hooks hand the tensors back as they are.
 """
 
 from __future__ import annotations
@@ -338,9 +341,11 @@ def embed_inputs(p: Params, inputs: dict[str, torch.Tensor],
 
 def _logits(p: Params, x: torch.Tensor) -> torch.Tensor:
     """The vocab projection (a rank's columns under a training scope that
-    cuts the vocab)."""
-    return nn.dense(partition.whole(p["lm_head"], "lm_head"),
-                    tp.tp_enter(x, "vocab"), x.dtype)
+    cuts the vocab; on a GSPMD serving rank, its block of ``lm_head``'s
+    columns and then the logits' columns gathered)."""
+    x = tp.tp_enter(x, "vocab")
+    return partition.by_columns(lambda w: nn.dense(w, x, x.dtype),
+                                p["lm_head"], "lm_head")
 
 
 def _norm(p: Params, name: str, x: torch.Tensor) -> torch.Tensor:

@@ -79,17 +79,27 @@ keeps only its ``NamedSharding`` blocks of every param and serving-cache
 leaf under ``dist.partition.SERVE_RULES`` (the head-like axes on
 ``"model"``, the slot and page axes whole, so admission, eviction and
 ``set_len`` splice the rank's blocks in place with no collective; a
-dimension that does not divide the mesh stays whole).  Its compute along
-``"model"`` is replicated: each dispatch runs inside
-``partition.materialising``, where the model gathers one layer's param
+dimension that does not divide the mesh stays whole).  Each dispatch runs
+inside ``partition.materialising``.  An ssm or hybrid model's compute is
+split along ``"model"`` as the reference's GSPMD program splits it
+(``launch.steps.model_split`` with ``serving``): each rank runs its local
+config, its SSM mixers over its heads (``in_proj`` and the conv re-laid
+by heads with one all-to-all each, the conv state too, the SSD state its
+heads' block; ``models/ssm.py``) and a hybrid's shared attention and MLP
+over its heads and hidden share where they divide, the seams summing
+the partial products, and its caches stay its blocks throughout.  Every
+other family's compute (enc-dec, padded heads, and an attention family
+sent to this path) is replicated: the model gathers one layer's param
 and cache blocks whole just before the layer runs, drops them after and
 writes back only the rank's block of each cache it updated; a prefill's
 group cache comes out whole and is cut to the rank's block before it is
-spliced in.  Every rank thus computes what one device computes from the
-same bits, and its tokens are the one-device engine's.  Collectives are
-placed differently from the reference's, whose compiler shards the
-compute and places its own: here they are all-gathers of the blocks, a
-layer at a time, and a rank's peak holds its blocks and one layer whole.
+spliced in.  On every family the logits come from the rank's columns of
+``lm_head``, gathered.  Every rank computes what one device computes,
+from the same bits where the compute is replicated, and its tokens are
+the one-device engine's.  Collectives are placed differently from the
+reference's, whose compiler places its own: here they are all-gathers of
+the blocks a layer at a time (a rank's peak holds its blocks and one
+layer whole), the split's all-to-alls and seams.
 ``compressed_collectives`` needs the manual path's seams and is refused
 on this one, as the reference refuses it.
 
@@ -128,6 +138,7 @@ import torch
 
 from repro_torch.core.registry import active_schedule_cache
 from repro_torch.dist import partition, tp
+from repro_torch.launch import steps
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig, check_supported
 from repro_torch.obs import metrics as obs_metrics
@@ -396,7 +407,7 @@ class ContinuousEngine:
         self.tp_path: str | None = None
         self.tp_reason = ""
         self.layout: partition.ServeLayout | None = None
-        pshard = None
+        pshard = split = None
         if mesh is not None:
             self.tp_path, self.tp_reason = _resolve_tp_path(cfg, scfg, mesh)
             if self.tp_path == "shard_map":
@@ -409,11 +420,17 @@ class ContinuousEngine:
                     M.param_logical_axes(cfg), mesh, sds_tree=params,
                     rules=partition.SERVE_RULES)
                 params = partition.local_tree(params, pshard)
+                split = steps.model_split(cfg, mesh, pshard, serving=True)
         elif scfg.compressed_collectives:
             raise ValueError("compressed_collectives requires a serving mesh "
                              "(the seams only exist on the manual TP path)")
         self.params = params
-        self.cfg = cfg = dataclasses.replace(cfg, use_pallas=True)
+        # the caches are allocated from ``alloc_cfg`` (on the GSPMD path
+        # the whole model's, cut to blocks); a split's dispatches run its
+        # rank's local config
+        alloc_cfg = dataclasses.replace(cfg, use_pallas=True)
+        self.cfg = cfg = alloc_cfg if split is None \
+            else dataclasses.replace(split.cfg, use_pallas=True)
         self.capacity = scfg.capacity
         self.device = _device_of(params)
         if mesh is not None and mesh.device != self.device:
@@ -452,7 +469,7 @@ class ContinuousEngine:
             self.pages = PagePool(num_pages, ps, obs=self.obs)
             self.prefix = (PrefixCache(self.pages, obs=self.obs)
                            if scfg.prefix_cache else None)
-            alloc = functools.partial(M.alloc_paged_caches, cfg,
+            alloc = functools.partial(M.alloc_paged_caches, alloc_cfg,
                                       scfg.capacity, ps, num_pages)
             # host-side page tables, (capacity, n_slot_pages) int32 — passed
             # into every paged dispatch; a slot's row is zeroed while free
@@ -463,7 +480,7 @@ class ContinuousEngine:
             self._prefilling: set[int] = set()
         else:
             enc = self._example_extra_shapes.get("enc_embeds")
-            alloc = functools.partial(M.alloc_slot_caches, cfg,
+            alloc = functools.partial(M.alloc_slot_caches, alloc_cfg,
                                       scfg.capacity, scfg.max_len,
                                       enc_len=enc[0] if enc else None)
         if pshard is None:
@@ -474,7 +491,7 @@ class ContinuousEngine:
             cshard = partition.tree_shardings(
                 M.serve_cache_axes(cfg), mesh, sds_tree=whole,
                 rules=partition.SERVE_RULES)
-            self.layout = partition.ServeLayout(pshard, cshard)
+            self.layout = partition.ServeLayout(pshard, cshard, split)
             self.caches = partition.blocks_zeros(whole, cshard, self.device)
         self.graph: StepGraph | None = None
         self.prefill_graphs: PrefillGraphs | None = None
@@ -795,7 +812,7 @@ class ContinuousEngine:
         taken on the group's own shapes, which cut as the slots' do)."""
         if self.layout is None:
             return grp
-        return partition.local_tree(grp, partition.tree_shardings(
+        return self.layout.blocks_of(grp, partition.tree_shardings(
             M.cache_logical_axes(self.cfg), self.mesh, sds_tree=grp,
             rules=partition.SERVE_RULES))
 

@@ -97,3 +97,10 @@ def serve(rank: int, cfg, params_np, tokens_np, max_len: int,
             "tokens": np.stack([first.numpy(), second.numpy()]),
             "tokens_one_device": np.stack([one_first.numpy(),
                                            one_second.numpy()])}
+
+
+def train_and_serve(rank: int, cfg, params_np, batch_np, shapes, tokens_np,
+                    max_len: int, serve_shape) -> tuple[list[dict], dict]:
+    """:func:`train` then :func:`serve` in one job (one start-up)."""
+    return (train(rank, cfg, params_np, batch_np, shapes),
+            serve(rank, cfg, params_np, tokens_np, max_len, serve_shape))

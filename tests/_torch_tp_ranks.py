@@ -21,9 +21,11 @@ from repro_torch.autotune import Staging
 from repro_torch.checkpoint.ckpt import flatten
 from repro_torch.core.cache import ScheduleCache
 from repro_torch.core.registry import registry, schedule_cache
-from repro_torch.dist import collectives, tp
+from repro_torch.dist import collectives, partition, tp
+from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import serve as serve_cli
+from repro_torch.launch import steps
 from repro_torch.models import model as M
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve.engine import ContinuousEngine
@@ -238,3 +240,39 @@ def staged_swap(rank: int, cfg, params_np, prompts, budgets, scfg,
             "resolved": [dict(registry.get(p.kernel_name, store)
                               .schedule_for(json.loads(p.signature)).knobs)
                          for p in puts]}
+
+
+def layer_gathers(rank: int, cfgs: list, tokens_np: np.ndarray,
+                  max_len: int) -> list[dict]:
+    """For each config (one a depth), ``steps.prefill_step`` then
+    ``steps.serve_step`` of ``tokens_np`` over the job's ranks on a
+    ``("model",)`` mesh, from seed-0 weights cut to this rank's blocks,
+    each counted by the dry run's ``StepCounter`` -> per config and step,
+    the bytes its layout recorded as gathered and its collectives' bytes
+    by op."""
+    mesh = mesh_lib.mesh_for((dist.get_world_size(),), ("model",))
+    out = []
+    for cfg in cfgs:
+        layout = steps.serve_layout(cfg, mesh, tokens_np.shape[0], max_len)
+        params = partition.local_tree(M.init_lm(cfg, seed=0, device="cpu"),
+                                      layout.params)
+        batch = {"tokens": torch.from_numpy(tokens_np)}
+        box, res = {}, {}
+
+        def prefill():
+            box["pre"] = steps.prefill_step(params, batch, cfg=cfg,
+                                            max_len=max_len, mesh=mesh,
+                                            layout=layout)
+        counts = dryrun.count(prefill, (params, batch), mesh)
+        res["prefill"] = {"gathered": layout.gathered_bytes,
+                          "collectives": counts["collective_bytes"]}
+        logits, caches = box["pre"]
+        first = logits.argmax(-1).to(torch.int32)
+        layout.gathered_bytes = 0
+        counts = dryrun.count(lambda: steps.serve_step(
+            params, caches, first, cfg=cfg, mesh=mesh, layout=layout),
+            (params, caches, first), mesh)
+        res["decode"] = {"gathered": layout.gathered_bytes,
+                         "collectives": counts["collective_bytes"]}
+        out.append(res)
+    return out

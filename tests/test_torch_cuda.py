@@ -416,6 +416,27 @@ def test_ssd_kernel_with_head_groups_matches_plain(cuda, g, h):
                                rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("h,n", [(5, 128), (40, 128), (7, 64), (56, 64)])
+def test_ssd_kernel_at_the_split_head_counts(cuda, dtype, tol, h, n):
+    """The head counts a rank runs when mamba2's 80 and zamba2's 112 SSD
+    heads split 16 and 2 ways along "model" (5 and 7 leave zero-filled
+    heads in a last head group), in both dtypes, against the plain version
+    on the same rounded inputs; prints the largest per-row error."""
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    args = [torch.randn((1, 256, h, 64), generator=gen, device=cuda),
+            -torch.randn((1, 256, h), generator=gen, device=cuda).abs() * 0.1,
+            torch.randn((1, 256, n), generator=gen, device=cuda) * 0.3,
+            torch.randn((1, 256, n), generator=gen, device=cuda) * 0.3]
+    args = [a.to(dtype) for a in args]
+    got = sk.SsdKernel(q=256, n=n, p=64, grid=h, dtype=dtype)(*args)
+    want = sk_ref.intra_chunk(*[a.float() for a in args])
+    rows = ((got.float() - want).norm(dim=-1) / want.norm(dim=-1)).max()
+    print(f"ssd h{h} n{n} {dtype}: max per-row error {rows.item():.3e}")
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
 def test_ssd_chunked_kernel_on_card_matches_cpu(cuda):
     gen = np.random.default_rng(0)
     x = gen.standard_normal((2, 100, 4, 8)).astype(np.float32)

@@ -11,8 +11,10 @@ numbers of ``TestCollectiveParsing.test_basic_ops``, here from fake
 collectives), ``prefill_step`` and ``serve_step`` on one device, and
 ``--list``.  Then the port's own: one full-width cell end to end in a
 subprocess, the H100 roofline, the refusal of ``use_pallas`` and of a
-live process group, and that ``run_cell`` leaves no process group behind.
-(The counts against real gloo ranks are tests/test_torch_dryrun_ranks.py.)
+live process group, that ``run_cell`` leaves no process group behind,
+and that the SSM mixer's split along ``"model"`` shows in mamba2-2.7b's
+full-size counts on the one-pod (16, 16) mesh.  (The counts against real
+gloo ranks are tests/test_torch_dryrun_ranks.py.)
 """
 
 import contextlib
@@ -375,3 +377,36 @@ def test_probes_extrapolate_to_the_full_count(smoke_configs, arch, shape):
         assert rec["probe"]["flops_rel_diff"] < 1e-6, rec["probe"]
     assert rec["collective_bytes"]["total"] == pytest.approx(sum(
         v["total"] for v in rec["collective_bytes_by_axis"].values()))
+
+
+# --------------------------------------------------- the SSM mixer's split
+#: mamba2-2.7b's counts a device on the one-pod (16, 16) mesh while the
+#: mixer's compute was replicated along "model" (every layer gathered whole
+#: there): train_4k FLOPs and peak, decode_32k's bytes over "model" a step
+REPLICATED = {"train_flops": 1.488e15, "train_peak": 101.0e9,
+              "decode_model_bytes": 4.93e9}
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_the_ssm_split_shows_in_mamba2s_full_size_counts(shape):
+    """At full width, on fake tensors, all 64 layers by the reference's
+    depth probes (``extrapolated_costs``: counted at depths 1 and 2, exact
+    for a homogeneous stack; the full-depth count of train_4k gives the
+    same FLOPs and peak and takes 6 times as long): each rank of train_4k
+    computes its heads (at most a quarter of the replicated FLOPs, a lower
+    peak), and a decode_32k step moves under a tenth of the replicated
+    bytes over "model" (the re-lays' all-to-alls and the seams, no leaf
+    gathered whole)."""
+    cfg = tconfigs.get("mamba2-2.7b")
+    with tdry.fake_world(256):
+        costs = tdry.extrapolated_costs(
+            cfg, tconfigs.SHAPES[shape],
+            tdry.fake_mesh((16, 16), ("data", "model")))
+    if shape == "train_4k":
+        assert costs["flops"] <= REPLICATED["train_flops"] / 4
+        assert costs["peak"] < REPLICATED["train_peak"]
+    else:
+        model = {k.rsplit("/", 1)[1]: v for k, v in costs.items()
+                 if k.startswith("axis/model/")}
+        assert model["all-gather"] == 0 and model["all-to-all"] > 0
+        assert sum(model.values()) < REPLICATED["decode_model_bytes"] / 10

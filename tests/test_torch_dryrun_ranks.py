@@ -6,14 +6,21 @@ tests/_torch_dryrun_ranks.py), qwen3-1.7b's smoke config in float32:
 
 * ``sharded_train_step`` on (2, 1) and on (1, 2);
 * ``prefill_step`` then ``serve_step`` on (1, 2), the params and caches
-  each rank's blocks in the GSPMD serving layout.
+  each rank's blocks in the GSPMD serving layout;
+* the same train step on (1, 2) and serving steps for mamba2's smoke
+  config, whose SSM mixers split their compute along ``"model"``:
+  all-to-alls (the mixer's re-lays) and all-reduces (the seams) there,
+  no all-gather in training.
+  A re-lay moves another number of columns on each rank, so each real
+  rank is held to the dry run counted as that rank of its fake world.
 
 Collective bytes by op and by axis, FLOPs, the ops' bytes, the peak of
 live storage and param bytes a rank must be equal, on both ranks (the
 counter runs with the cycle collector off, after a collection, so a
 storage in a reference cycle is freed at the same moment every run); the
 bytes the serving layout records as gathered equal the all-gathers
-counted; the greedy tokens equal the one-device steps'.
+counted (with the SSM mixer's re-lays, the all-gathers' and the
+all-to-alls'); the greedy tokens equal the one-device steps'.
 """
 
 import dataclasses
@@ -132,3 +139,63 @@ def test_tokens_equal_the_one_device_steps(real):
     _, _, sv = real
     for got in sv:
         np.testing.assert_array_equal(got["tokens"], got["tokens_one_device"])
+
+
+# ------------------------------------------------------ the SSM mixer's split
+SSM_ARCHS = ("mamba2-2.7b",)
+
+
+@pytest.fixture(scope="module")
+def real_ssm():
+    """Per arch: its smoke config, the real ranks' train results on (1, 2)
+    and their serving results on (1, 2)."""
+    out = {}
+    for arch in SSM_ARCHS:
+        cfg = configs.get_smoke(arch)
+        params = _params(cfg)
+        rng = np.random.default_rng(5)
+        toks = rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                 "mask": np.ones((B, S), np.float32)}
+        got = spawn.run(ranks.train_and_serve, 2,
+                        args=(cfg, params, batch, [(1, 2)], toks[:, :-1],
+                              MAX_LEN, SERVE_MESH),
+                        device="cpu", timeout_s=120.0, deadline_s=300.0)
+        out[arch] = (cfg, [g[0] for g in got], [g[1] for g in got])
+    return out
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_train_step_counts_equal_the_real_ranks(real_ssm, arch):
+    cfg, tr, _ = real_ssm[arch]
+    for rank in (0, 1):
+        want, pbytes = _dry(cfg, ShapeSpec("smoke", "train", S, B), (1, 2),
+                            rank=rank)
+        assert _same(_flat(tr[rank][0]["counts"], ranks.AXES), want), rank
+        assert tr[rank][0]["param_bytes"] == pbytes
+    assert tr[0][0]["loss"] == tr[1][0]["loss"]
+    assert want["axis/model/all-gather"] == 0
+    assert want["axis/model/all-to-all"] > 0
+    assert want["axis/model/all-reduce"] > 0
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_prefill_and_serve_counts_equal_the_real_ranks(real_ssm, arch):
+    cfg, _, sv = real_ssm[arch]
+    for rank in (0, 1):
+        pre, pbytes = _dry(cfg, ShapeSpec("smoke", "prefill", S, B),
+                           SERVE_MESH, max_len=MAX_LEN, rank=rank)
+        dec, _ = _dry(cfg, ShapeSpec("smoke", "decode", MAX_LEN, B),
+                      SERVE_MESH, rank=rank)
+        got = sv[rank]
+        assert _same(_flat(got["prefill"], ranks.AXES), pre), rank
+        assert _same(_flat(got["decode"], ranks.AXES), dec), rank
+        assert got["param_bytes"] == pbytes
+        # the layout's own record: the all-gathers' and the re-lays'
+        for step in ("prefill", "decode"):
+            coll = got[step]["collective_bytes"]
+            assert coll["all-to-all"] > 0
+            assert got[f"{step}_gathered"] == coll["all-gather"] \
+                + coll["all-to-all"]
+    np.testing.assert_array_equal(sv[0]["tokens"], sv[0]["tokens_one_device"])
+    np.testing.assert_array_equal(sv[1]["tokens"], sv[0]["tokens"])

@@ -11,10 +11,14 @@ same weights), on the smoke variants of mamba2 (ssm), zamba2 (hybrid, with
 a trailing block) and seamless (enc-dec, each request its own context), on
 padded heads (both engines), and on a config whose 2 kv heads do not
 divide 4 ranks (kept whole: the divisibility fallback; at 2 ranks "auto"
-takes the manual path).  ``compressed_collectives`` is refused off the
-manual path, and a promotion staged on the first rank (``--autotune`` on a
-mesh) swaps on every rank at the same step with tokens unchanged.  One
-job per mesh width runs every case."""
+takes the manual path).  mamba2's and zamba2's runs split their SSM
+mixers' heads (and zamba2's shared block) along ``"model"``; their
+tokens are also the JAX package's one-device engine's, and one mamba2
+layer's re-lays in a dispatch move no more than the columns and channels
+its heads read, with no leaf gathered whole.  ``compressed_collectives``
+is refused off the manual path, and a promotion staged on the first rank
+(``--autotune`` on a mesh) swaps on every rank at the same step with
+tokens unchanged.  One job per mesh width runs every case."""
 
 import concurrent.futures
 import dataclasses
@@ -38,6 +42,7 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E40
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.convert import (params_from_numpy,  # noqa: E402
                                         params_to_numpy)
@@ -65,6 +70,8 @@ CASES = {
     "kv_fallback": (tconfigs.get_smoke("qwen3-1.7b"), BOTH, "auto"),
 }
 ORDERS = ("fifo", "reversed")
+#: the cases whose SSM mixers split their heads along "model"
+SSM_NAMES = ("mamba2", "zamba2")
 WIDTHS = (2, 4)
 TIMEOUT_S, DEADLINE_S = 30.0, 240.0
 
@@ -106,10 +113,12 @@ def _serve_1dev(params, cfg, scfg, reqs, order):
     return {i: got[u].tolist() for u, i in uid_to_idx.items()}
 
 
-def _jax_dense(params_np, reqs):
-    """The JAX package's one-device ContinuousEngine on the dense case."""
+def _jax_engine(cfg, params_np, reqs):
+    """The JAX package's one-device ContinuousEngine on a contiguous
+    case's config and weights, its requests in order."""
     eng = jengine.ContinuousEngine(
-        jax.tree.map(jnp.asarray, params_np), JConfig(**DENSE).validate(),
+        jax.tree.map(jnp.asarray, params_np),
+        JConfig(**dataclasses.asdict(cfg)).validate(),
         jengine.ServeConfig(max_len=48, capacity=3))
     uids = [eng.submit(p, b).uid for p, b, _ in reqs]
     got = eng.run(max_steps=2000)
@@ -154,8 +163,8 @@ def served():
         one = {(e, o): _serve_1dev(params, cfg, _scfg(e), reqs, o)
                for e, o in _runs(name)}
         cases[name] = {"cfg": cfg, "requests": reqs, "one_device": one}
-        if name == "dense":
-            cases[name]["jax"] = _jax_dense(params_np, reqs)
+        if name in ("dense",) + SSM_NAMES:
+            cases[name]["jax"] = _jax_engine(cfg, params_np, reqs)
         payload.append({"cfg": cfg, "params": params_np, "requests": reqs,
                         "example_extra": reqs[0][2],
                         "runs": [(_scfg(e, tp_mode), o)
@@ -211,6 +220,50 @@ def test_dense_tokens_equal_the_jax_engine(served, n):
     for runs in _per_rank(served, "dense", n):
         for run in runs:
             assert run["tokens"] == want
+
+
+@pytest.mark.parametrize("n", WIDTHS)
+@pytest.mark.parametrize("name", SSM_NAMES)
+def test_ssm_tokens_equal_the_jax_engine(served, name, n):
+    """Every run of mamba2's and zamba2's smoke configs, their mixers
+    split by heads, gives the JAX package's one-device engine's tokens."""
+    want = served[0][name]["jax"]
+    for runs in _per_rank(served, name, n):
+        for run in runs:
+            assert run["tokens"] == want
+
+
+def test_an_ssm_layer_gathers_only_what_its_heads_read():
+    """mamba2's smoke config at depths 1 and 2 over 2 ranks: the second
+    layer adds no all-gather to a prefill or a decode step (no leaf of it
+    is gathered whole, the logits' gather is once a dispatch), and what it
+    adds to the layout's gathered bytes (its re-lays' all-to-alls) is at
+    most its rank's ``in_proj`` columns and conv channels (``B`` and ``C``
+    in both) and, decoding, its conv state there and back: under its
+    whole ``in_proj``."""
+    base = tconfigs.get_smoke("mamba2-2.7b")
+    cfgs = [dataclasses.replace(base, n_layers=k) for k in (1, 2)]
+    rng = np.random.default_rng(2)
+    rows, max_len = 2, 16
+    tokens = rng.integers(0, base.vocab, (rows, 8)).astype(np.int32)
+    got = spawn.run(ranks.layer_gathers, 2, args=(cfgs, tokens, max_len),
+                    device="cpu", timeout_s=60.0, deadline_s=120.0)
+    cols, chans = ssm.head_columns(base, 2)
+    elt = 4                                  # float32 smoke weights
+    d, w = base.d_model, base.conv_width
+    whole_in_proj = d * ssm.mixer_shapes(base)["in_proj"][1] * elt
+    for rank, (one, two) in enumerate(got):
+        width = [sum(b - a for a, b in r[rank]) for r in (cols, chans)]
+        weights = (d * width[0] + (w + 1) * width[1]) * elt
+        state = 2 * rows * (w - 1) * width[1] * elt
+        for step, bound in (("prefill", weights + state // 2),
+                            ("decode", weights + state)):
+            layer = two[step]["gathered"] - one[step]["gathered"]
+            assert two[step]["collectives"]["all-gather"] == \
+                one[step]["collectives"]["all-gather"], (rank, step)
+            assert 0 < layer <= bound < whole_in_proj, (rank, step, layer)
+            assert layer == two[step]["collectives"]["all-to-all"] \
+                - one[step]["collectives"]["all-to-all"]
 
 
 @pytest.mark.parametrize("name,n", [

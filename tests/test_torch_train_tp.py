@@ -16,10 +16,16 @@ tests/_torch_train_tp_ranks.py):
   replicated, and the first moment, gathered whole, within 2e-4 a leaf of
   the one-device step's (``steps.train_step``) from the same weights,
   which tests/test_torch_train.py holds to the reference;
+* mamba2's and zamba2's smoke configs (ssm, and hybrid with its shared
+  attention and MLP) on (1, 2) and (2, 2), mamba2 at ``d_model`` 96 (6
+  SSM heads, 3 a rank) on (1, 2) and at ``ssm_state`` 15 on (1, 4)
+  (``in_proj`` and the conv whole), held the same ways, and their first
+  moments also within 2e-4 a leaf of the reference's own one-device
+  ``repro.launch.steps.train_step`` on the same numpy weights and batch;
 * which seams :func:`~repro_torch.launch.steps.model_split` cuts, and
   where it falls back: kv heads fewer than the ranks read their query
   heads' kv head; heads that do not divide the ranks gather the attention
-  whole; the ssm family splits nothing.
+  whole; the enc-dec family and padded heads split nothing.
 """
 
 import dataclasses
@@ -46,13 +52,21 @@ import _torch_train_tp_ranks as ranks  # noqa: E402
 REL = 2e-4
 ARCHS = ("qwen3-1.7b", "dbrx-132b", "llava-next-34b")
 MESHES = ((1, 2), (1, 4))
+#: (arch, smoke overrides, mesh) of the SSM mixer's cases: d_model 96 gives
+#: 6 SSM heads, an odd 3 a rank at 2 ranks; ssm_state 15 leaves in_proj's
+#: 550 columns and the conv's 286 channels whole at 4 ranks (sliced at
+#: use, their gradients summed) while its 8 heads are cut
+SSM_CASES = [(a, {}, m) for a in ("mamba2-2.7b", "zamba2-7b")
+             for m in ((1, 2), (2, 2))] + \
+    [("mamba2-2.7b", {"d_model": 96}, (1, 2)),
+     ("mamba2-2.7b", {"ssm_state": 15}, (1, 4))]
 #: (mask, logits_microbatch, mesh) of the cross-entropy cases
 XENT = [(m, mb, mesh) for mesh in MESHES for m in (False, True)
         for mb in (0, 4)]
 
 
-def _cfg(arch):
-    return configs.get_smoke(arch)
+def _cfg(arch, **over):
+    return configs.get_smoke(arch, **over)
 
 
 def _batch(cfg):
@@ -107,12 +121,19 @@ def test_vocab_parallel_xent_is_the_one_device_xent(xent_runs, i):
 
 
 # ---------------------------------------------------------- sharded steps
+#: every case of the sharded steps: (arch, smoke overrides, mesh)
+STEP_CASES = [(a, {}, m) for a in ARCHS for m in MESHES] + SSM_CASES
+CASE_IDS = [f"{a}{''.join(f'-{k}{v}' for k, v in o.items())}-{m[0]}x{m[1]}"
+            for a, o, m in STEP_CASES]
+
+
 @pytest.fixture(scope="module")
 def stepped():
-    """(one-device results by arch, the ranks' results by case)."""
-    one, cases = {}, []
-    for arch in ARCHS:
-        cfg = _cfg(arch)
+    """(one-device results by case, the cases, the ranks' results by
+    case)."""
+    one, cases = [], []
+    for arch, over, mesh in STEP_CASES:
+        cfg = _cfg(arch, **over)
         params = M.init_lm(cfg, seed=0, device="cpu", dtype=torch.float32)
         batch = _batch(cfg)
         p = M.map_params(lambda _, t: t.clone(), params)
@@ -120,42 +141,72 @@ def stepped():
         tb = {k: torch.as_tensor(v) for k, v in batch.items()}
         counted = dryrun.count(lambda: steps.train_step(
             p, o, tb, cfg=cfg, opt_cfg=adamw.OptConfig()), (p, o, tb))
-        one[arch] = {"mu": {k: v.numpy() for k, v in
-                            steps._items(o["mu"])},
-                     "flops": counted["flops"]}
-        for mesh in MESHES:
-            cases.append({"arch": arch, "cfg": cfg, "mesh": mesh,
-                          "params": params_to_numpy(params),
-                          "batch": batch})
+        one.append({"mu": {k: v.numpy() for k, v in
+                           steps._items(o["mu"])},
+                    "flops": counted["flops"]})
+        cases.append({"arch": arch, "cfg": cfg, "mesh": mesh,
+                      "params": params_to_numpy(params), "batch": batch})
     got = spawn.run(ranks.counted_steps, 4, args=(cases,), device="cpu",
                     timeout_s=120, deadline_s=400)
     return one, cases, got
 
 
-CASE_IDS = [f"{a}-{m[0]}x{m[1]}" for a in ARCHS for m in MESHES]
-
-
-@pytest.mark.parametrize("i", range(len(ARCHS) * len(MESHES)), ids=CASE_IDS)
+@pytest.mark.parametrize("i", range(len(STEP_CASES)), ids=CASE_IDS)
 def test_no_leaf_is_gathered_along_model(stepped, i):
     one, cases, got = stepped
     case = cases[i]
     n = case["mesh"][1]
     inside = [g[i] for g in got if g[i] is not None]
-    assert len(inside) == n
+    assert len(inside) == case["mesh"][0] * n
     for r in inside:
         by_axis = r["counts"]["collective_bytes_by_axis"]
         assert by_axis["model"]["all-gather"] == 0, by_axis
         assert by_axis["model"]["all-reduce"] > 0
         assert r["whole"] == []
-        assert r["counts"]["flops"] < one[case["arch"]]["flops"] \
-            * (0.62 if n == 2 else 0.36)
+        assert r["counts"]["flops"] < one[i]["flops"] \
+            * (0.62 if n == 2 else 0.36) / case["mesh"][0]
     assert len({r["loss"] for r in inside}) == 1
 
 
-@pytest.mark.parametrize("i", range(len(ARCHS) * len(MESHES)), ids=CASE_IDS)
+@pytest.mark.parametrize("i", range(len(STEP_CASES)), ids=CASE_IDS)
 def test_sharded_step_is_the_one_device_step(stepped, i):
     one, cases, got = stepped
-    want = {"/".join(k): v for k, v in one[cases[i]["arch"]]["mu"].items()}
+    want = {"/".join(k): v for k, v in one[i]["mu"].items()}
+    mu = got[0][i]["mu"]
+    assert sorted(mu) == sorted(want)
+    errs = {k: float(np.max(np.abs(mu[k] - want[k]))
+                     / (np.max(np.abs(want[k])) + 1e-12)) for k in want}
+    assert max(errs.values()) < REL, errs
+
+
+#: the SSM cases held to the reference too: each config's first, on (1, 2)
+REFERENCE_CASES = [i for i, (_, _, m) in enumerate(STEP_CASES)
+                   if STEP_CASES[i] in SSM_CASES and m == (1, 2)]
+
+
+@pytest.mark.parametrize("i", REFERENCE_CASES,
+                         ids=[CASE_IDS[i] for i in REFERENCE_CASES])
+def test_ssm_sharded_step_is_the_reference_step(stepped, i):
+    """mamba2's, zamba2's and the odd override's first moment after one
+    sharded step on (1, 2), gathered whole, is the JAX package's
+    one-device ``train_step``'s from the same numpy weights and batch,
+    within 2e-4 of each leaf's largest entry (the other meshes are held to
+    the port's one-device step, which is the same for every mesh).  The
+    reference runs without remat (the same math; its remat's compile takes
+    ~19 s a config on the CPU)."""
+    jax = pytest.importorskip("jax")
+    from repro.launch import steps as jsteps
+    from repro.models.config import ModelConfig as JConfig
+    from repro.optim import adamw as jadamw
+    _, cases, got = stepped
+    case = cases[i]
+    jp = jax.tree.map(jax.numpy.asarray, case["params"])
+    _, opt, _ = jsteps.train_step(
+        jp, jadamw.init_opt_state(jp),
+        {k: jax.numpy.asarray(v) for k, v in case["batch"].items()},
+        cfg=JConfig(**{**dataclasses.asdict(case["cfg"]), "remat": False}),
+        opt_cfg=jadamw.OptConfig())
+    want = {"/".join(k): np.asarray(v) for k, v in steps._items(opt["mu"])}
     mu = got[0][i]["mu"]
     assert sorted(mu) == sorted(want)
     errs = {k: float(np.max(np.abs(mu[k] - want[k]))
@@ -165,13 +216,18 @@ def test_sharded_step_is_the_one_device_step(stepped, i):
 
 def test_the_seams_each_config_cuts(stepped):
     _, cases, got = stepped
-    cut = {(c["arch"], c["mesh"]): got[0][i]["cut"]
+    cut = {(c["arch"], c["cfg"].d_model, c["mesh"]): got[0][i]["cut"]
            for i, c in enumerate(cases)}
     # dbrx smoke: 4 experts cut over 2 and 4 ranks (expert-parallel)
-    assert cut["dbrx-132b", (1, 4)] == ["attn", "experts", "router",
-                                        "vocab"]
+    assert cut["dbrx-132b", 128, (1, 4)] == ["attn", "experts", "router",
+                                             "vocab"]
     for arch in ("qwen3-1.7b", "llava-next-34b"):
-        assert cut[arch, (1, 4)] == ["attn", "mlp", "vocab"]
+        assert cut[arch, 128, (1, 4)] == ["attn", "mlp", "vocab"]
+    # the SSM mixer's heads; a hybrid's shared block as a dense one's
+    for d in (128, 96):
+        assert cut["mamba2-2.7b", d, (1, 2)] == ["ssm", "vocab"]
+    assert cut["zamba2-7b", 128, (1, 2)] == ["attn", "mlp", "ssm", "vocab"]
+    assert cut["mamba2-2.7b", 128, (1, 4)] == ["ssm", "vocab"]
     local = got[0][next(i for i, c in enumerate(cases)
                         if c["arch"] == "qwen3-1.7b" and c["mesh"] == (1, 4))]
     # 4 heads over 4 ranks, 2 kv heads shared: one of each a rank
@@ -211,12 +267,34 @@ def test_model_split_falls_back_where_a_dim_does_not_divide(kw, cut, whole):
         assert split.kv == 1 and split.cfg.n_kv_heads == 1
 
 
+@pytest.mark.parametrize("over,mesh,cut,whole,summed", [
+    # 8 heads over 4 ranks, every mixer leaf cut: nothing gathered whole
+    ({}, (1, 4), {"ssm", "vocab"}, set(), set()),
+    # 6 heads over 4 ranks do not divide: no "ssm" seam, and the mixer's
+    # leaves that are cut (its inner channels) are gathered whole
+    ({"d_model": 96}, (1, 4), {"vocab"},
+     {f"blocks/mixer/{k}" for k in ("conv_w", "conv_b", "norm",
+                                    "out_proj")}, set()),
+    # the heads divide but in_proj's columns and the conv's channels do
+    # not: those stay whole, are sliced at use and their gradients summed
+    ({"ssm_state": 15}, (1, 4), {"ssm", "vocab"}, set(),
+     {f"blocks/mixer/{k}" for k in ("in_proj", "conv_w", "conv_b")}),
+])
+def test_ssm_split_falls_back_where_a_dim_does_not_divide(over, mesh, cut,
+                                                          whole, summed):
+    cfg = _cfg("mamba2-2.7b", **over)
+    fake = _FakeMesh(mesh)
+    split = steps.model_split(cfg, fake, steps.param_shardings(cfg, fake))
+    assert set(split.cut) == cut
+    assert {"/".join(p) for p in split.whole} == whole
+    assert {"/".join(p) for p in split.summed} == summed
+
+
 def test_families_the_seams_do_not_cover_split_nothing():
     mesh = _FakeMesh((1, 4))
-    for arch in ("mamba2-2.7b", "zamba2-7b", "seamless-m4t-large-v2"):
-        cfg = _cfg(arch)
-        assert steps.model_split(
-            cfg, mesh, steps.param_shardings(cfg, mesh)) is None
+    cfg = _cfg("seamless-m4t-large-v2")
+    assert steps.model_split(cfg, mesh,
+                             steps.param_shardings(cfg, mesh)) is None
     cfg = dataclasses.replace(_cfg("qwen3-1.7b"), padded_heads=8)
     assert steps.model_split(cfg, mesh,
                              steps.param_shardings(cfg, mesh)) is None

@@ -10,9 +10,11 @@ Prints the card's name and power limit, then one JSON line per rank:
 ``init_device_mesh("cuda")``, and ``all_reduce_ms`` at (8, 1, 2048) and
 (1, 384, 2048) bf16: the mean of 20 calls after 3, host clock around a
 synchronized loop.  Then what sharded training uses: ``ok``/``err`` of
-``reduce_scatter``, ``reduce_scatter_tensor`` and
-``all_gather_into_tensor`` on CUDA tensors, and
-``bulk_ms``: all-gather (list form) and all-reduce of 256 MB and 1 GB
+``reduce_scatter``, ``reduce_scatter_tensor``,
+``all_gather_into_tensor`` and ``all_to_all_single`` (uneven splits,
+float32 and bfloat16) on CUDA tensors, and
+``bulk_ms``: all-gather (list form), all-reduce and all-to-all (even
+splits) of 256 MB and 1 GB
 float32 and bfloat16 buffers, the mean of 2 calls after 1, with the rate
 in GB/s of buffer bytes a rank; each rank prints these at once.  Last,
 ``send``/``recv`` of a CPU tensor and of a CUDA tensor, and one more line
@@ -128,11 +130,28 @@ def _rank(rank: int, n: int) -> dict:
     _trial(out, "reduce_scatter_tensor", reduce_scatter_tensor)
     _trial(out, "all_gather_into_tensor", all_gather_into_tensor)
 
+    def all_to_all_single(dtype):
+        # uneven splits, nothing sent to itself: rank r sends r + q + 1
+        # rows of 3 to each rank q != r (the SSM mixer's re-lay)
+        ins = [0 if q == rank else rank + q + 1 for q in range(n)]
+        outs = [0 if s == rank else s + rank + 1 for s in range(n)]
+        x = torch.full((sum(ins), 3), rank + 1.0, dtype=dtype, device=dev)
+        y = torch.empty((sum(outs), 3), dtype=dtype, device=dev)
+        dist.all_to_all_single(y, x, outs, ins)
+        return y[:, 0].float().tolist()
+
+    for dt in (torch.float32, torch.bfloat16):
+        _trial(out, f"all_to_all_single_{dt}",
+               lambda dt=dt: all_to_all_single(dt))
+
     def bulk(op, nbytes, dtype):
         x = torch.ones(nbytes // dtype.itemsize, dtype=dtype, device=dev)
         if op == "all_gather":
             parts = [torch.empty_like(x) for _ in range(n)]
             call = lambda: dist.all_gather(parts, x)   # noqa: E731
+        elif op == "all_to_all":
+            y = torch.empty_like(x)
+            call = lambda: dist.all_to_all_single(y, x)  # noqa: E731
         else:
             call = lambda: dist.all_reduce(x)          # noqa: E731
         call()
@@ -147,7 +166,7 @@ def _rank(rank: int, n: int) -> dict:
         return {"ms": ms, "gb_s": nbytes / ms / 1e6}
 
     out["bulk_ms"] = {}
-    for op in ("all_gather", "all_reduce"):
+    for op in ("all_gather", "all_reduce", "all_to_all"):
         for nbytes in (256 << 20, 1 << 30):
             for dt in (torch.float32, torch.bfloat16):
                 key = f"{op}_{nbytes >> 20}MB_{dt}"

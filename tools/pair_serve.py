@@ -8,6 +8,8 @@ so that host-clock numbers are compared within one machine and one call.
         --tree this=.
     python3 tools/pair_serve.py host --tree parent=build/parent \\
         --tree this=. --order this,parent,parent,this
+    python3 tools/pair_serve.py gspmd --tree parent=build/parent \\
+        --tree this=. --order parent,this,this,parent
 
 Modes:
 
@@ -19,6 +21,12 @@ Modes:
 * ``count``: on the CPU, the ATen ops that the same three engines dispatch
   to serve four requests at the smoke width, in total and by op.  The ops
   the host issues depend on neither the device nor the width.
+* ``gspmd``: each run calls its checkout's ``chip_smoke`` ``serve_gspmd``
+  rank function on 2 ranks sharing the card over gloo (mamba2-2.7b at
+  full width, cut as that checkout cuts it, the GSPMD path) and prints
+  each rank's decode step p50, GB gathered a dispatch, wall, peak and
+  tokens.  Needs a CUDA card; the run's script is written to the
+  checkout's ``build/`` (a rank process imports it by path).
 * ``host``: on the CPU, qwen3-1.7b's paged engine at the smoke width and
   its full 28 layers, float32, serving the ``count`` prompts three times
   over with 16 new tokens each, on one thread: the p50 of
@@ -132,16 +140,42 @@ print(json.dumps({{"decode_step_p50_ms": float(np.median(us)) / 1e3,
                   "decode_steps": len(us), "wall_s": wall}}))
 """
 
+GSPMD = """
+import json, sys
+sys.path.insert(0, {root!r})
+import chip_smoke as cs
+
+KEEP = ("decode_step_p50_ms", "gathered_gb_per_dispatch", "wall_s",
+        "peak_mem_gb", "tokens")
+
+
+def rank(r):
+    out = cs._serve_gspmd_rank(cs._tp_rank_setup(cs.MESH_RANKS))
+    return {{k: out[k] for k in KEEP}}
+
+
+if __name__ == "__main__":
+    print(json.dumps({{"ranks": cs.spawn.run(
+        rank, cs.MESH_RANKS, device="cuda", timeout_s=cs.TP_TIMEOUT_S,
+        deadline_s=cs.MESH_DEADLINE_S)}}))
+"""
+
 KEEP = ("tokens_per_s", "decode_step_p50_ms", "ttft_p50_ms", "ttft_p99_ms",
         "wall_s")
 
 
 def run(mode: str, root: Path) -> dict:
-    code = (SERVE.format(root=str(root)) if mode == "serve"
-            else {"count": COUNT, "host": HOST}[mode].format(
-                src=str(root / "src")))
-    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, cwd=root)
+    if mode == "gspmd":
+        script = root / "build" / "pair_gspmd.py"
+        script.parent.mkdir(exist_ok=True)
+        script.write_text(GSPMD.format(root=str(root)))
+        cmd = [sys.executable, str(script)]
+    else:
+        code = (SERVE.format(root=str(root)) if mode == "serve"
+                else {"count": COUNT, "host": HOST}[mode].format(
+                    src=str(root / "src")))
+        cmd = [sys.executable, "-c", code]
+    r = subprocess.run(cmd, capture_output=True, text=True, cwd=root)
     lines = [json.loads(x) for x in r.stdout.splitlines()
              if x.startswith("{")]
     if r.returncode or not lines:
@@ -154,7 +188,7 @@ def run(mode: str, root: Path) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("serve", "count", "host"))
+    ap.add_argument("mode", choices=("serve", "count", "host", "gspmd"))
     ap.add_argument("--tree", action="append", required=True,
                     help="label=path of a checkout (repeat)")
     ap.add_argument("--order", default=None,
