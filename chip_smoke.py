@@ -751,7 +751,9 @@ def phase_flash(gen) -> dict:
            "max_abs_err_bf16": worst[BF16], "timed_bf16_causal": timed,
            "timed_f32_causal": timed_f32,
            "timed_bf16_serve_shapes": flash_serve_shapes(gen),
-           "timed_bf16_encoder": encoder}
+           "timed_bf16_encoder": encoder,
+           "timed_bf16_encoder_rank": flash_encoder_shape(
+               gen, FLASH_ENCODER_RANK_SHAPE)}
     emit("flash_attention", **out)
     return {**out, **timed["b4_s128"], "max_abs_err": worst[BF16],
             "f32": {**timed_f32["b4_s128"], "max_abs_err": worst[F32]},
@@ -882,15 +884,19 @@ def flash_serve_shapes(gen) -> dict:
 
 #: bf16 bidirectional flash at seamless-m4t's encoder: (b, hq, hkv, s, d)
 FLASH_ENCODER_SHAPE = (1, 16, 16, 4096, 64)
+#: the same at a rank's heads when the encoder's split along "model" over
+#: the mesh serving job's 2 ranks (8 of 16)
+FLASH_ENCODER_RANK_SHAPE = (1, 8, 8, 4096, 64)
 
 
-def flash_encoder_shape(gen) -> dict:
+def flash_encoder_shape(gen, shape=FLASH_ENCODER_SHAPE) -> dict:
     """The bidirectional kernel through the model's entry point at the
-    encoder's shape (MHA, 4,096 frames, head_dim 64), bf16, against its
-    plain version, the bound and SDPA.  Each row's relative error must be
+    encoder's ``shape`` (b, hq, hkv, frames, head_dim: MHA, 4,096 frames,
+    head_dim 64, all 16 heads or a rank's 8), bf16, against its plain
+    version, the bound and SDPA.  Each row's relative error must be
     within ``ROW_RTOL``, and the call with the last key tile zeroed must
     fail that check."""
-    b, hq, hkv, s, d = FLASH_ENCODER_SHAPE
+    b, hq, hkv, s, d = shape
     q = _randn((b, hq, s, d), BF16, gen)
     k = _randn((b, hkv, s, d), BF16, gen)
     v = _randn((b, hkv, s, d), BF16, gen)
@@ -1104,10 +1110,13 @@ def phase_ssd(gen) -> dict:
 def ssd_split_heads(gen) -> dict:
     """The SSD at ``SSD_SPLIT_SHAPES``, float32 and bfloat16, against its
     plain version on the same (rounded) inputs in float32: each dtype's
-    tolerance, the largest per-row error and the kernel's head groups."""
+    tolerance, the largest per-row error and the kernel's head groups;
+    its time (CUDA events over 50 launches) beside the float32 bound of
+    ``ssd_bound_ms``."""
     out = {}
     for name, shape in SSD_SPLIT_SHAPES.items():
         args = ssd_inputs(*shape, gen)
+        bound_ms, bound_by = ssd_bound_ms(*shape)
         for dt in (F32, BF16):
             mine = [a.to(dt) for a in args]
             kern = ssd_kernel(ssd_static(*shape, dtype=dt))
@@ -1119,7 +1128,9 @@ def ssd_split_heads(gen) -> dict:
                 "grid": list(kern.grid(g, q, h, kern.br)),
                 "max_abs_err": compare(got, want, dt, f"ssd {name} {dt}"),
                 "max_row_rel_err": row_rel_err(got, want),
-                "max_abs_want": want.abs().max().item()}
+                "max_abs_want": want.abs().max().item(),
+                "ms": cuda_ms(lambda: kern(*mine)),
+                "bound_ms": bound_ms, "bound_by": bound_by}
     return out
 
 
@@ -1601,9 +1612,9 @@ def phase_serve(params, cfg) -> dict:
 
 #: the tensor-parallel phases' mesh widths: serve_tp's, differential_tp's
 TP_SERVE, TP_DIFF = 2, (2, 4)
-#: serve_tp's depth: qwen3-1.7b's full width at 7 of its 28 layers, so
+#: serve_tp's depth: qwen3-1.7b's full width at 4 of its 28 layers, so
 #: the script keeps its time as its phases grow
-TP_SERVE_LAYERS = 7
+TP_SERVE_LAYERS = 4
 #: seconds a rank of a tensor-parallel phase may wait in one collective,
 #: and the whole job may take
 TP_TIMEOUT_S, TP_DEADLINE_S = 120.0, 400.0
@@ -2973,8 +2984,47 @@ GSPMD_REPLICATED = {"decode_step_p50_ms": 2281.0, "source": "PERF.md 5"}
 def _gspmd_cfg():
     return dataclasses.replace(configs.get("mamba2-2.7b"),
                                n_layers=GSPMD_LAYERS)
-#: the job that runs serve_gspmd, differential_gspmd and autotune_tp: its
-#: ranks, and the seconds it may take in all
+
+
+#: serve_gspmd_encdec: seamless-m4t-large-v2 at full width, cut to
+#: serve_encdec's depth (``SERVE_DEPTH``), bf16, on the contiguous engine
+#: with 4 slots: the first of ``_encdec_requests`` (two of 8 tokens, one
+#: grouped prefill, and one other), each its own 4,096-frame context, with
+#: these budgets
+GSPMD_ENCDEC = ServeConfig(max_len=128, capacity=4)
+GSPMD_ENCDEC_NEW = (2, 3, 4)
+
+
+def _encdec_cut(layers: int):
+    """seamless-m4t-large-v2 at full width, ``layers`` encoder and
+    ``layers`` decoder layers of its 24 + 24."""
+    return dataclasses.replace(configs.get("seamless-m4t-large-v2"),
+                               enc_layers=layers, dec_layers=layers,
+                               n_layers=2 * layers)
+
+
+def _gspmd_encdec_requests(cfg):
+    prompts, _, extras = _encdec_requests(cfg)
+    n = len(GSPMD_ENCDEC_NEW)
+    return prompts[:n], list(GSPMD_ENCDEC_NEW), extras[:n]
+
+
+def _flash_heads(store: ScheduleCache) -> dict[str, list[int]]:
+    """The query heads of the flash signatures served under ``store`` (a
+    run's own: an engine resolves its schedules from the store active
+    when it is built), by variant."""
+    out = {}
+    for causal in (True, False):
+        name = fa_ops.ensure_registered(causal=causal, window=None)
+        heads = sorted({sig["hq"] for sig in
+                        registry.get(name, store).served_signatures()})
+        if heads:
+            out[name] = heads
+    return out
+
+
+#: the job that runs serve_gspmd, serve_gspmd_encdec, differential_gspmd
+#: and autotune_tp: its ranks, and the seconds it may take in all
 MESH_RANKS, MESH_DEADLINE_S = 2, 400.0
 #: autotune_tp's requests (of ``_serve_requests``: 115, 80, 104 and 31
 #: tokens, each a whole-prompt prefill at batch 1), their budget, and the
@@ -3064,6 +3114,154 @@ def _serve_gspmd_rank(mesh) -> dict:
     return out
 
 
+#: how far a split rank's prefill logits may lie from one device's, as a
+#: share of the largest |logit|: in bf16 2 ** -6, two to four units in the
+#: last place at that magnitude (a split rounds its partial products and
+#: its column blocks' products on their own), in float32 1e-5
+ENCDEC_LOGIT_RTOL = {"bfloat16": 2.0 ** -6, "float32": 1e-5}
+
+
+def _encdec_groups(prompts) -> list[list[int]]:
+    """The requests a contiguous engine prefills together: those of one
+    prompt length, in order of first arrival."""
+    groups: dict[int, list[int]] = {}
+    for i, p in enumerate(prompts):
+        groups.setdefault(len(p), []).append(i)
+    return list(groups.values())
+
+
+def _encdec_prefill_logits(cfg, mesh=None) -> dict[str, np.ndarray]:
+    """The last-token logits of ``serve_gspmd_encdec``'s prefill groups
+    (``steps.prefill_step``, the engine's kernels), by request, at its
+    model in bf16 and in float32 (the same draws, seed 0), on one device
+    or, given ``mesh``, on this rank of it under the serving split."""
+    prompts, _, extras = _gspmd_encdec_requests(cfg)
+    groups = _encdec_groups(prompts)
+    order = np.argsort([i for g in groups for i in g])
+    out = {}
+    for dtype in ENCDEC_LOGIT_RTOL:
+        dcfg = dataclasses.replace(cfg, dtype=dtype, use_pallas=True)
+        dev = "cuda" if mesh is None else mesh.device
+        params = M.init_lm(dcfg, seed=0, device=dev)
+        layout = None
+        if mesh is not None:
+            layout = train_steps.serve_layout(dcfg, mesh, 1,
+                                              GSPMD_ENCDEC.max_len)
+            params = partition.local_tree(params, layout.params)
+        rows = []
+        for group in groups:
+            batch = {"tokens": torch.tensor(
+                np.stack([prompts[i] for i in group]), device=dev),
+                "enc_embeds": torch.tensor(np.stack(
+                    [extras[i]["enc_embeds"] for i in group]),
+                    device=dev).to(getattr(torch, dtype))}
+            logits, _ = train_steps.prefill_step(
+                params, batch, cfg=dcfg, max_len=GSPMD_ENCDEC.max_len,
+                mesh=mesh, layout=layout)
+            rows.append(logits.float().cpu().numpy())
+        out[dtype] = np.concatenate(rows)[order]
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def gspmd_encdec_one_device(params, cfg) -> dict:
+    """``serve_gspmd_encdec``'s requests through a one-device engine of
+    its ``ServeConfig`` on this card, on ``serve_encdec``'s model (the
+    same config and seed as each rank's): the tokens its ranks must give,
+    the times beside theirs, and its prefill groups' logits."""
+    prompts, budgets, extras = _gspmd_encdec_requests(cfg)
+    out = _timed_run(ContinuousEngine(params, cfg, GSPMD_ENCDEC,
+                                      example_extra=extras[0]),
+                     prompts, budgets, extras)
+    torch.cuda.empty_cache()
+    return {**out, "logits": _encdec_prefill_logits(cfg)}
+
+
+def encdec_agreement(ranks: list[dict], one: dict) -> dict:
+    """How ``serve_gspmd_encdec``'s ranks agree with one device.  Each
+    rank's prefill logits, per dtype, within ``ENCDEC_LOGIT_RTOL`` of the
+    largest |logit| of one device's; in float32 every row's argmax equal.
+    In bf16 a request whose first token one device takes from a tie (its
+    top two logits within that tolerance: either may come out of a split
+    that rounds its sums in another order) is excused from token identity
+    and reported with both engines' tokens and the float32 argmax; every
+    other request's tokens must equal one device's, bitwise, and at least
+    one request must be held so.  -> the report and what failed."""
+    report, bad = {}, []
+    for dtype, rtol in ENCDEC_LOGIT_RTOL.items():
+        want = one["logits"][dtype]
+        tol = float(rtol * np.abs(want).max())
+        top2 = np.sort(want, axis=-1)[:, -2:]
+        per_rank = []
+        for r in ranks:
+            got = r["logits"][dtype]
+            diff = float(np.abs(got - want).max())
+            same = (got.argmax(-1) == want.argmax(-1)).tolist()
+            per_rank.append({"max_abs_diff": diff, "argmax_equal": same})
+            if diff > tol or (dtype == "float32" and not all(same)):
+                bad.append((dtype, diff, tol, same))
+        report[dtype] = {"tolerance": tol, "ranks": per_rank,
+                         "top2_margin": (top2[:, 1] - top2[:, 0]).tolist(),
+                         "argmax_one_device": want.argmax(-1).tolist()}
+    bf16 = report["bfloat16"]
+    tied = [i for i, m in enumerate(bf16["top2_margin"])
+            if m <= bf16["tolerance"]]
+    held = [i for i in range(len(one["tokens"])) if i not in tied]
+    for rank, r in enumerate(ranks):
+        for i in held:
+            if r["tokens"][i] != one["tokens"][i]:
+                bad.append(("tokens", rank, i, r["tokens"][i],
+                            one["tokens"][i]))
+    if not held:
+        bad.append(("no request held to one device's tokens", tied))
+    return {"logits": report, "held_requests": held,
+            "tied_first_token": [{
+                "request": i, "top2_margin": bf16["top2_margin"][i],
+                "one_device": one["tokens"][i], "split": ranks[0]["tokens"][i],
+                "float32_argmax": report["float32"]["argmax_one_device"][i]}
+                for i in tied],
+            "token_identical": all(r["tokens"] == one["tokens"]
+                                   for r in ranks), "bad": bad}
+
+
+def _serve_gspmd_encdec_rank(mesh) -> dict:
+    """``serve_gspmd_encdec`` on one rank: seamless at full width
+    (``SERVE_DEPTH``'s layers), bf16, seed 0, on the contiguous engine
+    over the mesh, its encoder, decoder and cross-attention and MLPs split
+    by heads and hidden dim (``steps.model_split``): its blocks at rest,
+    its peak, the bytes a dispatch gathers, its caches' kv heads and the
+    heads of the flash signatures it served."""
+    cfg = _encdec_cut(SERVE_DEPTH["seamless-m4t-large-v2"])
+    prompts, budgets, extras = _gspmd_encdec_requests(cfg)
+    params = M.init_lm(cfg, seed=0, device=mesh.device)
+    full_gb = _gb(params)
+    with schedule_cache(ScheduleCache()) as store:
+        eng = ContinuousEngine(params, cfg, GSPMD_ENCDEC, mesh=mesh,
+                               example_extra=extras[0])
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = {"params_gb": _gb(eng.params),
+                    "caches_gb": _gb(eng.caches)}
+        out = _timed_run(eng, prompts, budgets, extras)
+    dispatches = out["prefill_dispatches"] + out["decode_steps"]
+    split = eng.layout.split
+    out.update(tp_path=eng.tp_path, tp_reason=eng.tp_reason,
+               full_params_gb=full_gb, resident_gb=resident,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               gathered_gb_per_dispatch=eng.layout.gathered_bytes / 1e9
+               / dispatches,
+               split_cut=sorted(split.cut) if split else [],
+               cache_kv_heads={k: eng.caches[k]["k"].shape[-2]
+                               for k in ("self", "cross")},
+               flash_heads=_flash_heads(store),
+               enc_layers=cfg.enc_layers, dec_layers=cfg.dec_layers)
+    del eng
+    torch.cuda.empty_cache()
+    return {**out, "logits": _encdec_prefill_logits(cfg, mesh)}
+
+
 def _differential_gspmd_cases() -> list[dict]:
     """``differential_gspmd``'s configs at full width, float32, depth cut:
     zamba2 (one group of 6 with the shared block, one trailing block),
@@ -3110,15 +3308,19 @@ def _differential_gspmd_rank(mesh) -> dict:
     for case in _differential_gspmd_cases():
         cfg = case["cfg"]
         params = M.init_lm(cfg, seed=1, device=mesh.device)
-        eng = ContinuousEngine(params, cfg, case["scfg"], mesh=mesh,
-                               example_extra=case["extras"][0])
-        del params
-        run = _timed_run(eng, case["prompts"], case["budgets"],
-                         case["extras"])
+        with schedule_cache(ScheduleCache()) as store:
+            eng = ContinuousEngine(params, cfg, case["scfg"], mesh=mesh,
+                                   example_extra=case["extras"][0])
+            del params
+            run = _timed_run(eng, case["prompts"], case["budgets"],
+                             case["extras"])
+        split = eng.layout.split
         out[case["name"]] = {"tokens": run["tokens"],
                              "launches": run["launches"],
                              "tp_path": eng.tp_path,
                              "tp_reason": eng.tp_reason,
+                             "split_cut": sorted(split.cut) if split else [],
+                             "flash_heads": _flash_heads(store),
                              "gathered_gb": eng.layout.gathered_bytes / 1e9}
         del eng
         torch.cuda.empty_cache()
@@ -3218,15 +3420,17 @@ def _autotune_tp_rank(mesh) -> dict:
 
 def _mesh_serve_rank(rank: int) -> dict:
     """One rank of the mesh serving job: ``serve_gspmd``,
-    ``differential_gspmd`` and ``autotune_tp`` in turn."""
+    ``serve_gspmd_encdec``, ``differential_gspmd`` and ``autotune_tp`` in
+    turn."""
     mesh = _tp_rank_setup(MESH_RANKS)
     out = {"serve_gspmd": _serve_gspmd_rank(mesh)}
+    out["serve_gspmd_encdec"] = _serve_gspmd_encdec_rank(mesh)
     out["differential_gspmd"] = _differential_gspmd_rank(mesh)
     out["autotune_tp"] = _autotune_tp_rank(mesh)
     return {**out, "rank": rank, "device": str(mesh.device)}
 
 
-def phase_mesh_serving(one_device: dict) -> dict:
+def phase_mesh_serving(one_device: dict, encdec_one_device: dict) -> dict:
     """The configs the manual path cannot shard, served on a ``("model",)``
     mesh of 2 ranks through the GSPMD layout, and live autotuning beside
     a sharded engine: one job of 2 ranks sharing this card over gloo
@@ -3239,9 +3443,20 @@ def phase_mesh_serving(one_device: dict) -> dict:
       ``gspmd_one_device``'s tokens bitwise, as the other rank does.
       Resident GB at rest beside the whole model's, peak GB, GB gathered
       a dispatch, decode step p50 and tokens/s, a rank.
+    * ``serve_gspmd_encdec``: seamless-m4t-large-v2 at full width
+      (``SERVE_DEPTH``'s 8 + 8 layers), bf16, contiguous, ``tp_mode``
+      auto, each request its own 4,096-frame context.  Its split must cut
+      the attention (encoder, decoder, cross) and the MLPs; each rank
+      launches bidirectional flash once an encoder layer and causal flash
+      once a decoder layer a prefill, at its 8 of 16 heads only; its self
+      and cross caches hold 8 kv heads; its prefill logits and tokens
+      agree with ``gspmd_encdec_one_device``'s as ``encdec_agreement``
+      holds them (bitwise tokens but where one device's first token is a
+      bf16 tie).  The same figures as ``serve_gspmd``'s.
     * ``differential_gspmd``: ``_differential_gspmd_cases``, each token for
       token ``Engine.generate`` on one device (computed here, seed 1),
-      each row of its path launched on both ranks.
+      each row of its path launched on both ranks; seamless's split as
+      ``serve_gspmd_encdec``'s, its f32 flash at the rank's heads.
     * ``autotune_tp``: ``_autotune_tp_rank``; at least one promotion, the
       same swaps at the same steps on both ranks, the promoted non-default
       schedule launched on both after the swap, and every run's tokens
@@ -3299,13 +3514,66 @@ def phase_mesh_serving(one_device: dict) -> dict:
                               f"{configs.get('mamba2-2.7b').n_layers}"},
          replicated_before=GSPMD_REPLICATED, job_s=job_s, note=note)
 
+    ed = [r["serve_gspmd_encdec"] for r in ranks]
+    full = configs.get("seamless-m4t-large-v2")
+    heads = full.n_heads // MESH_RANKS
+    encdec_heads = {fa_ops.variant_name(c, None): [heads]
+                    for c in (True, False)}
+    agree = encdec_agreement(ed, encdec_one_device)
+    for o in ed:
+        want = {"flash_attention": o["enc_layers"] * o["prefill_dispatches"],
+                "flash_attention_causal":
+                    o["dec_layers"] * o["prefill_dispatches"]}
+        if o["tp_path"] != "gspmd" or agree["bad"] \
+                or o["split_cut"] != ["attn", "mlp"] \
+                or o["flash_heads"] != encdec_heads \
+                or o["cache_kv_heads"] != {"self": heads, "cross": heads} \
+                or any(o["launches"][k] != v for k, v in want.items()):
+            raise AssertionError(
+                f"serve_gspmd_encdec: path {o['tp_path']}, split "
+                f"{o['split_cut']}, flash heads {o['flash_heads']}, caches' "
+                f"kv heads {o['cache_kv_heads']}, tokens {o['tokens']} (one "
+                f"device {encdec_one_device['tokens']}), agreement "
+                f"{agree['bad']}, launches {o['launches']} in "
+                f"{o['prefill_dispatches']} prefills")
+    emit("serve_gspmd_encdec", arch=full.name, dtype="bfloat16",
+         enc_layers=ed[0]["enc_layers"], dec_layers=ed[0]["dec_layers"],
+         enc_len=full.enc_len, requests=len(GSPMD_ENCDEC_NEW),
+         new_tokens=list(GSPMD_ENCDEC_NEW),
+         capacity=GSPMD_ENCDEC.capacity, mesh=[MESH_RANKS],
+         tp_path=ed[0]["tp_path"], tp_reason=ed[0]["tp_reason"],
+         split_cut=ed[0]["split_cut"], heads_per_rank=heads,
+         flash_heads=ed[0]["flash_heads"],
+         cache_kv_heads=ed[0]["cache_kv_heads"],
+         token_identical_to_one_device=agree["token_identical"],
+         rank_tokens=[o["tokens"] for o in ed],
+         one_device_tokens=encdec_one_device["tokens"],
+         held_requests=agree["held_requests"],
+         tied_first_token=agree["tied_first_token"],
+         prefill_logits=agree["logits"],
+         full_params_gb=ed[0]["full_params_gb"],
+         prefill_dispatches=ed[0]["prefill_dispatches"],
+         decode_steps=ed[0]["decode_steps"],
+         **{f"rank_{k}": [o[k] for o in ed] for k in keep},
+         one_device={k: encdec_one_device[k] for k in (
+             "tokens_per_s", "decode_step_p50_ms", "wall_s")},
+         reduced={"enc_layers": f"{ed[0]['enc_layers']} of "
+                                f"{full.enc_layers}",
+                  "dec_layers": f"{ed[0]['dec_layers']} of "
+                                f"{full.dec_layers}"},
+         note=note)
+
     diff = [r["differential_gspmd"] for r in ranks]
     for case in _differential_gspmd_cases():
         name = case["name"]
         for rank, d in enumerate(diff):
             got = d[name]
+            split_ok = name != "seamless" or (
+                got["split_cut"] == ["attn", "mlp"]
+                and got["flash_heads"] == encdec_heads)
             if got["tp_path"] != "gspmd" or got["tokens"] != refs[name] \
-                    or any(got["launches"][row] < 1 for row in case["rows"]):
+                    or any(got["launches"][row] < 1 for row in case["rows"]) \
+                    or not split_ok:
                 raise AssertionError(
                     f"differential_gspmd {name} rank {rank}: {got}, "
                     f"Engine gave {refs[name]}")
@@ -3315,6 +3583,8 @@ def phase_mesh_serving(one_device: dict) -> dict:
              "arch": c["cfg"].name, "n_layers": c["cfg"].n_layers,
              "paged": c["scfg"].paged, "tp_mode": c["scfg"].tp_mode,
              "tp_reason": diff[0][c["name"]]["tp_reason"],
+             "split_cut": diff[0][c["name"]]["split_cut"],
+             "flash_heads": diff[0][c["name"]]["flash_heads"],
              "rows": list(c["rows"]),
              "rank_launches": [d[c["name"]]["launches"] for d in diff],
              "gathered_gb": diff[0][c["name"]]["gathered_gb"]}
@@ -3351,7 +3621,8 @@ def phase_mesh_serving(one_device: dict) -> dict:
          rank_promoted=[a["promoted"] for a in at],
          rank_launches=[a["launches"] for a in at],
          with_service_s=lead["with_service_s"], note=note)
-    return {"serve_gspmd": sg, "differential_gspmd": diff, "autotune_tp": at}
+    return {"serve_gspmd": sg, "serve_gspmd_encdec": ed,
+            "differential_gspmd": diff, "autotune_tp": at}
 
 
 # ================================================================ training
@@ -3737,9 +4008,29 @@ SHARDED_RANKS = 2
 #: timed ones; one timed step on (2, 1), whose ~17-20 s are gloo's host
 #: copies of the params and gradient
 SHARDED_STEPS = {(SHARDED_RANKS, 1): 2, (1, SHARDED_RANKS): 3}
+#: train_sharded's (2, 1) run: qwen3-1.7b at full width, cut to this many
+#: of its 28 layers for the script's time on a slow host: each of its
+#: steps is gloo's host copies of every float32 leaf, gathered and
+#: reduce-scattered over "data" (~15-35 s a step at 28)
+DATA_TRAIN_LAYERS = 7
+
+
+def _data_train_cfg():
+    return dataclasses.replace(configs.get("qwen3-1.7b"),
+                               n_layers=DATA_TRAIN_LAYERS)
+
+
 #: train_sharded's SSM run on (1, 2): mamba2-2.7b at full width, its depth
 #: cut for the script's time, and its steps (one counted, one timed)
-SSM_TRAIN_LAYERS, SSM_TRAIN_STEPS = 16, 2
+SSM_TRAIN_LAYERS, SSM_TRAIN_STEPS = 8, 2
+
+
+#: train_sharded's enc-dec run on (1, 2): seamless-m4t-large-v2 at full
+#: width, its encoder and decoder each cut to ENCDEC_TRAIN_LAYERS of 24
+#: for the script's time and the card's memory (one device's step peaks at
+#: ~47 GB by the dry run, a rank's at ~24: the plain attention's float32
+#: scores over 4,096 frames), and its steps (one counted, one timed)
+ENCDEC_TRAIN_LAYERS, ENCDEC_TRAIN_STEPS = 4, 2
 
 
 def _ssm_train_cfg():
@@ -3984,13 +4275,16 @@ def _sharded_rank(rank: int, workdir: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = mesh_for((SHARDED_RANKS, 1), AXES)
-    out = {"train_sharded": _train_sharded_full(mesh)}
+    out = {"train_sharded": _train_sharded_full(mesh, _data_train_cfg())}
     torch.cuda.empty_cache()
     model = mesh_for((1, SHARDED_RANKS), AXES)
     out["train_sharded_model"] = _train_sharded_full(model)
     torch.cuda.empty_cache()
     out["train_sharded_ssm"] = _train_sharded_full(
         model, _ssm_train_cfg(), SSM_TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    out["train_sharded_encdec"] = _train_sharded_full(
+        model, _encdec_cut(ENCDEC_TRAIN_LAYERS), ENCDEC_TRAIN_STEPS)
     torch.cuda.empty_cache()
     out["differential_train_sharded"] = _differential_sharded(
         ((SHARDED_RANKS, 1), (1, SHARDED_RANKS)), mesh.device)
@@ -4001,16 +4295,15 @@ def _sharded_rank(rank: int, workdir: str) -> dict:
     return out
 
 
-def _ssm_one_device_losses() -> list[float]:
-    """``train_sharded``'s SSM run on this card alone: the same config,
-    init (seed 0), data, optimizer and steps, one device."""
-    cfg = _ssm_train_cfg()
+def _one_device_losses(cfg, n_steps: int) -> list[float]:
+    """A ``train_sharded`` run of ``cfg`` on this card alone: the same
+    init (seed 0), data, optimizer and ``n_steps`` steps, one device."""
     dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
     ocfg = adamw.OptConfig(peak_lr=3e-4, warmup_steps=1,
                            decay_steps=TRAIN_STEPS)
     params, opt = train_loop.make_train_state(cfg, seed=0)
     losses = []
-    for step in range(SSM_TRAIN_STEPS):
+    for step in range(n_steps):
         params, opt, m = train_steps.train_step(
             params, opt, batch_for_model(cfg, dcfg, step, device="cuda"),
             cfg=cfg, opt_cfg=ocfg)
@@ -4024,21 +4317,29 @@ def phase_train_sharded(workdir: Path, info: dict, train: dict) -> dict:
     """The sharded-training phases, one job of 2 ranks sharing this card
     over gloo (NCCL refuses two ranks on one GPU), each phase its line:
 
-    * ``train_sharded``: qwen3-1.7b at full width, all 28 layers, bf16 over
-      float32 masters, remat "full", ``train``'s B8 S128 data, on a (2, 1)
-      ("data", "model") mesh: each rank holds half of every embed dim of
-      the params and moments, gathers the params whole for a step, runs
-      its 4 rows and reduce-scatters the float32 gradient (all-reduces the
-      leaves "data" does not cut).  Then the same on a (1, 2) mesh
-      (``model``): each rank holds and runs its half of the heads, kv
-      heads, MLP hidden dim and vocab (``steps.model_split``), all 8 rows,
+    * ``train_sharded``: qwen3-1.7b at full width, ``DATA_TRAIN_LAYERS``
+      of its 28 layers, bf16 over float32 masters, remat "full",
+      ``train``'s B8 S128 data, on a (2, 1) ("data", "model") mesh: each
+      rank holds half of every embed dim of the params and moments,
+      gathers the params whole for a step, runs its 4 rows and
+      reduce-scatters the float32 gradient (all-reduces the leaves "data"
+      does not cut).  Then all 28 layers on a (1, 2) mesh (``model``):
+      each rank holds and runs its half of the heads, kv heads, MLP
+      hidden dim and vocab (``steps.model_split``), all 8 rows,
       its seams all-reduces over "model".  Each: one untimed step
       (counted), then the timed ones: step p50, tokens/s, peak memory a
       rank, the bytes a step gathers, scatters and reduces over "data" and
       (the counter's) over "model", the loss mode, the spans.  Losses must
-      be finite and equal on both ranks, and each mesh's first (the same
-      weights and batch as ``train``'s first step) within 1e-2 of
-      ``train``'s; the others are reported beside ``train``'s.
+      be finite and equal on both ranks, the (2, 1) run's first within
+      1e-2 of this card's one-device run of its cut, the (1, 2) run's (the
+      same weights and batch as ``train``'s first step) of ``train``'s;
+      the others are reported beside them.  Then on
+      (1, 2) mamba2-2.7b (``SSM_TRAIN_LAYERS``; its mixers by heads) and
+      seamless-m4t-large-v2 (``ENCDEC_TRAIN_LAYERS`` + as many: its
+      encoder's, decoder's and cross-attention's heads, both MLPs and the
+      decoder's vocab, its encoder over 4,096 frames), each loss within
+      1e-2 of this card's one-device run from the same init, no
+      all-gather over "model".
     * ``differential_train_sharded``: qwen3's smoke config in float32, one
       sharded step on (2, 1) and on (1, 2) against the one-device step on
       this card: max relative error under 2e-4 (the reference's bound).
@@ -4053,7 +4354,11 @@ def phase_train_sharded(workdir: Path, info: dict, train: dict) -> dict:
     under grad).  Two processes on one card, every collective through host
     memory: nothing here measures training across cards."""
     note = "2 ranks share 1 card over gloo: not multi-GPU training"
-    ssm_one = _ssm_one_device_losses()
+    data_one = _one_device_losses(_data_train_cfg(),
+                                  SHARDED_STEPS[SHARDED_RANKS, 1])
+    ssm_one = _one_device_losses(_ssm_train_cfg(), SSM_TRAIN_STEPS)
+    encdec_cfg = _encdec_cut(ENCDEC_TRAIN_LAYERS)
+    encdec_one = _one_device_losses(encdec_cfg, ENCDEC_TRAIN_STEPS)
     # the ranks need ~29 GB each: hand back what this process's allocator
     # still holds from the earlier phases
     torch.cuda.empty_cache()
@@ -4102,7 +4407,7 @@ def phase_train_sharded(workdir: Path, info: dict, train: dict) -> dict:
                 "spans_s_rank0": ts[0]["spans_s"],
                 "launches": ts[0]["launches"]}
 
-    data_line = run_line("train_sharded", [SHARDED_RANKS, 1])
+    data_line = run_line("train_sharded", [SHARDED_RANKS, 1], data_one)
     model_line = run_line("train_sharded_model", [1, SHARDED_RANKS])
     if model_line["seams_cut"] != ["attn", "mlp", "vocab"] \
             or model_line["model_axis_gb_per_step"].get("all-gather"):
@@ -4119,10 +4424,33 @@ def phase_train_sharded(workdir: Path, info: dict, train: dict) -> dict:
                     loss_rel_diff=ssm_rel,
                     reduced={"n_layers": f"{SSM_TRAIN_LAYERS} of "
                              f"{configs.get('mamba2-2.7b').n_layers}"})
-    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
-           "param_dtype": cfg.param_dtype, "remat_policy": cfg.remat_policy,
-           "axes": list(AXES), **TRAIN_DATA, **data_line, "losses_one_device": one, "model": model_line,
-           "ssm": ssm_line,
+    encdec_line = run_line("train_sharded_encdec", [1, SHARDED_RANKS],
+                           encdec_one)
+    encdec_rel = [abs(a - b) / abs(b)
+                  for a, b in zip(encdec_line["losses"], encdec_one)]
+    full = configs.get("seamless-m4t-large-v2")
+    if encdec_line["seams_cut"] != ["attn", "mlp", "vocab"] \
+            or max(encdec_rel) > 1e-2 \
+            or encdec_line["model_axis_gb_per_step"].get("all-gather") \
+            or not encdec_line["model_axis_gb_per_step"].get("all-reduce"):
+        raise AssertionError(f"train_sharded seamless (1, 2): "
+                             f"{encdec_line}, one device's losses "
+                             f"{encdec_one}")
+    encdec_line.update(arch=full.name, enc_len=full.enc_len,
+                       losses_one_device=encdec_one,
+                       loss_rel_diff=encdec_rel,
+                       reduced={"enc_layers": f"{ENCDEC_TRAIN_LAYERS} of "
+                                              f"{full.enc_layers}",
+                                "dec_layers": f"{ENCDEC_TRAIN_LAYERS} of "
+                                              f"{full.dec_layers}"})
+    model_line.update(n_layers=cfg.n_layers, losses_one_device=one)
+    out = {"arch": cfg.name, "n_layers": DATA_TRAIN_LAYERS,
+           "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+           "remat_policy": cfg.remat_policy, "axes": list(AXES),
+           **TRAIN_DATA, **data_line, "losses_one_device": data_one,
+           "reduced": {"n_layers": f"{DATA_TRAIN_LAYERS} of "
+                                   f"{cfg.n_layers}"},
+           "model": model_line, "ssm": ssm_line, "encdec": encdec_line,
            "job_s": job_s, "parent_reserved_gb": parent_gb,
            "nvidia_smi": info["nvidia_smi"], "note": note}
     emit("train_sharded", **out)
@@ -4143,7 +4471,8 @@ def phase_train_sharded(workdir: Path, info: dict, train: dict) -> dict:
          limit=1e-4, note=note)
 
     counted = {key: [r[key]["counted_step"] for r in ranks]
-               for key in ("train_sharded", "train_sharded_model")}
+               for key in ("train_sharded", "train_sharded_model",
+                           "train_sharded_encdec")}
     el = [r["train_elastic"] for r in ranks]
     lead = el[0]
     rel = abs(lead["final_loss"] - lead["base_loss"]) / abs(lead["base_loss"])
@@ -4222,14 +4551,18 @@ def predictions() -> dict:
     """The dry run's predictions of what the card runs in
     ``dryrun_vs_card``, each in a fake world of its own (this process
     joins no real one): (a) ``train``'s step on (1, 1), (b)
-    ``train_sharded``'s on (2, 1) and on (1, 2), (c) the serving batch's
+    ``train_sharded``'s on (2, 1) (``DATA_TRAIN_LAYERS`` layers) and on
+    (1, 2), and its seamless run on (1, 2), (c) the serving batch's
     prefill and decode on (1, 1)."""
     cfg = configs.get("qwen3-1.7b")
     return {"train": dryrun.count_cell(cfg, CARD_TRAIN, (1, 1)),
-            "train_sharded": dryrun.count_cell(cfg, CARD_TRAIN,
+            "train_sharded": dryrun.count_cell(_data_train_cfg(), CARD_TRAIN,
                                                (SHARDED_RANKS, 1)),
             "train_sharded_model": dryrun.count_cell(cfg, CARD_TRAIN,
                                                      (1, SHARDED_RANKS)),
+            "train_sharded_encdec": dryrun.count_cell(
+                _encdec_cut(ENCDEC_TRAIN_LAYERS), CARD_TRAIN,
+                (1, SHARDED_RANKS)),
             "prefill": dryrun.count_cell(cfg, CARD_PREFILL, (1, 1),
                                          max_len=CARD_MAX_LEN),
             "decode": dryrun.count_cell(cfg, CARD_DECODE, (1, 1))}
@@ -4333,7 +4666,8 @@ def phase_dryrun_vs_card(got: dict, train: dict, sharded: dict,
       device) against the cell on (1, 1);
     * (b) ``train_sharded``'s counted first step on each of its 2 ranks
       against the cell on (2, 1), and on (1, 2) (compute split along
-      "model"): besides, collective bytes by op and by axis and param
+      "model"; qwen3-1.7b, and seamless at ``ENCDEC_TRAIN_LAYERS`` + as
+      many layers): besides, collective bytes by op and by axis and param
       bytes a rank equal, and those over "data" equal to
       ``_step_traffic``'s figures (all-gather, reduce-scatter, and the
       all-reduce at its weight 2);
@@ -4368,7 +4702,8 @@ def phase_dryrun_vs_card(got: dict, train: dict, sharded: dict,
 
     row("train", got["train"], train["counted_step"])
     for key, name in (("train_sharded", "train_sharded"),
-                      ("train_sharded_model", "train_sharded_1x2")):
+                      ("train_sharded_model", "train_sharded_1x2"),
+                      ("train_sharded_encdec", "train_sharded_encdec_1x2")):
         ts = got[key]
         traffic = sharded["traffic"][key]
         for rank, real in enumerate(sharded["counted_steps"][key]):
@@ -4428,8 +4763,8 @@ def kernels_line(gemm: dict, flash: dict, gather: dict, ssd: dict,
     trains on its plain versions), on one rank of the tensor-parallel
     serve path (``serve_tp``, rank 0; the other rank's are equal), and on
     each rank of the mesh serving job (``phase_mesh_serving``):
-    ``serve_gspmd``, ``differential_gspmd`` (its cases summed) and
-    ``autotune_tp`` (its runs beside the service)."""
+    ``serve_gspmd``, ``serve_gspmd_encdec``, ``differential_gspmd`` (its
+    cases summed) and ``autotune_tp`` (its runs beside the service)."""
     rows = []
     for mod, source, name, res, path in (
             (gf, gf.SOURCE, "gemm_fused_leaky_relu", gemm, sip),
@@ -4453,6 +4788,9 @@ def kernels_line(gemm: dict, flash: dict, gather: dict, ssd: dict,
                      "launches_tp": serve_tp["launches"][name],
                      "launches_gspmd": [r["launches"][name]
                                         for r in mesh["serve_gspmd"]],
+                     "launches_gspmd_encdec": [
+                         r["launches"][name]
+                         for r in mesh["serve_gspmd_encdec"]],
                      "launches_differential_gspmd": [
                          sum(c["launches"][name] for c in r.values())
                          for r in mesh["differential_gspmd"]],
@@ -4542,17 +4880,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_differential_vlm(sip["cache"], workdir)
     full = configs.get("seamless-m4t-large-v2")
-    half = SERVE_DEPTH[full.name]
-    cfg = dataclasses.replace(full, enc_layers=half, dec_layers=half,
-                              n_layers=2 * half)
+    cfg = _encdec_cut(SERVE_DEPTH[full.name])
     params = M.init_lm(cfg, seed=0, device="cuda")
     serve_encdec = phase_serve_encdec(params, cfg, full)
     phase_profile(params, cfg, SERVE_ENCDEC, phase="profile_encdec")
+    gspmd_encdec_ref = gspmd_encdec_one_device(params, cfg)
     del params
     torch.cuda.empty_cache()
     phase_differential_encdec(sip["cache"], workdir)
     phase_differential_padded(sip["cache"], workdir)
-    mesh = phase_mesh_serving(gspmd_ref)
+    mesh = phase_mesh_serving(gspmd_ref, gspmd_encdec_ref)
     train = phase_train(info)
     phase_differential_train()
     phase_train_resume(workdir)

@@ -35,8 +35,8 @@ what a layer reads, :func:`take` for an embedding lookup,
 caches a layer wrote, so a rank gathers one layer at a time and computes
 what one device computes.  Where the layout carries a split
 (``launch/steps.model_split``: an SSM mixer's heads, a hybrid's shared
-attention and MLP) the rank computes with its blocks of the leaves the
-split cuts instead of gathering them.
+attention and MLP, an enc-dec's attention and MLPs) the rank computes
+with its blocks of the leaves the split cuts instead of gathering them.
 
 Two leaves of an SSM mixer are not cut at head boundaries: ``in_proj``'s
 concatenated ``[z | x | B | C | dt]`` columns and the conv's ``[x | B |

@@ -25,8 +25,9 @@ token.
 
 Training sharded along ``"model"`` (``launch/steps.sharded_train_step``)
 enters :func:`training` instead, and so does a dispatch of the GSPMD
-serving path that splits an SSM mixer by heads
-(``dist.partition.materialising``; there the seams run under no grad).  There the seams are Megatron's two
+serving path that splits its compute (an SSM mixer by heads, an enc-dec's
+attention and MLPs: ``dist.partition.materialising``; there the seams run
+under no grad).  There the seams are Megatron's two
 autograd operators over the ``"model"`` group: :func:`tp_enter` (the
 identity forward, an all-reduce of the gradient backward) where a
 replicated activation enters a cut product, and :func:`tp_allreduce`

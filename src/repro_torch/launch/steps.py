@@ -186,37 +186,40 @@ class ModelSplit:
     and summed over ``"model"``; ``kv``, the kv head this rank's query
     heads map to where the kv heads are fewer than the ranks (the rank
     reads that head of the replicated ``wk``/``wv``), else None;
-    ``attn``, the path of the attention subtree the seams cut;
-    ``caches``, on the serving path, the cache subtrees (their paths) the
-    rank computes as its blocks."""
+    ``attn``, the paths of the attention subtrees the seams cut (an
+    encoder-decoder's three: the encoder's, the decoder's self- and
+    cross-attention); ``caches``, on the serving path, the cache subtrees
+    (their paths) the rank computes as its blocks."""
 
     cfg: ModelConfig
     cut: frozenset
     whole: frozenset
     summed: frozenset
     kv: int | None
-    attn: tuple[str, ...] = ("blocks", "attn")
+    attn: tuple[tuple[str, ...], ...] = (("blocks", "attn"),)
     caches: frozenset = frozenset()
 
     def view(self, tree):
-        """The tree the rank's model reads: ``tree`` with ``wk``/``wv``
-        narrowed to :attr:`kv`."""
+        """The tree the rank's model reads: ``tree`` with every attention
+        subtree's ``wk``/``wv`` narrowed to :attr:`kv`."""
         if self.kv is None:
             return tree
-        top, leaf = self.attn
-        attn = tree[top][leaf]
-        attn = {**attn, **{k: attn[k].narrow(-2, self.kv, 1)
-                           for k in ("wk", "wv")}}
-        return {**tree, top: {**tree[top], leaf: attn}}
+        for top, leaf in self.attn:
+            attn = tree[top][leaf]
+            attn = {**attn, **{k: attn[k].narrow(-2, self.kv, 1)
+                               for k in ("wk", "wv")}}
+            tree = {**tree, top: {**tree[top], leaf: attn}}
+        return tree
 
 
 #: the leaves each seam cuts, by their path's last two names
-_SEAM_LEAVES = {"attn": {("attn", k) for k in ("wq", "wk", "wv", "wo")},
+_SEAM_LEAVES = {"attn": {(a, k) for a in ("attn", "xattn")
+                         for k in ("wq", "wk", "wv", "wo")},
                 "mlp": {("ffn", k) for k in ("w_gate", "w_up", "w_down")},
                 "experts": {("ffn", k) for k in ("w_gate", "w_up",
                                                  "w_down")},
                 "router": {("ffn", "router")},
-                "vocab": {("embed",), ("lm_head",)},
+                "vocab": {("embed",), ("dec_embed",), ("lm_head",)},
                 "ssm": {("mixer", k) for k in ("in_proj", "conv_w",
                                                "conv_b", "A_log", "D",
                                                "dt_bias", "norm",
@@ -225,9 +228,20 @@ _SEAM_LEAVES = {"attn": {("attn", k) for k in ("wq", "wk", "wv", "wo")},
 #: columns, re-laid by heads at use (``partition.relay``)
 RELAID = ("in_proj", "conv_w", "conv_b")
 #: the families whose compute a split covers; the serving path splits
-#: those with SSM mixers only (the others' on the manual path)
-SPLIT_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
-SERVE_SPLIT_FAMILIES = ("ssm", "hybrid")
+#: those the manual path does not serve (its own seams split the others)
+SPLIT_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "enc_dec")
+SERVE_SPLIT_FAMILIES = ("ssm", "hybrid", "enc_dec")
+#: each family's attention subtrees, and the blocks whose ``ffn`` holds
+#: its dense MLP or MoE (every other family's: ``blocks/attn``, ``blocks``)
+_ATTN_TREES = {"ssm": (),
+               "hybrid": (("shared_attn", "attn"),),
+               "enc_dec": (("enc_blocks", "attn"), ("dec_blocks", "attn"),
+                           ("dec_blocks", "xattn"))}
+_FFN_TREES = {"ssm": (), "hybrid": ("shared_attn",),
+              "enc_dec": ("enc_blocks", "dec_blocks")}
+#: each family's serving caches that the attention seam computes as the
+#: rank's blocks (their paths in the cache tree)
+_ATTN_CACHES = {"hybrid": {("attn",)}, "enc_dec": {("self",), ("cross",)}}
 
 
 def model_split(cfg: ModelConfig, mesh, shardings, *,
@@ -235,29 +249,33 @@ def model_split(cfg: ModelConfig, mesh, shardings, *,
     """How :func:`sharded_train_step` splits the compute of ``cfg`` along
     ``mesh``'s ``"model"`` axis, the params laid out by ``shardings``, as
     GSPMD does under the reference's rules; None where it replicates it
-    (no ``"model"`` extent, or a family the seams do not cover: enc_dec,
-    padded heads; their leaves are gathered whole).
+    (no ``"model"`` extent, or padded heads, which the seams do not cover:
+    their leaves are gathered whole).
 
     * an SSM mixer (ssm, and a hybrid's mamba blocks): the rank's heads
       where the heads divide the ranks (``A_log`` cut), its ``in_proj``
       and conv re-laid by heads (a leaf the divisibility fallback keeps
       whole is sliced, and its gradient summed);
-    * attention (a hybrid's shared block's too): the rank's heads where
-      ``wq`` is cut and the kv heads are cut too or fewer than the ranks
-      and dividing them; else its leaves are gathered whole and its
-      compute replicated (heads that do not divide the ranks);
-    * the dense MLP (a hybrid's shared one too), or an MoE's experts'
-      hidden dim: the rank's share of it where cut;
+    * attention (a hybrid's shared block's too; an encoder-decoder's
+      encoder, decoder and cross-attention, which share their head
+      counts): the rank's heads where every subtree's ``wq`` is cut and
+      its kv heads are cut too or fewer than the ranks and dividing them;
+      else their leaves are gathered whole and their compute replicated
+      (heads that do not divide the ranks);
+    * the dense MLP (a hybrid's shared one, an encoder-decoder's encoder's
+      and decoder's), or an MoE's experts' hidden dim: the rank's share of
+      it where cut;
     * an MoE whose experts are cut (they divide the ranks): its router's
       and FFN's experts (expert-parallel), routing replicated;
-    * the embedding and lm_head: the rank's vocab block where cut.
+    * the embedding (an encoder-decoder's ``dec_embed``) and lm_head: the
+      rank's vocab block where cut.
 
     ``serving`` gives the GSPMD serving path's split (its dispatches run
-    under ``partition.materialising``): only the families with SSM mixers
-    (``SERVE_SPLIT_FAMILIES``), the attention only where its kv heads are
-    cut, and no vocab seam (the embedding is looked up by ``take``, the
-    logits' columns gathered); ``caches`` names the cache subtrees its
-    ranks compute as their blocks."""
+    under ``partition.materialising``): only the families the manual path
+    does not serve (``SERVE_SPLIT_FAMILIES``), the attention only where
+    its kv heads are cut, and no vocab seam (the embedding is looked up by
+    ``take``, the logits' columns gathered); ``caches`` names the cache
+    subtrees its ranks compute as their blocks."""
     n = mesh.shape.get("model", 1)
     families = SERVE_SPLIT_FAMILIES if serving else SPLIT_FAMILIES
     if n == 1 or cfg.family not in families or cfg.padded_heads:
@@ -270,26 +288,29 @@ def model_split(cfg: ModelConfig, mesh, shardings, *,
         cut.add("ssm")
         summed |= {(m, "mixer", k) for m in mixers for k in RELAID
                    if not shardings[m]["mixer"][k].cuts("model")}
-    top = "shared_attn" if cfg.family == "hybrid" else "blocks"
-    if cfg.family != "ssm":
-        attn, ffn = shardings[top]["attn"], shardings[top]["ffn"]
-        kv_cut = attn["wk"].cuts("model")
-        if attn["wq"].cuts("model") and (
+    trees = _ATTN_TREES.get(cfg.family, (("blocks", "attn"),))
+    attns = [shardings[top][leaf] for top, leaf in trees]
+    if attns:
+        kv_cut = all(a["wk"].cuts("model") for a in attns)
+        if all(a["wq"].cuts("model") for a in attns) and (
                 kv_cut or (not serving and n % cfg.n_kv_heads == 0)):
             cut.add("attn")
             local.update(n_heads=cfg.n_heads // n,
                          n_kv_heads=cfg.n_kv_heads // n if kv_cut else 1)
+            names = ("wk", "wv") if not kv_cut else ()
+            names += ("q_norm", "k_norm") if cfg.qk_norm else ()
+            summed |= {t + (k,) for t in trees for k in names}
             if not kv_cut:
                 kv = mesh.coord("model") // (n // cfg.n_kv_heads)
-                summed |= {(top, "attn", "wk"), (top, "attn", "wv")}
-            if cfg.qk_norm:
-                summed |= {(top, "attn", "q_norm"), (top, "attn", "k_norm")}
-        if cfg.family == "moe" and ffn["router"].cuts("model"):
-            cut |= {"router", "experts"}
-        elif ffn["w_up"].cuts("model"):
-            cut.add("mlp")
-            local["d_ff"] = cfg.d_ff // n
-    if not serving and shardings["embed"].cuts("model") and \
+    ffns = [shardings[t]["ffn"]
+            for t in _FFN_TREES.get(cfg.family, ("blocks",))]
+    if cfg.family == "moe" and ffns[0]["router"].cuts("model"):
+        cut |= {"router", "experts"}
+    elif ffns and all(f["w_up"].cuts("model") for f in ffns):
+        cut.add("mlp")
+        local["d_ff"] = cfg.d_ff // n
+    embed = "dec_embed" if cfg.family == "enc_dec" else "embed"
+    if not serving and shardings[embed].cuts("model") and \
             shardings["lm_head"].cuts("model"):
         cut.add("vocab")
     covered = set().union(*(_SEAM_LEAVES[c] for c in cut))
@@ -302,11 +323,11 @@ def model_split(cfg: ModelConfig, mesh, shardings, *,
             caches |= {()} if cfg.family == "ssm" else {("mamba",),
                                                         ("trailing",)}
         if "attn" in cut:
-            caches.add(("attn",))
+            caches |= _ATTN_CACHES[cfg.family]
     if cfg.family != "ssm":
         cfg = dataclasses.replace(cfg, head_dim=cfg.hd, **local)
     return ModelSplit(cfg, frozenset(cut), frozenset(whole),
-                      frozenset(summed), kv, (top, "attn"),
+                      frozenset(summed), kv, tuple(trees),
                       frozenset(caches))
 
 

@@ -25,7 +25,8 @@ caches it holds, and every count here is that share.  Training sharded
 along ``"model"`` runs the same way, the input entering the rank's heads
 through ``tp_enter`` (its gradient summed over the ranks); where the kv
 heads are fewer than the ranks, the rank's ``wk``/``wv`` are the one kv
-head its query heads map to.
+head its query heads map to.  An encoder-decoder's cross-attention splits
+alike: its queries' and its K/V's heads are the rank's.
 
 Layouts are ``repro``'s: activations (B, S, H, D), weights ``wq`` (d, H, D)
 and ``wo`` (H, D, d), where H is :func:`phys_heads`.  A padded config's
@@ -295,8 +296,10 @@ def cross_attention(p, x: torch.Tensor, ctx_kv: dict[str, torch.Tensor],
                     cfg: ModelConfig) -> torch.Tensor:
     """Decoder cross-attention over the encoder's precomputed K/V
     (``ctx_kv`` {'k', 'v'} (B, T, Hkv, D), :func:`encode_kv`): no rotary
-    and no mask, through the plain ``_sdpa`` as in the reference."""
-    q = _proj(x, p["wq"], cfg.n_heads)
+    and no mask, through the plain ``_sdpa`` as in the reference.  Under
+    a split along ``"model"`` the rank runs its heads: ``x`` enters them
+    through ``tp_enter`` and ``_out`` sums their products."""
+    q = _proj(tp_enter(x, "attn"), p["wq"], cfg.n_heads)
     if cfg.qk_norm:
         q = nn.rmsnorm_apply(p["q_norm"], q)
     return _out(p, _sdpa(q, ctx_kv["k"], ctx_kv["v"], causal=False), cfg)
@@ -304,7 +307,11 @@ def cross_attention(p, x: torch.Tensor, ctx_kv: dict[str, torch.Tensor],
 
 def encode_kv(p, ctx: torch.Tensor, cfg: ModelConfig) -> dict[str, Any]:
     """Project the encoder output ``ctx`` (B, T, d) once into the
-    cross-attention K/V {'k', 'v'} (B, T, Hkv, D); qk-norm on k."""
+    cross-attention K/V {'k', 'v'} (B, T, Hkv, D); qk-norm on k.  Under a
+    split along ``"model"`` they are the rank's kv heads; every decoder
+    layer reads ``ctx``, so its caller enters it once
+    (``models.model.forward``: ``tp_enter``), which sums the layers'
+    partial gradients over the ranks in one all-reduce."""
     k, v = _proj(ctx, p["wk"]), _proj(ctx, p["wv"])
     if cfg.qk_norm:
         k = nn.rmsnorm_apply(p["k_norm"], k)

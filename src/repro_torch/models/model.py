@@ -49,7 +49,8 @@ The serving entry points (:func:`prefill`, :func:`decode_step`,
 rank (inside ``partition.materialising``) they gather the layer's param
 and cache blocks whole before it runs and keep the rank's block of each
 cache it wrote, except what the layout's split computes as blocks (an
-SSM mixer's heads, a hybrid's shared attention and MLP: ``models/ssm.py``),
+SSM mixer's heads, a hybrid's shared attention and MLP: ``models/ssm.py``;
+an encoder-decoder's attention and MLP, its self and cross K/V),
 and the logits come from the rank's columns of ``lm_head``, gathered;
 elsewhere the hooks hand the tensors back as they are.
 """
@@ -401,6 +402,9 @@ def forward(p: Params, inputs: dict[str, torch.Tensor], cfg: ModelConfig):
     are this rank's vocab columns."""
     if cfg.family == "enc_dec":
         enc, auxes = _encode(p, inputs, cfg)
+        # every decoder layer projects its rank's cross K/V heads from
+        # ``enc``: one seam sums their partial gradients over "model"
+        enc = tp.tp_enter(enc, "attn")
         x = _embed(p, inputs["tokens"], cfg)
         layer = blocks.remat(_cross_layer, cfg)
         for lp in blocks.layer_views(p["dec_blocks"]):

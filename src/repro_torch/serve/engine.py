@@ -80,20 +80,23 @@ leaf under ``dist.partition.SERVE_RULES`` (the head-like axes on
 ``"model"``, the slot and page axes whole, so admission, eviction and
 ``set_len`` splice the rank's blocks in place with no collective; a
 dimension that does not divide the mesh stays whole).  Each dispatch runs
-inside ``partition.materialising``.  An ssm or hybrid model's compute is
-split along ``"model"`` as the reference's GSPMD program splits it
-(``launch.steps.model_split`` with ``serving``): each rank runs its local
-config, its SSM mixers over its heads (``in_proj`` and the conv re-laid
-by heads with one all-to-all each, the conv state too, the SSD state its
-heads' block; ``models/ssm.py``) and a hybrid's shared attention and MLP
+inside ``partition.materialising``.  An ssm, hybrid or enc-dec model's
+compute is split along ``"model"`` as the reference's GSPMD program
+splits it (``launch.steps.model_split`` with ``serving``): each rank runs
+its local config, its SSM mixers over its heads (``in_proj`` and the conv
+re-laid by heads with one all-to-all each, the conv state too, the SSD
+state its heads' block; ``models/ssm.py``), a hybrid's shared attention
+and MLP, and an enc-dec's encoder, decoder and cross-attention and MLPs,
 over its heads and hidden share where they divide, the seams summing
-the partial products, and its caches stay its blocks throughout.  Every
-other family's compute (enc-dec, padded heads, and an attention family
-sent to this path) is replicated: the model gathers one layer's param
-and cache blocks whole just before the layer runs, drops them after and
-writes back only the rank's block of each cache it updated; a prefill's
-group cache comes out whole and is cut to the rank's block before it is
-spliced in.  On every family the logits come from the rank's columns of
+the partial products, and its caches (an enc-dec's self and cross K/V:
+its heads' block, which a prefill writes and admission splices as they
+are) stay its blocks throughout.  Every other family's compute (padded
+heads, an attention family sent to this path, and the attention of a
+split family whose kv heads do not divide the ranks) is replicated: the
+model gathers one layer's param and cache blocks whole just before the
+layer runs, drops them after and writes back only the rank's block of
+each cache it updated; a prefill's group cache comes out whole and is cut
+to the rank's block before it is spliced in.  On every family the logits come from the rank's columns of
 ``lm_head``, gathered.  Every rank computes what one device computes,
 from the same bits where the compute is replicated, and its tokens are
 the one-device engine's.  Collectives are placed differently from the

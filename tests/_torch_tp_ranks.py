@@ -162,7 +162,8 @@ def serve_gspmd_runs(rank: int, cases: list[dict],
     order)``; every run is a fresh ContinuousEngine over the job's ranks.
     -> ``runs``: per case, per run, the tokens of every request by its
     index, the path taken and why, and (GSPMD path) what
-    ``_resident_blocks`` says; ``swap``: ``staged_swap(rank, *swap)``'s
+    ``_resident_blocks`` says, the seams its split cuts and its cache
+    leaves' shapes; ``swap``: ``staged_swap(rank, *swap)``'s
     result, when ``swap`` is given."""
     mesh = mesh_lib.mesh_for((dist.get_world_size(),), ("model",))
     out = []
@@ -185,8 +186,12 @@ def serve_gspmd_runs(rank: int, cases: list[dict],
                               for u, i in uid_to_idx.items()},
                    "tp_path": eng.tp_path, "tp_reason": eng.tp_reason}
             if eng.layout is not None:
+                split = eng.layout.split
                 run.update(_resident_blocks(eng, params),
-                           gathered_bytes=eng.layout.gathered_bytes)
+                           gathered_bytes=eng.layout.gathered_bytes,
+                           split_cut=sorted(split.cut) if split else [],
+                           cache_shapes={k: tuple(v.shape) for k, v in
+                                         flatten(eng.caches).items()})
             runs.append(run)
         out.append(runs)
     return {"runs": out,
@@ -243,20 +248,23 @@ def staged_swap(rank: int, cfg, params_np, prompts, budgets, scfg,
 
 
 def layer_gathers(rank: int, cfgs: list, tokens_np: np.ndarray,
-                  max_len: int) -> list[dict]:
+                  max_len: int, extra_np: dict | None = None) -> list[dict]:
     """For each config (one a depth), ``steps.prefill_step`` then
-    ``steps.serve_step`` of ``tokens_np`` over the job's ranks on a
-    ``("model",)`` mesh, from seed-0 weights cut to this rank's blocks,
+    ``steps.serve_step`` of ``tokens_np`` (and the batch's ``extra_np``
+    inputs: an encoder-decoder's ``enc_embeds``) over the job's ranks on
+    a ``("model",)`` mesh, from seed-0 weights cut to this rank's blocks,
     each counted by the dry run's ``StepCounter`` -> per config and step,
     the bytes its layout recorded as gathered and its collectives' bytes
-    by op."""
+    by op, and the prefill's caches' shapes."""
     mesh = mesh_lib.mesh_for((dist.get_world_size(),), ("model",))
     out = []
     for cfg in cfgs:
         layout = steps.serve_layout(cfg, mesh, tokens_np.shape[0], max_len)
         params = partition.local_tree(M.init_lm(cfg, seed=0, device="cpu"),
                                       layout.params)
-        batch = {"tokens": torch.from_numpy(tokens_np)}
+        batch = {"tokens": torch.from_numpy(tokens_np),
+                 **{k: torch.from_numpy(v)
+                    for k, v in (extra_np or {}).items()}}
         box, res = {}, {}
 
         def prefill():
@@ -267,6 +275,8 @@ def layer_gathers(rank: int, cfgs: list, tokens_np: np.ndarray,
         res["prefill"] = {"gathered": layout.gathered_bytes,
                           "collectives": counts["collective_bytes"]}
         logits, caches = box["pre"]
+        res["cache_shapes"] = {k: tuple(v.shape)
+                               for k, v in flatten(caches).items()}
         first = logits.argmax(-1).to(torch.int32)
         layout.gathered_bytes = 0
         counts = dryrun.count(lambda: steps.serve_step(

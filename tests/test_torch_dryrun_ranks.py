@@ -12,7 +12,10 @@ tests/_torch_dryrun_ranks.py), qwen3-1.7b's smoke config in float32:
   all-to-alls (the mixer's re-lays) and all-reduces (the seams) there,
   no all-gather in training.
   A re-lay moves another number of columns on each rank, so each real
-  rank is held to the dry run counted as that rank of its fake world.
+  rank is held to the dry run counted as that rank of its fake world;
+* the same train step on (1, 2) for seamless's smoke config (enc-dec),
+  whose encoder, decoder and cross-attention and MLPs split their heads
+  and hidden dim along ``"model"``: all-reduces there, no all-gather.
 
 Collective bytes by op and by axis, FLOPs, the ops' bytes, the peak of
 live storage and param bytes a rank must be equal, on both ranks (the
@@ -199,3 +202,31 @@ def test_ssm_prefill_and_serve_counts_equal_the_real_ranks(real_ssm, arch):
                 + coll["all-to-all"]
     np.testing.assert_array_equal(sv[0]["tokens"], sv[0]["tokens_one_device"])
     np.testing.assert_array_equal(sv[1]["tokens"], sv[0]["tokens"])
+
+
+# ------------------------------------------------- the enc-dec's split
+@pytest.fixture(scope="module")
+def real_encdec():
+    """seamless's smoke config and the real ranks' train results on (1,
+    2), each row with its own standard-normal encoder context."""
+    cfg = configs.get_smoke("seamless-m4t-large-v2")
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "mask": np.ones((B, S), np.float32),
+             "enc_embeds": rng.standard_normal(
+                 (B, cfg.enc_len, cfg.d_model)).astype(np.float32)}
+    tr = spawn.run(ranks.train, 2, args=(cfg, _params(cfg), batch, [(1, 2)]),
+                   device="cpu", timeout_s=120.0, deadline_s=300.0)
+    return cfg, tr
+
+
+def test_encdec_train_step_counts_equal_the_real_ranks(real_encdec):
+    cfg, tr = real_encdec
+    want, pbytes = _dry(cfg, ShapeSpec("smoke", "train", S, B), (1, 2))
+    for rank in (0, 1):
+        assert _same(_flat(tr[rank][0]["counts"], ranks.AXES), want), rank
+        assert tr[rank][0]["param_bytes"] == pbytes
+    assert tr[0][0]["loss"] == tr[1][0]["loss"]
+    assert want["axis/model/all-gather"] == 0
+    assert want["axis/model/all-reduce"] > 0

@@ -174,9 +174,11 @@ def _chip_smoke():
 def test_chip_smoke_encoder_bound_and_traffic():
     """The bidirectional flash row's bound at seamless's encoder shape is
     set by operations: 4 * 16 * 4096**2 * 64 = 68.7 GFLOP at 989 TFLOP/s
-    dense bf16, 0.0695 ms.  The enc-dec traffic: 17 requests, prompts
-    4-32 tokens with the first two of 8 (one grouped prefill), 32-64 new
-    tokens, each with its own (enc_len, d_model) float32 context."""
+    dense bf16, 0.0695 ms, and at a rank's 8 heads half of it.  The
+    enc-dec traffic: 17 requests, prompts 4-32 tokens with the first two
+    of 8 (one grouped prefill), 32-64 new tokens, each with its own
+    (enc_len, d_model) float32 context; the mesh serving job's, its first
+    three with 2-4 new tokens."""
     import numpy as np
     smoke = _chip_smoke()
     b, hq, hkv, s, d = smoke.FLASH_ENCODER_SHAPE
@@ -185,6 +187,12 @@ def test_chip_smoke_encoder_bound_and_traffic():
     assert by == "operations"
     assert abs(ms - 4 * 16 * 4096 ** 2 * 64 / 989e12 * 1e3) < 1e-12
     assert abs(ms - 0.0695) < 1e-4
+    # a rank's 8 of the 16 heads when the encoder splits over 2 ranks
+    b, hq, hkv, s, d = smoke.FLASH_ENCODER_RANK_SHAPE
+    assert (hq, hkv) == (8, 8)
+    half, by = smoke.attention_bound_ms(b, hq, hkv, s, s, d, 2, False, None,
+                                        smoke.PEAK_FLOPS[torch.bfloat16])
+    assert by == "operations" and abs(half - ms / 2) < 1e-12
     cfg = configs.get_smoke("seamless-m4t-large-v2")
     prompts, budgets, extras = smoke._encdec_requests(cfg)
     lens = [len(p) for p in prompts]
@@ -196,6 +204,10 @@ def test_chip_smoke_encoder_bound_and_traffic():
     assert all(c.shape == (cfg.enc_len, cfg.d_model)
                and c.dtype == np.float32 for c in ctx)
     assert not np.array_equal(ctx[0], ctx[1])
+    # the mesh serving job's seamless requests: the first three, 2-4 new
+    prompts, budgets, extras = smoke._gspmd_encdec_requests(cfg)
+    assert [len(p) for p in prompts] == lens[:3] and budgets == [2, 3, 4]
+    assert len(extras) == 3
 
 
 def test_chip_smoke_counts_every_kernel_under_its_row():

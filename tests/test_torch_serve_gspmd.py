@@ -15,7 +15,10 @@ takes the manual path).  mamba2's and zamba2's runs split their SSM
 mixers' heads (and zamba2's shared block) along ``"model"``; their
 tokens are also the JAX package's one-device engine's, and one mamba2
 layer's re-lays in a dispatch move no more than the columns and channels
-its heads read, with no leaf gathered whole.  ``compressed_collectives``
+its heads read, with no leaf gathered whole.  seamless's run splits its
+encoder's, decoder's and cross-attention's heads and its MLPs at 2 ranks
+(its 2 kv heads divide them; at 4 only its MLPs): each rank's self and
+cross caches hold its heads, and a layer of it gathers nothing.  ``compressed_collectives``
 is refused off the manual path, and a promotion staged on the first rank
 (``--autotune`` on a mesh) swaps on every rank at the same step with
 tokens unchanged.  One job per mesh width runs every case."""
@@ -264,6 +267,53 @@ def test_an_ssm_layer_gathers_only_what_its_heads_read():
             assert 0 < layer <= bound < whole_in_proj, (rank, step, layer)
             assert layer == two[step]["collectives"]["all-to-all"] \
                 - one[step]["collectives"]["all-to-all"]
+
+
+@pytest.mark.parametrize("n", WIDTHS)
+def test_encdec_runs_its_heads_and_keeps_their_caches(served, n):
+    """seamless at 2 ranks splits its attention (its 2 kv heads divide
+    them) and MLPs: each rank's self and cross K/V hold one of the 2 kv
+    heads; at 4 ranks only its MLPs are split and the K/V stay whole."""
+    cfg = served[0]["seamless"]["cfg"]
+    heads = cfg.n_kv_heads // n if n == 2 else cfg.n_kv_heads
+    for runs in _per_rank(served, "seamless", n):
+        for run in runs:
+            assert run["split_cut"] == (["attn", "mlp"] if n == 2
+                                        else ["mlp"])
+            for leaf in ("self/k", "self/v", "cross/k", "cross/v"):
+                shape = run["cache_shapes"][leaf]
+                assert shape[-2:] == (heads, cfg.hd), (leaf, shape)
+            assert run["cache_shapes"]["cross/k"][2] == cfg.enc_len
+
+
+def test_an_encdec_layer_gathers_nothing():
+    """seamless's smoke config at 1 + 1 and 2 + 2 layers over 2 ranks:
+    the second encoder and decoder layers add nothing to what a prefill
+    or a decode step gathers (the embedding's rows and the logits'
+    columns, once a dispatch), and no all-to-all: no leaf of theirs and
+    no cache is gathered.  The prefill's self and cross K/V are the
+    rank's kv head."""
+    base = tconfigs.get_smoke("seamless-m4t-large-v2")
+    cfgs = [dataclasses.replace(base, enc_layers=k, dec_layers=k,
+                                n_layers=2 * k) for k in (1, 2)]
+    rng = np.random.default_rng(4)
+    rows, max_len = 2, 16
+    tokens = rng.integers(0, base.vocab, (rows, 8)).astype(np.int32)
+    ctx = {"enc_embeds": rng.standard_normal(
+        (rows, base.enc_len, base.d_model)).astype(np.float32)}
+    got = spawn.run(ranks.layer_gathers, 2,
+                    args=(cfgs, tokens, max_len, ctx), device="cpu",
+                    timeout_s=60.0, deadline_s=120.0)
+    for rank, (one, two) in enumerate(got):
+        for step in ("prefill", "decode"):
+            assert two[step]["gathered"] == one[step]["gathered"] > 0, \
+                (rank, step)
+            c1, c2 = one[step]["collectives"], two[step]["collectives"]
+            assert c2["all-gather"] == c1["all-gather"], (rank, step)
+            assert c2["all-to-all"] == 0
+            assert c2["all-reduce"] > c1["all-reduce"]     # the seams
+        for leaf in ("self/k", "cross/k"):
+            assert two["cache_shapes"][leaf][-2] == base.n_kv_heads // 2
 
 
 @pytest.mark.parametrize("name,n", [

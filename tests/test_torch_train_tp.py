@@ -22,10 +22,16 @@ tests/_torch_train_tp_ranks.py):
   (``in_proj`` and the conv whole), held the same ways, and their first
   moments also within 2e-4 a leaf of the reference's own one-device
   ``repro.launch.steps.train_step`` on the same numpy weights and batch;
+* seamless's smoke config (enc-dec: the encoder's, the decoder's self-
+  and cross-attention's heads, both MLPs and the decoder's vocab cut) on
+  (1, 2), (1, 4) (2 kv heads shared by 4 ranks: each reads its query
+  head's) and (2, 2), held the same ways, its first moment also within
+  2e-4 a leaf of the reference's one-device ``train_step``;
 * which seams :func:`~repro_torch.launch.steps.model_split` cuts, and
   where it falls back: kv heads fewer than the ranks read their query
   heads' kv head; heads that do not divide the ranks gather the attention
-  whole; the enc-dec family and padded heads split nothing.
+  (an enc-dec's three attention subtrees) whole; padded heads split
+  nothing.
 """
 
 import dataclasses
@@ -60,6 +66,9 @@ SSM_CASES = [(a, {}, m) for a in ("mamba2-2.7b", "zamba2-7b")
              for m in ((1, 2), (2, 2))] + \
     [("mamba2-2.7b", {"d_model": 96}, (1, 2)),
      ("mamba2-2.7b", {"ssm_state": 15}, (1, 4))]
+#: seamless's smoke config (4 heads, 2 kv heads, vocab 512) on every mesh
+ENCDEC_CASES = [("seamless-m4t-large-v2", {}, m)
+                for m in ((1, 2), (1, 4), (2, 2))]
 #: (mask, logits_microbatch, mesh) of the cross-entropy cases
 XENT = [(m, mb, mesh) for mesh in MESHES for m in (False, True)
         for mb in (0, 4)]
@@ -122,7 +131,8 @@ def test_vocab_parallel_xent_is_the_one_device_xent(xent_runs, i):
 
 # ---------------------------------------------------------- sharded steps
 #: every case of the sharded steps: (arch, smoke overrides, mesh)
-STEP_CASES = [(a, {}, m) for a in ARCHS for m in MESHES] + SSM_CASES
+STEP_CASES = [(a, {}, m) for a in ARCHS for m in MESHES] + SSM_CASES \
+    + ENCDEC_CASES
 CASE_IDS = [f"{a}{''.join(f'-{k}{v}' for k, v in o.items())}-{m[0]}x{m[1]}"
             for a, o, m in STEP_CASES]
 
@@ -170,18 +180,39 @@ def test_no_leaf_is_gathered_along_model(stepped, i):
 
 @pytest.mark.parametrize("i", range(len(STEP_CASES)), ids=CASE_IDS)
 def test_sharded_step_is_the_one_device_step(stepped, i):
-    one, cases, got = stepped
-    want = {"/".join(k): v for k, v in one[i]["mu"].items()}
-    mu = got[0][i]["mu"]
-    assert sorted(mu) == sorted(want)
-    errs = {k: float(np.max(np.abs(mu[k] - want[k]))
-                     / (np.max(np.abs(want[k])) + 1e-12)) for k in want}
-    assert max(errs.values()) < REL, errs
+    one, _, got = stepped
+    _assert_mu(got[0][i]["mu"],
+               {"/".join(k): v for k, v in one[i]["mu"].items()})
 
 
 #: the SSM cases held to the reference too: each config's first, on (1, 2)
 REFERENCE_CASES = [i for i, (_, _, m) in enumerate(STEP_CASES)
                    if STEP_CASES[i] in SSM_CASES and m == (1, 2)]
+
+
+def _reference_mu(case) -> dict:
+    """The first moment after the JAX package's one-device ``train_step``
+    from the case's numpy weights and batch, by leaf path; run without
+    remat (the same math; its remat's compile takes ~19 s a config on the
+    CPU)."""
+    jax = pytest.importorskip("jax")
+    from repro.launch import steps as jsteps
+    from repro.models.config import ModelConfig as JConfig
+    from repro.optim import adamw as jadamw
+    jp = jax.tree.map(jax.numpy.asarray, case["params"])
+    _, opt, _ = jsteps.train_step(
+        jp, jadamw.init_opt_state(jp),
+        {k: jax.numpy.asarray(v) for k, v in case["batch"].items()},
+        cfg=JConfig(**{**dataclasses.asdict(case["cfg"]), "remat": False}),
+        opt_cfg=jadamw.OptConfig())
+    return {"/".join(k): np.asarray(v) for k, v in steps._items(opt["mu"])}
+
+
+def _assert_mu(mu: dict, want: dict) -> None:
+    assert sorted(mu) == sorted(want)
+    errs = {k: float(np.max(np.abs(mu[k] - want[k]))
+                     / (np.max(np.abs(want[k])) + 1e-12)) for k in want}
+    assert max(errs.values()) < REL, errs
 
 
 @pytest.mark.parametrize("i", REFERENCE_CASES,
@@ -191,27 +222,31 @@ def test_ssm_sharded_step_is_the_reference_step(stepped, i):
     sharded step on (1, 2), gathered whole, is the JAX package's
     one-device ``train_step``'s from the same numpy weights and batch,
     within 2e-4 of each leaf's largest entry (the other meshes are held to
-    the port's one-device step, which is the same for every mesh).  The
-    reference runs without remat (the same math; its remat's compile takes
-    ~19 s a config on the CPU)."""
-    jax = pytest.importorskip("jax")
-    from repro.launch import steps as jsteps
-    from repro.models.config import ModelConfig as JConfig
-    from repro.optim import adamw as jadamw
+    the port's one-device step, which is the same for every mesh)."""
     _, cases, got = stepped
-    case = cases[i]
-    jp = jax.tree.map(jax.numpy.asarray, case["params"])
-    _, opt, _ = jsteps.train_step(
-        jp, jadamw.init_opt_state(jp),
-        {k: jax.numpy.asarray(v) for k, v in case["batch"].items()},
-        cfg=JConfig(**{**dataclasses.asdict(case["cfg"]), "remat": False}),
-        opt_cfg=jadamw.OptConfig())
-    want = {"/".join(k): np.asarray(v) for k, v in steps._items(opt["mu"])}
-    mu = got[0][i]["mu"]
-    assert sorted(mu) == sorted(want)
-    errs = {k: float(np.max(np.abs(mu[k] - want[k]))
-                     / (np.max(np.abs(want[k])) + 1e-12)) for k in want}
-    assert max(errs.values()) < REL, errs
+    _assert_mu(got[0][i]["mu"], _reference_mu(cases[i]))
+
+
+#: the enc-dec cases, every mesh held to the reference
+ENCDEC_INDICES = [STEP_CASES.index(c) for c in ENCDEC_CASES]
+
+
+@pytest.fixture(scope="module")
+def encdec_reference(stepped):
+    """The reference's first moment of the enc-dec cases (one config, one
+    init and one batch for every mesh: one run)."""
+    return _reference_mu(stepped[1][ENCDEC_INDICES[0]])
+
+
+@pytest.mark.parametrize("i", ENCDEC_INDICES,
+                         ids=[CASE_IDS[i] for i in ENCDEC_INDICES])
+def test_encdec_sharded_step_is_the_reference_step(stepped,
+                                                   encdec_reference, i):
+    """seamless's first moment after one sharded step on (1, 2), (1, 4)
+    and (2, 2), its encoder, decoder and cross-attention split by heads,
+    gathered whole, is the JAX package's one-device ``train_step``'s from
+    the same numpy weights and batch, within 2e-4 a leaf."""
+    _assert_mu(stepped[2][0][i]["mu"], encdec_reference)
 
 
 def test_the_seams_each_config_cuts(stepped):
@@ -228,11 +263,16 @@ def test_the_seams_each_config_cuts(stepped):
         assert cut["mamba2-2.7b", d, (1, 2)] == ["ssm", "vocab"]
     assert cut["zamba2-7b", 128, (1, 2)] == ["attn", "mlp", "ssm", "vocab"]
     assert cut["mamba2-2.7b", 128, (1, 4)] == ["ssm", "vocab"]
-    local = got[0][next(i for i, c in enumerate(cases)
-                        if c["arch"] == "qwen3-1.7b" and c["mesh"] == (1, 4))]
-    # 4 heads over 4 ranks, 2 kv heads shared: one of each a rank
-    assert (local["local_cfg"]["n_heads"],
-            local["local_cfg"]["n_kv_heads"]) == (1, 1)
+    # the enc-dec's three attention subtrees, two MLPs and decoder vocab
+    for mesh in ((1, 2), (1, 4), (2, 2)):
+        assert cut["seamless-m4t-large-v2", 128, mesh] == ["attn", "mlp",
+                                                           "vocab"]
+    for arch in ("qwen3-1.7b", "seamless-m4t-large-v2"):
+        local = got[0][next(i for i, c in enumerate(cases)
+                            if c["arch"] == arch and c["mesh"] == (1, 4))]
+        # 4 heads over 4 ranks, 2 kv heads shared: one of each a rank
+        assert (local["local_cfg"]["n_heads"],
+                local["local_cfg"]["n_kv_heads"]) == (1, 1)
 
 
 class _FakeMesh:
@@ -290,11 +330,60 @@ def test_ssm_split_falls_back_where_a_dim_does_not_divide(over, mesh, cut,
     assert {"/".join(p) for p in split.summed} == summed
 
 
+#: an enc-dec's attention subtrees
+ENCDEC_ATTN = ("enc_blocks/attn", "dec_blocks/attn", "dec_blocks/xattn")
+
+
+@pytest.mark.parametrize("kw,cut,whole", [
+    # 6 heads over 4 ranks do not divide: nothing of the three attention
+    # subtrees is cut, and their compute is replicated
+    (dict(n_heads=6, n_kv_heads=3), {"mlp", "vocab"}, set()),
+    # 12 heads cut 4 ways, but 3 kv heads neither cut nor map a rank's
+    # heads to one kv head: every subtree's wq and wo are gathered whole
+    (dict(n_heads=12, n_kv_heads=3), {"mlp", "vocab"},
+     {f"{t}/{k}" for t in ENCDEC_ATTN for k in ("wq", "wo")}),
+])
+def test_encdec_split_falls_back_where_heads_do_not_divide(kw, cut, whole):
+    cfg = _cfg("seamless-m4t-large-v2", **kw)
+    mesh = _FakeMesh((1, 4))
+    for serving in (False, True):
+        split = steps.model_split(cfg, mesh, steps.param_shardings(
+            cfg, mesh), serving=serving)
+        # serving has no vocab seam: its embedding and logits read the
+        # vocab blocks through their own hooks (``take``, ``by_columns``)
+        vocab = {"dec_embed", "lm_head"} if serving else set()
+        assert set(split.cut) == (cut - {"vocab"} if serving else cut)
+        assert {"/".join(p) for p in split.whole} == whole | vocab
+        assert split.kv is None and split.caches == frozenset()
+
+
 def test_families_the_seams_do_not_cover_split_nothing():
+    """Padded heads split nothing.  seamless's smoke config (4 heads, 2 kv
+    heads) cuts its attention and MLPs on every mesh its heads divide,
+    and its vocab where 512 divides the ranks; its full config's vocab of
+    256,206 divides 2 ranks but not 4 or 16."""
     mesh = _FakeMesh((1, 4))
     cfg = _cfg("seamless-m4t-large-v2")
-    assert steps.model_split(cfg, mesh,
-                             steps.param_shardings(cfg, mesh)) is None
+    split = steps.model_split(cfg, mesh, steps.param_shardings(cfg, mesh))
+    assert split.cut == {"attn", "mlp", "vocab"}
+    assert split.kv == 1 and split.whole == frozenset()
+    assert split.summed == {(*t.split("/"), k) for t in ENCDEC_ATTN
+                            for k in ("wk", "wv")}
+    full = configs.get("seamless-m4t-large-v2")
+    for n, want in ((2, {"attn", "mlp", "vocab"}), (4, {"attn", "mlp"}),
+                    (16, {"attn", "mlp"})):
+        fake = _FakeMesh((1, n))
+        split = steps.model_split(full, fake, steps.param_shardings(
+            full, fake))
+        # a vocab that does not divide is laid out whole: nothing to gather
+        assert split.cut == want and split.whole == frozenset(), n
+    # on the serving path its kv heads must be cut (2 kv heads, 2 ranks)
+    # and its self and cross caches are the ranks' blocks
+    fake = _FakeMesh((1, 2))
+    split = steps.model_split(cfg, fake, steps.param_shardings(cfg, fake),
+                              serving=True)
+    assert split.cut == {"attn", "mlp"}
+    assert split.caches == {("self",), ("cross",)}
     cfg = dataclasses.replace(_cfg("qwen3-1.7b"), padded_heads=8)
     assert steps.model_split(cfg, mesh,
                              steps.param_shardings(cfg, mesh)) is None
